@@ -1,0 +1,79 @@
+"""BSDF scatter functions over ray wavefronts.
+
+Counterparts of ``learn_path_tracing_tpu.bsdf.bsdf``: both the metal and the
+dielectric lobe are computed for every lane and the result is selected with
+``torch.where``. Key behaviour, as in the JAX package:
+
+- Fresnel is evaluated against the roughness-perturbed normal ``n`` for both
+  metal (F0 = albedo) and dielectric (F0 = ((ior-1)/(ior+1))²).
+- The dielectric's diffuse branch samples about the *geometric* hit normal.
+- The new ray origin is the hit point with no epsilon offset; the t ≥ 1e-4
+  test of the world scan avoids self-intersection.
+
+``scatter_legacy`` comes with the mesh line.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core import rng
+from ..core.types import Hits, Rays
+from . import sampling as sp
+
+
+def scatter_diffuse(rays: Rays, hits: Hits, base) -> Rays:
+    """Stage-6 Lambertian-only scatter."""
+    u1, u2 = rng.uniform2(base, 0)
+    rd = sp.sample_lambertian(hits.normal, u1, u2)
+    return Rays(
+        ro=hits.point,
+        rd=rd,
+        throughput=rays.throughput * hits.material.albedo,
+        alive=rays.alive,
+    )
+
+
+def scatter_modern(rays: Rays, hits: Hits, base) -> Rays:
+    """Stages 7-10 dispatch: metallic==1 → metal, else dielectric."""
+    d = rays.rd
+    mat = hits.material
+    u1, u2 = rng.uniform2(base, 0)
+    u_roulette = rng.uniform(base, 2)
+    u3, u4 = rng.uniform2(base, 3)
+
+    n = sp.sample_normal(d, hits.normal, mat.roughness[..., None], u1, u2)
+    cos_theta = torch.clamp_min(torch.sum(n * (-d), dim=-1), 0.0)
+
+    # Metal lobe: tinted fresnel attenuation, mirror about perturbed normal.
+    f_metal = sp.schlick(cos_theta[..., None], mat.albedo)
+    rd_metal = sp.reflect(d, n)
+    l_metal = rays.throughput * f_metal
+
+    # Dielectric lobe: scalar Schlick roulette between specular reflection and
+    # (refraction if transparent else diffuse), tinting only the non-specular path.
+    q = (mat.ior - 1.0) / (mat.ior + 1.0)
+    f_diel = sp.schlick(cos_theta, q * q)
+    rd_refract = sp.refract(d, n, mat.ior)
+    rd_diffuse = sp.sample_lambertian(hits.normal, u3, u4)
+    transmit = u_roulette > f_diel
+    is_transparent = mat.transparency > 0.0
+    rd_nonspec = torch.where(is_transparent[..., None], rd_refract, rd_diffuse)
+    rd_diel = torch.where(transmit[..., None], rd_nonspec, sp.reflect(d, n))
+    l_diel = torch.where(
+        transmit[..., None], rays.throughput * mat.albedo, rays.throughput
+    )
+
+    is_metal = (mat.metallic == 1.0)[..., None]
+    return Rays(
+        ro=hits.point,
+        rd=torch.where(is_metal, rd_metal, rd_diel),
+        throughput=torch.where(is_metal, l_metal, l_diel),
+        alive=rays.alive,
+    )
+
+
+SCATTERERS = {
+    "diffuse": scatter_diffuse,
+    "modern": scatter_modern,
+}

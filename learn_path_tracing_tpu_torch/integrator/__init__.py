@@ -1,0 +1,4 @@
+from .persistent import render_persistent
+from .wavefront import render, sky_background, trace_sample
+
+__all__ = ["render", "render_persistent", "sky_background", "trace_sample"]

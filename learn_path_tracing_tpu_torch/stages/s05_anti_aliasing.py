@@ -1,0 +1,28 @@
+"""Stage 5: jittered primary rays, 100 spp accumulation
+(5_anti_aliasing/__main__.py: same scene as stage 4, camera at (0,0,3))."""
+
+import time
+
+from ..camera import Camera
+from ..core import image
+from ..models import stage4_scene
+from .common import parse_args, render_normal_shaded_aa
+from ..utils.config import STAGE_CONFIGS
+
+
+def main(argv=None):
+    args = parse_args(STAGE_CONFIGS[5], description=__doc__, argv=argv)
+    res = (args.width, args.height)
+    cam = Camera(res)
+    cam.set_direction(0, 0)
+    cam.set_position((0.0, 0.0, 3.0))
+    start = time.time()
+    img = render_normal_shaded_aa(stage4_scene().device(args.device),
+                                  cam.params(args.device), res, args.spp)
+    print(f"Time elapsed: {time.time() - start:.2f}s")
+    image.write_png(img, args.out or "outputs/5_anti_aliasing.png")
+    return img
+
+
+if __name__ == "__main__":
+    main()

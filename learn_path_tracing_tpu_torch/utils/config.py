@@ -1,0 +1,55 @@
+"""Render configuration (the reference's module-level constants, as data).
+
+Counterpart of ``learn_path_tracing_tpu.utils.config`` for the modern stages
+1-10: resolution / spp / propagate_limit / seed plus the integrator options
+and the torch device. The port reads no environment variables.
+"""
+
+from __future__ import annotations
+
+from dataclasses import asdict, dataclass, replace
+
+
+@dataclass(frozen=True)
+class RenderConfig:
+    width: int = 1280
+    height: int = 720
+    spp: int = 128
+    propagate_limit: int = 32
+    seed: int = 0
+    bsdf: str = "modern"          # diffuse | modern
+    scene: str = "spheres"
+    camera_model: str = "thinlens"
+    hit_backend: str = "auto"     # auto | cuda | xla
+    out: str | None = None        # output path override (stages/CLI)
+    device: str = "cpu"           # torch device the render runs on
+
+    @property
+    def resolution(self):
+        return (self.width, self.height)
+
+    @property
+    def limit(self):
+        return self.propagate_limit
+
+    def with_(self, **kw) -> "RenderConfig":
+        return replace(self, **kw)
+
+    def to_dict(self) -> dict:
+        return asdict(self)
+
+
+# Stage presets of the modern stages 1-10 (file:line cites in stages/*.py of
+# the JAX package). The legacy stages come with the mesh slice.
+STAGE_CONFIGS = {
+    1: RenderConfig(width=256, height=256, spp=1),
+    2: RenderConfig(spp=1),
+    3: RenderConfig(spp=1),
+    4: RenderConfig(spp=1),
+    5: RenderConfig(spp=100),
+    6: RenderConfig(spp=8192, bsdf="diffuse"),
+    7: RenderConfig(spp=8192),
+    8: RenderConfig(spp=8192),
+    9: RenderConfig(spp=8192),
+    10: RenderConfig(spp=8192),
+}
