@@ -3,24 +3,52 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (``learn_path_tracing_tpu_torch``: the stage-10
-cover scene through ``stages.common.run_path_traced`` →
-``integrator.persistent.render_persistent`` → ``scene.world.hit`` → the
-sphere-scan kernel) and checks it:
+Drives the port's two paths and checks them:
+
+- the 10_final sphere path: the stage-10 cover scene through
+  ``stages.common.run_path_traced`` → ``integrator.persistent`` →
+  ``scene.world.hit`` → the sphere-scan kernel (K1);
+- the legacy mesh path: ``stages.l14_mesh`` on a saved ``.world.npy`` →
+  ``viewer.progressive`` → ``integrator.hybrid`` →
+  ``scene.legacy_world`` → the packet-traversal kernel with triangle
+  leaves (K2); a world of 8,192 spheres takes the same kernel with sphere
+  leaves (K3).
+
+Phases:
 
 1. prints the card, its power limit, and the torch and CUDA versions;
-2. builds every kernel of the path from the sources in the checkout;
+2. builds every kernel from the sources in the checkout (one ``nvcc`` per
+   source, all started together) and prints ``ptxas``'s register, memory
+   and spill lines;
 3. holds each kernel against its plain PyTorch twin on the card, at the
-   main path's shapes (the 57,344-ray primary wavefront of the cover scene
-   at 1280x720, its first bounce, and random rays, some inside glass
-   spheres): bitwise equal, timed with CUDA events (median of 20 runs);
-4. renders a small image on the card and on the CPU and holds them to the
-   agreement bounds of ``utils.checks`` (the CPU tests hold the port to the
-   JAX package with the same bounds);
-5. renders the full 1280x720, 64 spp, depth-32 cover scene after a warm-up,
-   with every kernel launch count reset just before, and checks that the
-   sphere-scan kernel was launched once per ``hit`` call and that the image
-   is finite with a sane mean; writes ``outputs/chip_smoke_10_final.png``.
+   paths' shapes, bitwise, timed with CUDA events (median of 20 runs):
+   K1 on the cover scene's wavefronts; K2 on the stand-in mesh's
+   1,843,200-ray primary slab (640x360, 8 samples), its first-bounce
+   survivors, random rays with random ``t_init`` and half the lanes
+   inactive, and rays starting on the surface; K3 on the same four kinds
+   of ray sets over the 8,192 spheres;
+4. renders small images on the card and on the CPU (cover scene,
+   persistent; stand-in mesh + a sphere, hybrid) and holds each pair to
+   the agreement bounds of ``utils.checks``;
+5. with every launch count set to 0 just before each and read just after:
+   a hybrid render of the sphere world (the K3 path); the 640x360, 64 spp,
+   depth-32 stand-in render through ``stages.l14_mesh`` after a warm-up,
+   checking that the K2 launches equal the traversal calls the integrator
+   counts (slabs plus pool passes), that the image is finite with a sane
+   mean (``outputs/chip_smoke_l14_standin.png``); and the 1280x720, 64 spp,
+   depth-32 cover scene (``outputs/chip_smoke_10_final.png``), checking
+   one K1 launch per ``hit`` call.
+
+The stand-in world (``standin_world``) takes the place of the reference's
+Yoimiya character, whose assets are not in the repository: one closed mesh
+of 23,424 triangles (a displaced, subdivided icosphere 16 units tall on a
+tessellated base), a 1024² PBR texture set and a 2048x1024 HDR
+environment, all made from a seed.
+
+``python3 chip_smoke.py --profile-mesh`` runs only the kernel build and
+``mesh_profile``: where the stand-in frame's time goes (frame times, the
+profiler's device busy time and K2's share, peak memory, synchronised
+per-layer host times), printed as one JSON line.
 
 Any failed phase raises, so the script exits non-zero. The last lines are
 the ``nvidia-smi`` name and power limit, a JSON line of the kernels, and
@@ -35,12 +63,20 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 RES = (1280, 720)
 SPP = 64
 DEPTH = 32
 SCENE_SEED = 20230328
 SMALL_RES, SMALL_SPP, SMALL_LIMIT = (64, 36), 4, 8
+
+# legacy mesh path: the shape of bench.py --scene yoimiya
+MESH_RES, MESH_SPP, MESH_DEPTH, MESH_CHUNK = (640, 360), 64, 32, 8
+STANDIN_SEED = 20231016
+STANDIN_TEX, STANDIN_ENV = 1024, (2048, 1024)   # PBR set side, EXR (w, h)
+N_SPHERES = 8192          # past the 4,096-sphere brute-scan ceiling: K3
+TWIN_RAYS = 65536         # rays of the random and on-surface twin sets
 
 
 def _log(msg):
@@ -227,31 +263,600 @@ def headline(device):
     return launches
 
 
-def main() -> int:
+# ------------------------------------------------------- the mesh path --
+
+def _icosphere(level):
+    """Unit icosphere: ``(verts f64[V,3], faces i64[F,3])``, F = 20 * 4**level."""
+    import numpy as np
+
+    t = (1.0 + 5 ** 0.5) / 2.0
+    verts = [(-1, t, 0), (1, t, 0), (-1, -t, 0), (1, -t, 0), (0, -1, t), (0, 1, t),
+             (0, -1, -t), (0, 1, -t), (t, 0, -1), (t, 0, 1), (-t, 0, -1), (-t, 0, 1)]
+    verts = [np.array(v, np.float64) / np.linalg.norm(v) for v in verts]
+    faces = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11), (1, 5, 9),
+             (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8), (3, 9, 4), (3, 4, 2),
+             (3, 2, 6), (3, 6, 8), (3, 8, 9), (4, 9, 5), (2, 4, 11), (6, 2, 10),
+             (8, 6, 7), (9, 8, 1)]
+    for _ in range(level):
+        mid = {}
+
+        def midpoint(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in mid:
+                m = verts[a] + verts[b]
+                verts.append(m / np.linalg.norm(m))
+                mid[key] = len(verts) - 1
+            return mid[key]
+
+        nxt = []
+        for a, b, c in faces:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            nxt += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
+        faces = nxt
+    return np.array(verts), np.array(faces, np.int64)
+
+
+def _standin_mesh(level, seed, segments=64, rings=6, rows=12):
+    """One closed figure on a base, as a ``MeshData``: an icosphere of
+    ``level`` subdivisions displaced by seeded smooth noise and stretched
+    into a 16-unit-tall body (centre (0, 8.5, 0)), on a cylinder of radius
+    4 and height 0.5 tessellated with ``segments`` x (``rings`` per cap,
+    ``rows`` on the side). ``level`` 5 gives 20,480 + 2,944 = 23,424
+    triangles, the size of the reference's Yoimiya mesh."""
+    import numpy as np
+
+    from learn_path_tracing_tpu_torch.io.obj import MeshData
+
+    rs = np.random.default_rng(seed)
+    unit, faces = _icosphere(level)
+    waves = rs.normal(size=(8, 3)) * 2.5
+    phase = rs.uniform(0, 2 * np.pi, 8)
+    amp = rs.uniform(0.02, 0.05, 8)
+    bump = 1.0 + np.sin(unit @ waves.T + phase) @ amp
+    body = unit * bump[:, None] * np.array([3.0, 8.0, 3.0]) + np.array([0.0, 8.5, 0.0])
+    # area-weighted vertex normals of the displaced body
+    fn = np.cross(body[faces[:, 1]] - body[faces[:, 0]], body[faces[:, 2]] - body[faces[:, 0]])
+    vn = np.zeros_like(body)
+    for k in range(3):
+        np.add.at(vn, faces[:, k], fn)
+    vn /= np.linalg.norm(vn, axis=1, keepdims=True)
+    uv = np.stack([np.arctan2(unit[:, 2], unit[:, 0]) / (2 * np.pi) + 0.5,
+                   (unit[:, 1] + 1.0) / 2.0], axis=1)
+
+    # base: two capped discs of concentric rings plus the side wall, each
+    # with its own vertices (flat normals), closed where they meet
+    ang = np.arange(segments) * (2 * np.pi / segments)
+    ring_xz = np.stack([np.cos(ang), np.sin(ang)], axis=1)
+    pos, nrm, tex, tris = [body], [vn], [uv], [faces]
+    count = body.shape[0]
+
+    def add(p, n, t, f):
+        nonlocal count
+        pos.append(p)
+        nrm.append(n)
+        tex.append(t)
+        tris.append(f + count)
+        count += p.shape[0]
+
+    for y, up in ((0.5, 1.0), (0.0, -1.0)):
+        radii = np.arange(1, rings + 1) * (4.0 / rings)
+        p = [np.array([[0.0, y, 0.0]])]
+        for r in radii:
+            p.append(np.stack([r * ring_xz[:, 0], np.full(segments, y), r * ring_xz[:, 1]], 1))
+        p = np.concatenate(p)
+        f = []
+        nxt = np.roll(np.arange(segments), -1)
+        f += [(0, 1 + j, 1 + nxt[j]) for j in range(segments)]
+        for k in range(rings - 1):
+            a, b = 1 + k * segments, 1 + (k + 1) * segments
+            for j in range(segments):
+                f += [(a + j, b + j, b + nxt[j]), (a + j, b + nxt[j], a + nxt[j])]
+        f = np.array(f, np.int64)
+        if up < 0:
+            f = f[:, ::-1]
+        add(p, np.tile([0.0, up, 0.0], (p.shape[0], 1)),
+            (p[:, [0, 2]] / 8.0) + 0.5, f)
+    ys = np.linspace(0.0, 0.5, rows + 1)
+    p = np.concatenate([np.stack([4.0 * ring_xz[:, 0], np.full(segments, y),
+                                  4.0 * ring_xz[:, 1]], 1) for y in ys])
+    n = np.tile(np.stack([ring_xz[:, 0], np.zeros(segments), ring_xz[:, 1]], 1), (rows + 1, 1))
+    t = np.stack([np.tile(ang / (2 * np.pi), rows + 1), np.repeat(ys * 2.0, segments)], 1)
+    nxt = np.roll(np.arange(segments), -1)
+    f = []
+    for k in range(rows):
+        a, b = k * segments, (k + 1) * segments
+        for j in range(segments):
+            f += [(a + j, b + nxt[j], b + j), (a + j, a + nxt[j], b + nxt[j])]
+    add(p, n, t, np.array(f, np.int64))
+
+    faces = np.concatenate(tris).astype(np.int32)
+    return MeshData(
+        positions=np.concatenate(pos).astype(np.float32),
+        normals=np.concatenate(nrm).astype(np.float32),
+        uvs=np.concatenate(tex).astype(np.float32),
+        face_p=faces, face_n=faces.copy(), face_t=faces.copy(),
+        face_tex=np.zeros(faces.shape[0], np.int32))
+
+
+def _standin_assets(directory, seed, tex_size, env_size):
+    """A PBR texture set ``<dir>/standin_{albedo,roughness,metallic,normal}.png``
+    of ``tex_size``² and an equirect HDR ``<dir>/standin_env.exr`` of
+    ``env_size`` (w, h): a sky gradient over a dark ground with a sun of
+    radiance ~40. Returns ``(texture base path, exr path)``."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from learn_path_tracing_tpu_torch.io.exr import write_exr
+
+    rs = np.random.default_rng(seed)
+    s = tex_size
+    y, x = np.mgrid[0:s, 0:s] / s
+    stripes = (np.sin(2 * np.pi * 12 * y + 3 * np.sin(2 * np.pi * 3 * x)) > 0).astype(np.float32)
+    noise = rs.uniform(0, 1, (s // 16, s // 16)).repeat(16, 0).repeat(16, 1)
+    albedo = np.stack([0.75 * stripes + 0.2, 0.35 + 0.3 * noise, 0.25 + 0.5 * (1 - stripes)], -1)
+    rough = 0.25 + 0.6 * noise
+    metal = ((np.sin(2 * np.pi * 4 * y) > 0.7) * 1.0).astype(np.float32)
+    nrm = np.stack([0.5 + 0.1 * np.sin(2 * np.pi * 32 * x), 0.5 + 0.1 * np.cos(2 * np.pi * 32 * y),
+                    np.ones_like(x)], -1)
+    base = os.path.join(directory, "standin")
+    for name, img in (("albedo", albedo), ("roughness", rough), ("metallic", metal),
+                      ("normal", nrm)):
+        Image.fromarray((np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8)).save(
+            f"{base}_{name}.png")
+
+    w, h = env_size
+    el = (0.5 - (np.arange(h) + 0.5) / h) * np.pi                # row 0 = zenith
+    az = (np.arange(w) + 0.5) / w * 2 * np.pi - np.pi
+    sky = np.array([0.25, 0.45, 1.2]) + (np.array([1.1, 1.0, 0.9]) - np.array([0.25, 0.45, 1.2])) \
+        * np.exp(-np.abs(el) * 4.0)[:, None]
+    ground = np.array([0.25, 0.2, 0.15])
+    env = np.where((el > 0)[:, None, None], sky[:, None, :], ground)[:, :, :] * np.ones((h, w, 3))
+    sun_el, sun_az = 0.6, 0.8
+    cosang = (np.sin(el)[:, None] * np.sin(sun_el)
+              + np.cos(el)[:, None] * np.cos(sun_el) * np.cos(az[None, :] - sun_az))
+    env += 40.0 * np.exp((cosang - 1.0) * 400.0)[:, :, None]
+    exr = os.path.join(directory, "standin_env.exr")
+    write_exr(exr, env.astype(np.float32), half=True)
+    return base, exr
+
+
+def standin_world(directory, level=5, tex_size=STANDIN_TEX, env_size=STANDIN_ENV,
+                  seed=STANDIN_SEED, sphere=False):
+    """The stand-in for the reference's character worlds, as a populated
+    ``LegacyWorld`` (call ``build()``): ``_standin_mesh(level)``, its
+    texture set and environment written to ``directory``, and optionally a
+    glass-free sphere beside the figure (the GPU-vs-CPU world)."""
+    from learn_path_tracing_tpu_torch.scene.legacy_world import LegacyWorld
+
+    tex, exr = _standin_assets(directory, seed, tex_size, env_size)
+    world = LegacyWorld()
+    world.add_mesh(_standin_mesh(level, seed))
+    if sphere:
+        world.add_sphere((6.0, 3.0, -2.0), 3.0, transparency=0, texture_id=0)
+    world.textures.add(tex, 0)
+    world.environments.add(exr, 0, size=env_size)
+    world.set_environment(0)
+    return world
+
+
+def l14_camera(res):
+    """The camera of ``stages.l14_mesh``."""
+    from learn_path_tracing_tpu_torch.camera import LegacyCamera
+
+    cam = LegacyCamera(res)
+    cam.set_fov(30)
+    cam.set_position((0, 8, -30))
+    cam.look_at((0, 8, 0))
+    return cam
+
+
+def sphere_world():
+    """8,192 seeded spheres (a tenth of them glass) in a 60-unit box: past
+    the brute-scan ceiling, so ``build`` packs sphere tables for K3."""
+    import numpy as np
+
+    from learn_path_tracing_tpu_torch.scene.legacy_world import LegacyWorld
+
+    rs = np.random.default_rng(STANDIN_SEED + 1)
+    world = LegacyWorld()
+    centers = rs.uniform(-30, 30, (N_SPHERES, 3)) + np.array([0.0, 8.0, 40.0])
+    for c, r, glass in zip(centers, rs.uniform(0.2, 1.2, N_SPHERES),
+                           rs.uniform(size=N_SPHERES) < 0.1):
+        world.add_sphere(tuple(c), float(r), transparency=int(glass))
+    world.textures.add("missing", 0, size=(8, 8))
+    world.set_environment(0)
+    return world
+
+
+def _build_quiet(world, **kw):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # the sphere world's missing texture
+        return world.build(**kw)
+
+
+def traversal_sets(wd, tables, stack, leaf_kind, device, seed):
+    """Ray sets for a packet-kernel check, at the mesh path's shapes:
+    ``{name: (ro, rd, t_init, active)}``. The bounce set is traced with
+    the plain twin, so it does not depend on the kernel under test."""
     import torch
 
+    from learn_path_tracing_tpu_torch.bsdf.bsdf import scatter_legacy
+    from learn_path_tracing_tpu_torch.camera.camera import generate_rays_for_pixels
+    from learn_path_tracing_tpu_torch.core import rng
+    from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
+    from learn_path_tracing_tpu_torch.scene.legacy_world import shade_from_trace
+
+    # the primary slab of render_hybrid's first chunk (pixel-major)
+    n = MESH_RES[0] * MESH_RES[1]
+    lanes = torch.arange(n * MESH_CHUNK, dtype=torch.int64, device=device)
+    pixel, sample = lanes // MESH_CHUNK, lanes % MESH_CHUNK
+    cam = l14_camera(MESH_RES).params(device)
+    prim = generate_rays_for_pixels(cam, MESH_RES, pixel, 0, sample, model="jitter")
+    inf = torch.full((prim.count,), float("inf"), device=device)
+    sets = {"primary": (prim.ro, prim.rd, inf, prim.alive)}
+
+    # first-bounce survivors
+    t, p, _ = pt.packet_traverse_plain(*tables, prim.ro, prim.rd, inf, prim.alive,
+                                       leaf_kind=leaf_kind, stack=stack)
+    hit = p >= 0
+    src = torch.where(hit, 1 if leaf_kind == "tri" else 0, -1).to(torch.int32)
+    hits = shade_from_trace(wd, prim, torch.where(hit, t, float("inf")), p, src)
+    base = rng.base(rng.stream(0, sample, 0, rng.STREAM_BSDF), pixel)
+    bounce = scatter_legacy(prim, hits, base)
+    sel = torch.nonzero(hit).squeeze(1)
+    ro_b, rd_b = bounce.ro[sel].contiguous(), bounce.rd[sel].contiguous()
+    sets["bounce1"] = (ro_b, rd_b, inf[sel], torch.ones_like(hit[sel]))
+
+    # random rays with random t_init, half inactive; rays from the surface
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    m = TWIN_RAYS
+    lo, hi = wd_bounds(tables)
+    ro = lo + (hi - lo) * torch.rand((m, 3), generator=g) * 1.4 - 0.2 * (hi - lo)
+    rd = torch.nn.functional.normalize(torch.randn((m, 3), generator=g), dim=-1)
+    t_init = torch.where(torch.rand(m, generator=g) < 0.5,
+                         torch.rand(m, generator=g) * float((hi - lo).norm()),
+                         torch.tensor(float("inf")))
+    active = torch.rand(m, generator=g) < 0.5
+    sets["random"] = tuple(x.to(device) for x in (ro, rd, t_init, active))
+    k = torch.randint(len(ro_b), (m,), generator=g).to(device)
+    surf = hits.point[sel][k]
+    rd_s = torch.nn.functional.normalize(torch.randn((m, 3), generator=g), dim=-1).to(device)
+    sets["surface"] = (surf.contiguous(), rd_s, inf[:m], torch.ones_like(active, device=device))
+    return sets
+
+
+def wd_bounds(tables):
+    """Root box ``(lo, hi)`` of the traversal tables (CPU tensors)."""
+    import torch
+
+    root = tables[0][0].cpu()
+    lo = torch.stack([root[d * 8:(d + 1) * 8].min() for d in range(3)])
+    hi = torch.stack([root[(3 + d) * 8:(4 + d) * 8].max() for d in range(3)])
+    return lo, hi
+
+
+def check_packet(wd, tables, stack, leaf_kind, device, seed):
+    """K2 or K3 against its plain twin on the card; returns the
+    kernels-line entry (without ``launches``)."""
+    import torch
+
+    from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
+
+    sets = traversal_sets(wd, tables, stack, leaf_kind, device, seed)
+    max_err = 0.0
+    for name, (ro, rd, t_init, active) in sets.items():
+        t, p, it = pt.traverse(*tables, ro, rd, t_init, active, leaf_kind=leaf_kind,
+                               stack=stack)
+        t2, p2, it2 = pt.packet_traverse_plain(*tables, ro, rd, t_init, active,
+                                               leaf_kind=leaf_kind, stack=stack)
+        torch.cuda.synchronize()
+        hit_k, hit_p = p >= 0, p2 >= 0
+        both = hit_k & hit_p
+        err = float(torch.max(torch.abs(t[both] - t2[both]))) if bool(both.any()) else 0.0
+        max_err = max(max_err, err)
+        same = (bitwise_equal(t, t2) and bitwise_equal(p, p2) and bitwise_equal(it, it2))
+        _log(f"[{leaf_kind}] {name}: {ro.shape[0]} rays ({int(active.sum())} active), "
+             f"hit rate {float(hit_k.float().mean()):.4f}, pops/ray mean "
+             f"{float(it.float().mean()):.2f} max {int(it.max())}, bitwise equal "
+             f"(t, prim, pops): {same}, max |dt| {err:.3g}, hit/miss mismatches "
+             f"{int((hit_k != hit_p).sum())}, prim mismatches {int((p != p2).sum())}")
+        if not same:
+            raise AssertionError(f"packet kernel ({leaf_kind}) differs from its twin on '{name}'")
+    ro, rd, t_init, active = sets["primary"]
+    ms = cuda_ms(lambda: pt.traverse(*tables, ro, rd, t_init, active,
+                                     leaf_kind=leaf_kind, stack=stack))
+    plain_ms = cuda_ms(lambda: pt.packet_traverse_plain(
+        *tables, ro, rd, t_init, active, leaf_kind=leaf_kind, stack=stack))
+    _log(f"[{leaf_kind}] time at {ro.shape[0]} primary rays, {tables[0].shape[0]} nodes, "
+         f"{tables[2].shape[0]} run rows: kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms "
+         f"(median of 20)")
+    return {"name": f"packet_traverse_{leaf_kind}", "route": "cuda",
+            "source": "learn_path_tracing_tpu_torch/csrc/packet_traverse.cu",
+            "replaces": "learn_path_tracing_tpu/ops/packet_traverse.py:390",
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+
+
+def check_mesh_gpu_vs_cpu(device, directory):
+    """render_hybrid of a small mesh + sphere world on the card and on the
+    CPU, held to ``render_agreement``."""
+    import os
+
+    from learn_path_tracing_tpu_torch.integrator.hybrid import render_hybrid
+    from learn_path_tracing_tpu_torch.utils.checks import render_agreement
+
+    # a directory of its own: the headline's world reloads its 1024² set and
+    # EXR from ``directory`` by path
+    directory = os.path.join(directory, "small")
+    os.makedirs(directory, exist_ok=True)
+    world = standin_world(directory, level=3, tex_size=256, env_size=(256, 128),
+                          sphere=True)
+    _build_quiet(world)
+    cam = l14_camera(SMALL_RES)
+    out = {}
+    for dev in (device, "cpu"):
+        img, segs = render_hybrid(world.device(dev), cam.params(dev), SMALL_RES,
+                                  spp=SMALL_SPP, limit=SMALL_LIMIT)
+        out[dev] = (img.cpu().numpy(), segs)
+    rep = render_agreement(out[device][0], out["cpu"][0], out[device][1], out["cpu"][1])
+    _log(f"[gpu-vs-cpu mesh] {SMALL_RES[0]}x{SMALL_RES[1]} spp {SMALL_SPP} limit "
+         f"{SMALL_LIMIT}: segments {out[device][1]} vs {out['cpu'][1]}, {rep}")
+    if not rep["ok"]:
+        raise AssertionError(f"GPU mesh render disagrees with the CPU render: {rep}")
+
+
+def sphere_path(wd, device):
+    """The K3 path: a hybrid render of the sphere world, counts from 0."""
+    from learn_path_tracing_tpu_torch.camera import Camera
+    from learn_path_tracing_tpu_torch.integrator.hybrid import render_hybrid
+    from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
+
+    res = (320, 180)
+    cam = Camera(res, fov=60)
+    cam.set_position((0.0, 8.0, -10.0))
+    cam.look_at((0.0, 8.0, 40.0))
+    pt.traverse.launches.update(tri=0, sphere=0)
+    img, segs, st = render_hybrid(wd, cam.params(device), res, spp=4, limit=8, stats=True)
+    launches = pt.traverse.launches["sphere"]
+    _log(f"[sphere path] {res[0]}x{res[1]} spp 4 limit 8 over {N_SPHERES} spheres: "
+         f"{segs} segments, {st['n_chunks']} slabs + {st['passes']} pool passes, "
+         f"K3 launches {launches}, image mean {float(img.mean()):.5f}")
+    if launches != st["n_chunks"] + st["passes"] or pt.traverse.launches["tri"]:
+        raise AssertionError(f"K3 launches {launches} != traversal calls "
+                             f"{st['n_chunks'] + st['passes']}")
+    return launches
+
+
+def mesh_headline(world, wd, device, directory):
+    """The stand-in at 640x360, 64 spp, depth 32 through stages.l14_mesh."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from learn_path_tracing_tpu_torch.integrator.hybrid import render_hybrid
+    from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
+    from learn_path_tracing_tpu_torch.stages import l14_mesh
+
+    from PIL import Image
+
+    from learn_path_tracing_tpu_torch.io.exr import read_exr
+
+    path = os.path.join(directory, "standin.world.npy")
+    world.save(path)
+    sizes = {n: Image.open(os.path.join(directory, f"standin_{n}.png")).size
+             for n in ("albedo", "roughness", "metallic", "normal")}
+    env_hw = read_exr(os.path.join(directory, "standin_env.exr")).shape[:2]
+    if (set(sizes.values()) != {(STANDIN_TEX, STANDIN_TEX)}
+            or tuple(env_hw) != STANDIN_ENV[::-1]):
+        raise AssertionError(f"the stand-in's assets on disk are not full size: "
+                             f"{sizes}, EXR {env_hw}")
+    t0 = time.time()
+    render_hybrid(wd, l14_camera(MESH_RES).params(device), MESH_RES, spp=MESH_CHUNK,
+                  limit=MESH_DEPTH, seed=-1)
+    torch.cuda.synchronize()
+    _log(f"[mesh headline] warm-up (spp {MESH_CHUNK}) {time.time() - t0:.2f} s")
+
+    pt.traverse.launches.update(tri=0, sphere=0)
+    frame, rep = l14_mesh.main([
+        "--world", path, "--width", str(MESH_RES[0]), "--height", str(MESH_RES[1]),
+        "--spp", str(MESH_SPP), "--limit", str(MESH_DEPTH), "--device", device,
+        "--out", "outputs/chip_smoke_l14_standin.png"])
+    launches = pt.traverse.launches["tri"]
+    calls = rep["n_chunks"] + rep["passes"]
+    arr = frame.cpu().numpy()
+    mean = float(arr.mean())
+    _log(f"[mesh headline] {MESH_RES[0]}x{MESH_RES[1]} spp {MESH_SPP} depth {MESH_DEPTH}: "
+         f"{rep['seconds']:.3f} s, {rep['segments']} segments, {rep['mrays']:.3f} Mrays/s, "
+         f"primary hit fraction {rep['primary_hit_fraction']:.4f}, slabs {rep['n_chunks']} "
+         f"(chunk_spp {rep['chunk_spp']}), pool {rep['pool_w']} lanes, cap {rep['cap']}, "
+         f"passes_by_width {rep['passes_by_width']}, K2 launches {launches}, "
+         f"frame mean {mean:.5f}, load warnings {len(rep['load_warnings'])}, "
+         f"sky-gradient fallback {rep['env_gradient']}")
+    if launches != calls or pt.traverse.launches["sphere"]:
+        raise AssertionError(f"K2 launches {launches} != traversal calls {calls}")
+    if rep["load_warnings"] or rep["env_gradient"]:
+        raise AssertionError(f"the stand-in's textures or EXR fell back: "
+                             f"{rep['load_warnings']}, sky gradient {rep['env_gradient']}")
+    if not np.isfinite(arr).all() or not 0.02 < mean < 10.0:
+        raise AssertionError(f"mesh headline image is not sane: mean {mean}")
+    return launches
+
+
+def _timed(table, name, fn):
+    """``fn`` wrapped to add its synchronised wall ms and one call to
+    ``table[name]``."""
+    import torch
+
+    def wrapper(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        row = table.setdefault(name, [0.0, 0])
+        row[0] += (time.perf_counter() - t0) * 1e3
+        row[1] += 1
+        return out
+    return wrapper
+
+
+def mesh_profile(device, directory, frames=3):
+    """Where the stand-in frame's time goes (``--profile-mesh``): ``frames``
+    unprofiled frames of the l14 headline's renderer on the reloaded world,
+    one under ``torch.profiler`` (device busy time, device events, K2's
+    share, peak memory), and one with each layer wrapped in synchronised
+    timers (inclusive host ms; the synchronisation inflates that frame).
+    Returns the summary dict."""
+    import os
+
+    import torch
+
+    import learn_path_tracing_tpu_torch.integrator.hybrid as hybrid
+    import learn_path_tracing_tpu_torch.scene.legacy_world as lw
+    from learn_path_tracing_tpu_torch.bsdf.bsdf import SCATTERERS
+    from learn_path_tracing_tpu_torch.stages.legacy_common import make_asset_path_map
+    from learn_path_tracing_tpu_torch.viewer.progressive import ProgressiveRenderer
+
+    world = standin_world(directory)
+    world.build()
+    path = os.path.join(directory, "standin.world.npy")
+    world.save(path)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        wd = lw.LegacyWorld().load(path, path_map=make_asset_path_map(directory),
+                                   device=device)
+    pr = ProgressiveRenderer(wd, l14_camera(MESH_RES), MESH_RES, spp_per_frame=MESH_SPP,
+                             limit=MESH_DEPTH, seed=0, bsdf="legacy", scene="legacy",
+                             camera_model="jitter")
+
+    def frame():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pr.render(moved=True)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    frame()                                            # warm-up
+    walls = [frame() for _ in range(frames)]
+    segs = pr.last_stats["segments"]
+    torch.cuda.reset_peak_memory_stats()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        prof_wall = frame()
+    peak = torch.cuda.max_memory_allocated()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
+    k2 = [e for e in dev_events if "packet_traverse_kernel" in e.name]
+    k2_ms = sum(e.time_range.elapsed_us() for e in k2) / 1e3
+
+    layers = {}
+    patches = [(lw, "trace_shade_compact"), (lw, "trace_legacy"), (lw, "packet_traverse"),
+               (lw, "shade_from_trace"), (lw, "_attrs_rows"), (lw, "environment_color"),
+               (hybrid, "generate_rays_for_pixels")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in patches]
+    saved_scatter = SCATTERERS["legacy"]
+    try:
+        for mod, name, fn in saved:
+            setattr(mod, name, _timed(layers, name, fn))
+        SCATTERERS["legacy"] = _timed(layers, "scatter_legacy", saved_scatter)
+        sync_wall = frame()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        SCATTERERS["legacy"] = saved_scatter
+
+    med = statistics.median(walls)
+    out = {"frames_s": walls, "segments": segs, "mrays_median": segs / med / 1e6,
+           "profiled_frame_s": prof_wall, "device_busy_ms": busy_ms,
+           "device_events": len(dev_events), "idle_share_vs_median_frame":
+           1.0 - busy_ms / (med * 1e3) if dev_events else None,
+           "k2_launches": len(k2), "k2_device_ms": k2_ms,
+           "k2_share_of_busy": k2_ms / busy_ms if busy_ms else None,
+           "peak_mem_gib": peak / 2**30, "synchronised_frame_s": sync_wall,
+           "layers_ms_calls": {k: [round(v[0], 3), v[1]] for k, v in
+                               sorted(layers.items(), key=lambda kv: -kv[1][0])},
+           "passes": pr.last_stats["passes"], "n_chunks": pr.last_stats["n_chunks"]}
+    _log(f"[mesh profile] {json.dumps(out)}")
+    if not dev_events:
+        raise AssertionError("torch.profiler recorded no device events")
+    return out
+
+
+def build_kernels():
+    """Build every kernel at once (one nvcc per source, in parallel) and
+    print ptxas's register, memory and spill lines."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from learn_path_tracing_tpu_torch.ops import build, packet_traverse, sphere_scan
+
+    loaders = {"sphere_scan": sphere_scan.load_kernel,
+               "packet_traverse": packet_traverse.load_kernel}
+    t0 = time.time()
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        for fut in [pool.submit(fn) for fn in loaders.values()]:
+            fut.result()
+    _log(f"[build] {', '.join(loaders)} built and loaded in {time.time() - t0:.2f} s")
+    for name in loaders:
+        for line in build.BUILD_LOGS.get(name, "").splitlines():
+            _log(f"[build] {name}: {line}")
+
+
+def main(argv=None) -> int:
+    import argparse
+    import tempfile
+
+    import torch
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
+    ap.add_argument("--profile-mesh", action="store_true",
+                    help="only profile the stand-in mesh frame (see mesh_profile)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    from learn_path_tracing_tpu_torch.ops import build, sphere_scan
-
     card = card_line()
     _log(f"[info] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
          f"python {sys.version.split()[0]}, devices {torch.cuda.device_count()}")
     device = "cuda"
+    build_kernels()
+    if args.profile_mesh:
+        with tempfile.TemporaryDirectory() as directory:
+            mesh_profile(device, directory)
+        print(card)
+        return 0
 
-    t0 = time.time()
-    sphere_scan.load_kernel()
-    _log(f"[build] sphere_scan built and loaded in {time.time() - t0:.2f} s")
-    for line in build.BUILD_LOGS.get("sphere_scan", "").splitlines():
-        _log(f"[build]   {line}")
-
-    entry = check_sphere_scan(device)
+    k1 = check_sphere_scan(device)
     check_gpu_vs_cpu(device)
-    entry["launches"] = headline(device)
+    with tempfile.TemporaryDirectory() as directory:
+        t0 = time.time()
+        mesh_world = standin_world(directory)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")   # its PBR set and EXR must load
+            mesh_wd = mesh_world.build(device=device)
+        if mesh_wd.env_gradient_h is not None:
+            raise AssertionError("the stand-in's EXR environment did not load")
+        tri = mesh_wd.meshes[0]
+        _log(f"[stand-in] {tri.tex.shape[0]} triangles, {tri.packet[0].shape[0]} wide nodes, "
+             f"{tri.packet[2].shape[0]} run rows, stack {tri.stack}; built in "
+             f"{time.time() - t0:.2f} s")
+        k2 = check_packet(mesh_wd, tri.packet, tri.stack, "tri", device, seed=7)
+
+        t0 = time.time()
+        sph_wd = _build_quiet(sphere_world(), device=device)
+        sph = sph_wd.spheres
+        _log(f"[sphere world] {N_SPHERES} spheres, {sph.packet[0].shape[0]} wide nodes, "
+             f"stack {sph.stack}; built in {time.time() - t0:.2f} s")
+        k3 = check_packet(sph_wd, sph.packet, sph.stack, "sphere", device, seed=8)
+        k3["launches"] = sphere_path(sph_wd, device)
+
+        check_mesh_gpu_vs_cpu(device, directory)
+        k2["launches"] = mesh_headline(mesh_world, mesh_wd, device, directory)
+    k1["launches"] = headline(device)
 
     print(card)
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [k1, k2, k3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,15 +5,20 @@ NVIDIA H100. The layout mirrors the JAX package module for module, so each
 function has its counterpart at the same path:
 
   core/        tensor dataclasses, counter RNG, color pipeline, PNG I/O
-  geometry/    sphere intersection math (plain PyTorch)
+  geometry/    sphere, triangle and AABB math (plain PyTorch)
+  accel/       host-side SAH BVH build and its 8-wide collapse (numpy)
+  io/          OBJ meshes, OpenEXR images, texture atlases
   bsdf/        sampling primitives and BSDF scatter functions
   camera/      pinhole and thin-lens cameras
   ops/         hand-written CUDA kernels (sources in ``csrc/``) and their
-               plain PyTorch twins
-  scene/       sphere world container and the nearest-hit query
+               plain PyTorch twins, with the traversal-table packers
+  scene/       sphere world and legacy mesh world, hit queries,
+               ``.world.npy`` I/O
   models/      built-in scenes
-  integrator/  wavefront and persistent (path-regeneration) integrators
-  utils/       render configuration
+  integrator/  wavefront, persistent (path-regeneration) and hybrid
+               integrators
+  viewer/      progressive accumulation renderer
+  utils/       render configuration, render agreement checks
   stages/      runnable stage scripts
 
 The package imports ``torch`` and ``numpy`` only. Every function that creates

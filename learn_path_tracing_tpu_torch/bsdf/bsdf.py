@@ -10,7 +10,7 @@ dielectric lobe are computed for every lane and the result is selected with
 - The new ray origin is the hit point with no epsilon offset; the t ≥ 1e-4
   test of the world scan avoids self-intersection.
 
-``scatter_legacy`` comes with the mesh line.
+``scatter_legacy`` is the legacy (mesh) line's scatter.
 """
 
 from __future__ import annotations
@@ -73,7 +73,68 @@ def scatter_modern(rays: Rays, hits: Hits, base) -> Rays:
     )
 
 
+def scatter_legacy(rays: Rays, hits: Hits, base) -> Rays:
+    """Legacy wavefront scatter (15_module.py:994-1013):
+
+    - continuous ``metallic`` is a stochastic metal/dielectric mix prob;
+    - metal: tinted Schlick, mirror about the *geometric* normal, additive
+      in-ball roughness jitter (no slerp);
+    - dielectric roulette: transmit → legacy refract (clamped, no TIR) or
+      diffuse, both attenuated by ``albedo * (1 - absorptivity)``; specular
+      reflection leaves throughput unchanged;
+    - new origin offset 2ε along the shading normal.
+
+    One uniform-on-sphere point serves every branch (the in-ball jitter
+    direction and the Lambertian offset), and the in-ball radius is
+    ``max(u3, u4, u5)``, as in the JAX package, so the same uniforms give
+    the same directions.
+    """
+    d = rays.rd
+    nrm = hits.normal
+    mat = hits.material
+
+    u_metal = rng.uniform(base, 0)
+    u1, u2, u3 = rng.uniform3(base, 1)   # sphere point + ball radius
+    u_fresnel = rng.uniform(base, 4)
+    u4, u5 = rng.uniform2(base, 5)       # ball radius, cont.
+
+    s_sphere = sp.sample_at_sphere(u1, u2)
+    ball = s_sphere * sp.ball_radius(u3, u4, u5)[..., None]
+
+    def _roughen(direction):
+        return sp.normalize(direction + mat.roughness[..., None] * ball, eps=1e-12)
+
+    cos_theta = torch.clamp_min(torch.sum(nrm * (-d), dim=-1), 0.0)
+    rd_reflect = _roughen(sp.reflect(d, nrm))
+
+    # metal branch
+    f_metal = sp.schlick(cos_theta[..., None], mat.albedo)
+    l_metal = rays.throughput * f_metal
+
+    # dielectric branch
+    q = (mat.ior - 1.0) / (mat.ior + 1.0)
+    f_diel = sp.schlick(cos_theta, q * q)
+    rd_refract = _roughen(sp.refract_legacy(d, nrm, mat.ior))
+    rd_diffuse = sp.normalize(nrm + s_sphere, eps=1e-12)
+    attenuation = mat.albedo * (1.0 - mat.absorptivity)[..., None]
+    transmit = u_fresnel > f_diel
+    is_transparent = mat.transparency > 0.0
+    rd_nonspec = torch.where(is_transparent[..., None], rd_refract, rd_diffuse)
+    rd_diel = torch.where(transmit[..., None], rd_nonspec, rd_reflect)
+    l_diel = torch.where(transmit[..., None], rays.throughput * attenuation,
+                         rays.throughput)
+
+    is_metal = (u_metal < mat.metallic)[..., None]
+    return Rays(
+        ro=hits.point + 2.0 * 1e-4 * nrm,
+        rd=torch.where(is_metal, rd_reflect, rd_diel),
+        throughput=torch.where(is_metal, l_metal, l_diel),
+        alive=rays.alive,
+    )
+
+
 SCATTERERS = {
     "diffuse": scatter_diffuse,
     "modern": scatter_modern,
+    "legacy": scatter_legacy,
 }

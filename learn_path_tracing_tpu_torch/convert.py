@@ -1,9 +1,9 @@
 """Carry state across from the JAX package as numpy arrays.
 
 The port never imports the JAX package. These helpers take the leaves of its
-``SphereWorldData`` and ``CameraParams`` (converted with ``np.asarray``) and
-build the port's own objects on ``device``, so both packages can run on the
-same scene and camera.
+``SphereWorldData``, ``CameraParams`` and ``LegacyWorldData`` (converted
+with ``np.asarray``) and build the port's own objects on ``device``, so both
+packages can run on the same scene, camera and tables.
 """
 
 from __future__ import annotations
@@ -13,6 +13,9 @@ import torch
 
 from .camera.camera import CameraParams
 from .core.types import Materials
+from .ops.packet_traverse import stack_cap
+from .ops.sphere_scan import pack_spheres
+from .scene.legacy_world import LegacyWorldData, MeshDeviceData, SphereDeviceData
 from .scene.world import SphereWorldData
 
 
@@ -53,3 +56,72 @@ def camera_from_numpy(position, yaw, pitch, roll, fov, focal_length, aperture,
         aperture=_f32(aperture, device),
         fov_scale=_f32(fov_scale, device),
     )
+
+
+def _unstrip(atlas, channels: int) -> np.ndarray:
+    """The classic ``f32[W, H, C]`` atlas back from the JAX package's
+    strip-packed one (``table [R, 2*T*C]``: row ``base + y*spr + x//(T-1)``
+    holds texel ``x`` of rect row ``y`` at column ``(x % (T-1)) * C``)."""
+    table = np.asarray(atlas.table, np.float32)
+    low, high = np.asarray(atlas.info_low), np.asarray(atlas.info_high)
+    base, spr = np.asarray(atlas.base), np.asarray(atlas.spr)
+    stride = table.shape[1] // (2 * channels) - 1
+    out = np.zeros((int(high[:, 0].max()), int(high[:, 1].max()), channels), np.float32)
+    flat = table.reshape(-1)
+    for i in range(low.shape[0]):
+        w, h = high[i] - low[i]
+        xs, ys = np.arange(w), np.arange(h)
+        rows = base[i] + ys[None, :] * spr[i] + (xs // stride)[:, None]      # [w,h]
+        col = ((xs % stride) * channels)[:, None, None] + np.arange(channels)
+        out[low[i, 0]:high[i, 0], low[i, 1]:high[i, 1]] = \
+            flat[rows[..., None] * table.shape[1] + col]
+    return out
+
+
+def legacy_world_from_numpy(world, device=None) -> LegacyWorldData:
+    """A ``LegacyWorldData`` from the JAX package's ``LegacyWorldData`` with
+    every leaf a numpy array (e.g. ``jax.tree_util.tree_map(np.asarray,
+    wd)``); fields are read by name. The traversal tables, triangle
+    attributes and sphere arrays are taken as they are; the strip-packed
+    atlases are unpacked to the classic ones (the material atlas stays
+    bfloat16, exactly)."""
+    def t(x, dtype=np.float32):
+        return torch.as_tensor(np.array(x, dtype), device=device)
+
+    meshes = []
+    for m in world.meshes:
+        nodes, entries, runs = m.packet
+        meshes.append(MeshDeviceData(
+            **{k: t(getattr(m, k)) for k in
+               ("v0", "v1", "v2", "n0", "n1", "n2", "uv0", "uv1", "uv2")},
+            tex=t(m.tex, np.int32),
+            packet=(t(nodes), t(entries, np.int32), t(runs)),
+            treelets=(t(m.treelets[0]), t(m.treelets[1])),
+            stack=stack_cap(np.asarray(entries))))
+    spheres = None
+    if world.spheres is not None:
+        s = world.spheres
+        c, r, tr = t(s.center), t(s.radius), t(s.transparency)
+        packet = treelets = None
+        stack = 0
+        if s.packet is not None:
+            nodes, entries, runs = s.packet
+            packet = (t(nodes), t(entries, np.int32), t(runs))
+            treelets = (t(s.treelets[0]), t(s.treelets[1]))
+            stack = stack_cap(np.asarray(entries))
+        spheres = SphereDeviceData(
+            center=c, radius=r, transparency=tr, tex=t(s.tex, np.int32),
+            scan_table=pack_spheres(c, r, tr),
+            scan_attrs=torch.zeros((c.shape[0], 16), dtype=torch.float32, device=device),
+            packet=packet, treelets=treelets, stack=stack)
+    return LegacyWorldData(
+        meshes=tuple(meshes), spheres=spheres,
+        atlas=t(_unstrip(world.atlas, 8)).to(torch.bfloat16),
+        atlas_low=t(world.atlas.info_low, np.int32),
+        atlas_high=t(world.atlas.info_high, np.int32),
+        envs=t(_unstrip(world.envs, 3)),
+        env_low=t(world.envs.info_low, np.int32),
+        env_high=t(world.envs.info_high, np.int32),
+        env_id=int(np.asarray(world.env_id)),
+        tri_attr=None if world.tri_attr is None else t(world.tri_attr),
+        env_gradient_h=world.env_gradient_h)

@@ -60,3 +60,11 @@ def sphere_normal(point, center, radius):
     v = point - center
     n = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
     return v / torch.clamp_min(n, 1e-20)
+
+
+def sphere_uv(normal):
+    """Spherical lat/long UV of a unit normal (legacy textures: u from
+    atan2(z, x), v from acos(y))."""
+    u = 0.5 + torch.atan2(normal[..., 2], normal[..., 0]) / (2.0 * torch.pi)
+    v = torch.acos(torch.clamp(normal[..., 1], -1.0, 1.0)) / torch.pi
+    return torch.stack([u, v], dim=-1)

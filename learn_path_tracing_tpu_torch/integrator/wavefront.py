@@ -30,14 +30,18 @@ def sky_background(rd):
 def _scene_fns(scene: str):
     """(hit_fn(world, rays, backend), background_fn(world, rd)) per scene kind.
 
-    'spheres': the modern-stage sphere world with the gradient sky. The
-    legacy mesh world comes with the mesh slice.
+    'spheres': the modern-stage sphere world with the gradient sky.
+    'legacy' : textured mesh/sphere world (``scene.legacy_world``) with
+    equirect IBL escape; ``hit_backend`` does not apply to it.
     """
     if scene == "spheres":
         return (lambda w, r, hb: world_mod.hit(w, r, backend=hb),
                 lambda w, rd, mask=None: sky_background(rd))
     if scene == "legacy":
-        raise NotImplementedError("the legacy mesh world comes with the mesh slice")
+        from ..scene.legacy_world import environment_color, hit_legacy
+
+        return (lambda w, r, hb: hit_legacy(w, r),
+                lambda w, rd, mask=None: environment_color(w, rd, mask=mask))
     raise ValueError(f"unknown scene kind: {scene!r}")
 
 

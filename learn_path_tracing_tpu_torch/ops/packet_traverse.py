@@ -1,0 +1,552 @@
+"""Kernels K2/K3: nearest hit over an 8-wide BVH, with their plain twin.
+
+Counterpart of ``learn_path_tracing_tpu.ops.packet_traverse``. The JAX
+package walks a shared SMEM stack per 1024-ray packet on the TPU's scalar
+core (``_kernel_v2``); the port gives every ray its own stack
+(``csrc/packet_traverse.cu``, one thread per ray), which is how the
+reference walks its BVH. The data contract is the JAX package's:
+
+- ``nodes f32[M,128]``: the 8 child AABBs of wide node ``i``, component-major
+  (column ``c + 8*k`` for ``k`` = lo.x, lo.y, lo.z, hi.x, hi.y, hi.z);
+- ``entries i32[M,128]``: columns 0..7 hold each child's entry, a node index
+  (``>= 0``), a leaf run code ``-(run_row*64 + count + 1)``, or ``_PAD``;
+- ``runs f32[R,128]``: up to 8 primitives per row, coefficient-major
+  (coefficient ``k`` of slot ``j`` at column ``k*8 + j``), prim ids at
+  columns 96..103; a run of more than 8 spills into the next row.
+  Triangles (K2, ``leaf_kind='tri'``) are in plane/barycentric coefficient
+  form ``n, d, g1, c1, g2, c2``: ``t = (d - ro.n)/(rd.n)``,
+  ``w1 = ro.g1 + t (rd.g1) + c1``, ``w2`` alike, ``w3 = 1 - w1 - w2``, a hit
+  needs ``t > eps`` and all three weights ``> 0``. Spheres (K3,
+  ``leaf_kind='sphere'``) are ``cx, cy, cz, r², flag``: flag 2 (transparent)
+  takes the far root when the near root is ``< eps``; empty slots have
+  ``r² = -inf``.
+
+Semantics shared by the kernel and ``packet_traverse_plain`` (the same f32
+operations in the same order, each rounded on its own):
+
+- slab test of each child as ``t = lo*inv - ro*inv`` with ``inv = 1/rd``,
+  NaN-propagating min/max; a child is entered when
+  ``t1 > t0 - eps``, ``t1 > 0`` and ``t0 < t_best + eps``;
+- entered leaf children are tested at once, nearest first (key
+  ``max(t0, 0)``, ties to the lower slot), each skipped if its key is no
+  longer ``< t_best + eps``; entered node children are pushed so that the
+  nearest pops first; a popped entry whose key is not ``< t_best + eps`` is
+  dropped;
+- **tie rule**: a candidate replaces the best hit when its ``t`` is
+  strictly smaller, or equal with a smaller prim id. The winner is then the
+  least ``(t, prim)`` over every primitive the walk tests, independent of
+  the traversal order. (The TPU kernel takes the earliest slot among keys
+  equal after dropping 3 mantissa bits, so against it ``prim`` is compared
+  off exact ties only.)
+- ``t_init`` seeds the best ``t`` per ray (``prim`` stays -1 unless beaten);
+  inactive rays are not walked and return ``(t_init, -1)``.
+
+``traverse`` dispatches on the device: CUDA tensors launch the kernel (and
+count the launch in ``traverse.launches[leaf_kind]``), CPU tensors run the
+plain twin. There is no fallback between the two.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from ..accel.wide import _PAD, WIDTH, WideBVH, decode_leaf
+from . import build
+
+SLOT_F = 12                 # floats per triangle slot (n, d, g1, c1, g2, c2)
+SLOTS = 8                   # primitive slots per run row
+_PRIM_COL = SLOT_F * SLOTS  # cols 96..103: prim index per slot (f32)
+_ENC = 64
+LEAF_KINDS = ("tri", "sphere")
+MAX_STACK = 256             # the kernel's per-thread stack (csrc kMaxStack)
+_INF = float("inf")
+
+# Treelet-key sentinels (see _treelet_entry_key / _coherence_key): rays that
+# enter no depth-2 treelet get major key 65²; packet_traverse_sorted parks
+# inactive rays one past that, so sorted order is
+# [entered... | enters-nothing... | inactive...].
+_TREELET_NONE = (WIDTH * WIDTH + 1) ** 2
+_KEY_ENTERED_LIM = _TREELET_NONE << 18
+_KEY_INACTIVE = (_TREELET_NONE + 1) << 18
+
+
+# ------------------------------------------------------------ host packers --
+
+def _node_columns(wbvh: WideBVH):
+    m = wbvh.child_entry.shape[0]
+    nodes = np.zeros((m, 128), np.float32)
+    for d in range(3):
+        nodes[:, d * 8:(d + 1) * 8] = wbvh.child_low[:, :, d]
+        nodes[:, (3 + d) * 8:(4 + d) * 8] = wbvh.child_high[:, :, d]
+    return nodes
+
+
+def _leaf_runs(wbvh: WideBVH, fill_row, empty_row):
+    """Entries table plus run rows: ``fill_row(row, prim_ids)`` writes one
+    row's slots (at most 8); ``empty_row()`` makes a blank row."""
+    m = wbvh.child_entry.shape[0]
+    entries = np.full((m, 128), _PAD, np.int32)
+    runs = []
+    for i in range(m):
+        for c in range(WIDTH):
+            e = int(wbvh.child_entry[i, c])
+            if e == _PAD:
+                continue
+            if e >= 0:
+                entries[i, c] = e
+                continue
+            start, count = decode_leaf(np.int32(e))
+            start, count = int(start), int(count)
+            if count > 2 * SLOTS:
+                raise ValueError(
+                    f"leaf run of {count} prims exceeds the kernels' 2-row "
+                    f"unroll (max_leaf <= {2 * SLOTS})")
+            entries[i, c] = -(len(runs) * _ENC + count + 1)
+            for r0 in range(0, count, SLOTS):
+                row = empty_row()
+                k = min(SLOTS, count - r0)
+                fill_row(row, wbvh.prim[start + r0:start + r0 + k])
+                runs.append(row)
+    if not runs:
+        runs.append(empty_row())
+    return entries, np.stack(runs)
+
+
+def pack_packet_tables(wbvh: WideBVH, v0, v1, v2):
+    """Kernel tables ``(nodes f32[M,128], entries i32[M,128], runs
+    f32[R,128])`` for a wide BVH over triangles ``v0, v1, v2 f32[T,3]``,
+    byte for byte the JAX package's (the same numpy operations per
+    triangle)."""
+    v0 = np.asarray(v0, np.float32)
+    v1 = np.asarray(v1, np.float32)
+    v2 = np.asarray(v2, np.float32)
+
+    def empty_row():
+        return np.zeros((128,), np.float32)
+
+    def fill_row(row, prims):
+        for j, p in enumerate(prims):
+            row[_PRIM_COL + j] = float(p)
+            p1, p2, p3 = v0[p], v1[p], v2[p]
+            n = np.cross(p2 - p1, p3 - p1)
+            nn = np.sqrt(np.dot(n, n))
+            n = n / max(nn, 1e-20)
+            den1 = np.dot(np.cross(p3 - p2, p1 - p2), n)
+            den2 = np.dot(np.cross(p1 - p3, p2 - p3), n)
+            den1 = den1 if abs(den1) > 1e-20 else 1e-20
+            den2 = den2 if abs(den2) > 1e-20 else 1e-20
+            g1 = np.cross(n, p3 - p2) / den1
+            c1 = -np.dot(np.cross(p3 - p2, p2), n) / den1
+            g2 = np.cross(n, p1 - p3) / den2
+            c2 = -np.dot(np.cross(p1 - p3, p3), n) / den2
+            coefs = [n[0], n[1], n[2], np.dot(p1, n),
+                     g1[0], g1[1], g1[2], c1,
+                     g2[0], g2[1], g2[2], c2]
+            for k, val in enumerate(coefs):
+                row[k * WIDTH + j] = val
+        # empty slots never report a hit: plane at infinity
+        for j in range(len(prims), SLOTS):
+            row[3 * WIDTH + j] = np.inf
+
+    entries, runs = _leaf_runs(wbvh, fill_row, empty_row)
+    return _node_columns(wbvh), entries, runs
+
+
+def pack_sphere_packet_tables(wbvh: WideBVH, centers, radii, transparency):
+    """Kernel tables for a wide BVH over spheres: run rows hold
+    ``(cx, cy, cz, r², flag)`` per slot, flag 1 opaque / 2 transparent, and
+    ``r² = -inf`` in empty slots. Byte for byte the JAX package's."""
+    centers = np.asarray(centers, np.float32)
+    radii = np.asarray(radii, np.float32)
+    transparency = np.asarray(transparency, np.float32)
+
+    def empty_row():
+        row = np.zeros((128,), np.float32)
+        row[3 * WIDTH:4 * WIDTH] = -np.inf   # empty: r² = -inf
+        return row
+
+    def fill_row(row, prims):
+        for j, p in enumerate(prims):
+            p = int(p)
+            row[_PRIM_COL + j] = float(p)
+            row[0 * WIDTH + j] = centers[p, 0]
+            row[1 * WIDTH + j] = centers[p, 1]
+            row[2 * WIDTH + j] = centers[p, 2]
+            row[3 * WIDTH + j] = radii[p] * radii[p]
+            row[4 * WIDTH + j] = 2.0 if transparency[p] > 0 else 1.0
+
+    entries, runs = _leaf_runs(wbvh, fill_row, empty_row)
+    return _node_columns(wbvh), entries, runs
+
+
+def stack_cap(entries) -> int:
+    """Stack entries a walk of these tables can need: ``1 + 7*depth``, with
+    ``depth`` the number of wide-node levels (each pop of a node removes one
+    entry and pushes at most 8; leaves never touch the stack)."""
+    entries = np.asarray(entries)
+    depth, level = 0, [0]
+    while level:
+        depth += 1
+        kids = entries[level, :WIDTH]
+        level = kids[kids >= 0].tolist()
+    return 1 + (WIDTH - 1) * depth
+
+
+def treelet_boxes(nodes, entries):
+    """``(lo f32[64,3], hi f32[64,3])`` AABBs of the root's depth-2 subtrees
+    (numpy, computed once per world). A root child that is itself a leaf
+    run occupies its own first slot; empty slots keep never-hit boxes."""
+    nodes = np.asarray(nodes, np.float32)
+    entries = np.asarray(entries)
+    m = nodes.shape[0]
+    ent0 = entries[0, 0:WIDTH]
+    crows = nodes[np.clip(ent0, 0, m - 1)]                       # [8,128]
+    glo = np.stack([crows[:, d * 8:(d + 1) * 8] for d in range(3)], -1)
+    ghi = np.stack([crows[:, (3 + d) * 8:(4 + d) * 8] for d in range(3)], -1)
+    rlo = np.stack([nodes[0, d * 8:(d + 1) * 8] for d in range(3)], -1)
+    rhi = np.stack([nodes[0, (3 + d) * 8:(4 + d) * 8] for d in range(3)], -1)
+    is_node = (ent0 >= 0)[:, None, None]
+    self_slot = (np.arange(WIDTH) == 0)[None, :, None]
+    lo = np.where(is_node, glo, np.where(self_slot, rlo[:, None, :], np.inf))
+    hi = np.where(is_node, ghi, np.where(self_slot, rhi[:, None, :], -np.inf))
+    return (lo.reshape(WIDTH * WIDTH, 3).astype(np.float32),
+            hi.reshape(WIDTH * WIDTH, 3).astype(np.float32))
+
+
+# --------------------------------------------------------- coherence keys --
+
+def _treelet_entry_key(ro, rd, treelets, eps: float = 0.0):
+    """Sort key = the two nearest depth-2 treelets each ray enters
+    (``m1 * 65 + m2``; 64 = none; ``65²`` when the ray enters none), from
+    dense slab tests against the <= 64 treelet boxes."""
+    lo, hi = treelets
+    inv = torch.ones_like(rd) / rd
+    t0 = t1 = None
+    for d in range(3):
+        ta = (lo[None, :, d] - ro[:, d:d + 1]) * inv[:, d:d + 1]   # [N,64]
+        tb = (hi[None, :, d] - ro[:, d:d + 1]) * inv[:, d:d + 1]
+        mn, mx = torch.minimum(ta, tb), torch.maximum(ta, tb)
+        t0 = mn if t0 is None else torch.maximum(t0, mn)
+        t1 = mx if t1 is None else torch.minimum(t1, mx)
+    # eps-relaxed like the kernel's child test (flat boxes have t1 == t0)
+    entered = (t1 > t0 - eps) & (t1 > 0.0)
+    tmin = torch.where(entered, torch.clamp_min(t0, 0.0), _INF)
+    t_m1, m1 = torch.min(tmin, dim=1)          # first index of the minimum
+    nw = WIDTH * WIDTH
+    slots = torch.arange(nw, device=ro.device)
+    tmin2 = torch.where(slots[None, :] == m1[:, None], _INF, tmin)
+    t_m2, m2 = torch.min(tmin2, dim=1)
+    m2 = torch.where(torch.isfinite(t_m2), m2, nw)
+    key = m1 * (nw + 1) + m2
+    return torch.where(torch.isfinite(t_m1), key, _TREELET_NONE)
+
+
+def _spread(v):  # 5 bits -> every 3rd position (Morton interleave)
+    v = (v | (v << 8)) & 0x0300F
+    v = (v | (v << 4)) & 0x030C3
+    v = (v | (v << 2)) & 0x09249
+    return v
+
+
+def _coherence_key(nodes, ro, rd, treelets, eps: float = 0.0):
+    """int64 sort key: the treelet-entry pair (major, 13 bits) then a Morton
+    code of the origin's cell over the root box (32 cells per axis) and the
+    direction octant (18 bits) — the JAX package's ``kind='treelet'`` key,
+    value for value."""
+    cells = 32
+    root = nodes[0]
+    lo = torch.stack([torch.amin(root[d * 8:(d + 1) * 8]) for d in range(3)])
+    hi = torch.stack([torch.amax(root[(3 + d) * 8:(4 + d) * 8]) for d in range(3)])
+    span = torch.clamp_min(hi - lo, 1e-6)
+    # clamped before the integer cast (the JAX package clips after a
+    # saturating cast: the same cells, without an out-of-range cast)
+    q = torch.clamp((ro - lo) / span * cells, 0, cells - 1).to(torch.int64)
+    octant = ((rd[:, 0] > 0).to(torch.int64) + 2 * (rd[:, 1] > 0).to(torch.int64)
+              + 4 * (rd[:, 2] > 0).to(torch.int64))
+    cell = (_spread(q[:, 0]) << 2) | (_spread(q[:, 1]) << 1) | _spread(q[:, 2])
+    morton = cell * 8 + octant
+    return _treelet_entry_key(ro, rd, treelets, eps=eps) * (1 << 18) + morton
+
+
+# ----------------------------------------------------------- entry points --
+
+def _check(nodes, entries, runs, ro, rd, t_init, active, leaf_kind):
+    if leaf_kind not in LEAF_KINDS:
+        raise ValueError(f"unknown leaf kind: {leaf_kind!r}")
+    n = ro.shape[0]
+    for name, x, dtype, shape in (
+            ("nodes", nodes, torch.float32, (nodes.shape[0], 128)),
+            ("entries", entries, torch.int32, (nodes.shape[0], 128)),
+            ("runs", runs, torch.float32, (runs.shape[0], 128)),
+            ("ro", ro, torch.float32, (n, 3)), ("rd", rd, torch.float32, (n, 3)),
+            ("t_init", t_init, torch.float32, (n,)),
+            ("active", active, torch.bool, (n,))):
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"packet traversal: {name} must be {dtype}{list(shape)}, "
+                             f"got {x.dtype}{list(x.shape)}")
+        if x.device != ro.device:
+            raise ValueError(f"packet traversal: {name} is on {x.device}, "
+                             f"rays on {ro.device}")
+
+
+def traverse(nodes, entries, runs, ro, rd, t_init, active, eps: float = 1e-4,
+             leaf_kind: str = "tri", stack: int | None = None):
+    """Nearest hit of ``N`` rays → ``(t f32[N], prim i32[N], iters i32[N])``:
+    ``t`` is ``t_init`` and ``prim`` -1 where nothing beats ``t_init``;
+    ``iters`` counts each ray's stack pops. ``stack`` is the tables'
+    ``stack_cap`` (computed from ``entries`` when None).
+
+    CUDA tensors launch the kernel, CPU tensors run the plain twin."""
+    _check(nodes, entries, runs, ro, rd, t_init, active, leaf_kind)
+    if stack is None:
+        stack = stack_cap(entries.cpu().numpy())
+    if ro.device.type == "cpu":
+        return packet_traverse_plain(nodes, entries, runs, ro, rd, t_init, active,
+                                     eps=eps, leaf_kind=leaf_kind, stack=stack)
+    if ro.device.type != "cuda":
+        raise ValueError(f"packet traversal: no kernel for device {ro.device}")
+    return _launch(nodes, entries, runs, ro, rd, t_init, active, eps, leaf_kind, stack)
+
+
+traverse.launches = {kind: 0 for kind in LEAF_KINDS}
+
+
+def packet_traverse(nodes, entries, runs, ro, rd, t_init, active,
+                    eps: float = 1e-4, leaf_kind: str = "tri",
+                    stack: int | None = None):
+    """Nearest-hit traversal in caller lane order: ``(t, prim)``. ``t`` is
+    ``t_init`` where nothing beats it (inactive rays included) and ``prim``
+    is -1 there.
+
+    The JAX package's ``sort_rays`` (a coherence sort that shrinks the
+    TPU packets' node unions) is not carried over: a per-ray walk does not
+    share nodes across rays; ``packet_traverse_sorted`` keeps the sort's
+    contract for callers that want it."""
+    t, prim, _ = traverse(nodes, entries, runs, ro, rd, t_init, active,
+                          eps=eps, leaf_kind=leaf_kind, stack=stack)
+    return t, prim
+
+
+def packet_traverse_sorted(nodes, entries, runs, ro, rd, active, treelets,
+                           eps: float = 1e-4, stack: int | None = None,
+                           payload=()):
+    """Coherence-sorted traversal: the JAX package's entry for fused hit
+    shading on single-structure worlds (``t_init`` is +inf). The port's
+    render path does not call it (``scene.legacy_world`` traverses in lane
+    order); it keeps the JAX contract for callers that want the sort.
+
+    Rays are stably sorted by the treelet coherence key, inactive rays last
+    (``_KEY_INACTIVE``), and traversed in that order. Returns ``(t_s,
+    prim_s, ro_s, rd_s, entered_n, order_idx)`` in sorted order: ``t_s`` is
+    +inf where nothing was hit, ``entered_n`` (0-dim tensor) counts the
+    sorted rays that enter a depth-2 treelet (every hit lies in that
+    prefix), ``order_idx[i]`` is the original lane of sorted slot ``i``.
+    ``payload``: extra ``[N, ...]`` tensors carried through the sort; when
+    given, the result gains a 7th element, the payload in sorted order.
+    """
+    key = _coherence_key(nodes, ro, rd, treelets, eps=eps)
+    key = torch.where(active, key, _KEY_INACTIVE)
+    order_idx = torch.argsort(key, stable=True)
+    key_s = key[order_idx]
+    ro_s, rd_s = ro[order_idx], rd[order_idx]
+    active_s = key_s < _KEY_INACTIVE
+    entered_n = torch.sum(key_s < _KEY_ENTERED_LIM)
+    t_init = torch.full_like(ro_s[:, 0], _INF)
+    t, prim, _ = traverse(nodes, entries, runs, ro_s, rd_s, t_init, active_s,
+                          eps=eps, stack=stack)
+    t_s = torch.where(prim >= 0, t, _INF)
+    out = (t_s, prim, ro_s, rd_s, entered_n, order_idx)
+    if payload:
+        return out + (tuple(p[order_idx] for p in payload),)
+    return out
+
+
+# ------------------------------------------------------------------ kernel --
+
+def _launch(nodes, entries, runs, ro, rd, t_init, active, eps, leaf_kind, stack):
+    if stack > MAX_STACK:
+        raise ValueError(f"packet traversal kernel: the tables need a stack of "
+                         f"{stack} entries, the kernel holds {MAX_STACK}")
+    tensors = (("nodes", nodes), ("entries", entries), ("runs", runs), ("ro", ro),
+               ("rd", rd), ("t_init", t_init), ("active", active))
+    for name, x in tensors:
+        if not x.is_contiguous():
+            raise ValueError(f"packet traversal kernel: {name} must be contiguous")
+    lib = load_kernel()
+    n, m = ro.shape[0], nodes.shape[0]
+    dev = ro.device
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    prim = torch.empty((n,), dtype=torch.int32, device=dev)
+    iters = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return t, prim, iters
+    err = torch.zeros((1,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.lpt_packet_traverse(
+            nodes.data_ptr(), entries.data_ptr(), runs.data_ptr(), ro.data_ptr(),
+            rd.data_ptr(), t_init.data_ptr(), active.data_ptr(), t.data_ptr(),
+            prim.data_ptr(), iters.data_ptr(), err.data_ptr(), n, stack,
+            16 * m + 64, float(eps), LEAF_KINDS.index(leaf_kind), stream)
+    if code != 0:
+        msg = lib.lpt_error_string(code).decode()
+        raise RuntimeError(f"packet traversal kernel launch failed: {msg} ({code})")
+    traverse.launches[leaf_kind] += 1
+    flags = int(err.item())
+    if flags:
+        what = {1: "stack overflow", 2: "iteration backstop reached",
+                3: "stack overflow and iteration backstop reached"}[flags]
+        raise RuntimeError(f"packet traversal kernel: {what} (corrupt tables?)")
+    return t, prim, iters
+
+
+@functools.cache
+def load_kernel() -> ctypes.CDLL:
+    """Build (first use) and load the kernel library with its C signature."""
+    lib = build.load("packet_traverse")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.lpt_packet_traverse.argtypes = [vp] * 11 + [ci, ci, ci, ctypes.c_float, ci, vp]
+    lib.lpt_packet_traverse.restype = ci
+    lib.lpt_error_string.argtypes = [ci]
+    lib.lpt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+# -------------------------------------------------------------- plain twin --
+
+def _sqrt_f32(x):
+    """Correctly rounded f32 square root (PyTorch's vectorized CPU f32 sqrt
+    is not always; the f64 root rounded to f32 is, like the kernel's)."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def _leaf_candidates(row, nslots, o, d, eps, leaf_kind):
+    """Best ``(t, prim)`` of one run row per ray: ``row f32[R,128]``, valid
+    slots ``j < nslots[R]``, ray origins/directions ``o, d f32[R,3]``.
+    Returns ``(t f32[R] (+inf: none), prim i32[R])``."""
+    def c(k):
+        return row[:, k * WIDTH:(k + 1) * WIDTH]                   # [R,8]
+
+    o0, o1, o2 = (o[:, i:i + 1] for i in range(3))
+    d0, d1, d2 = (d[:, i:i + 1] for i in range(3))
+    if leaf_kind == "tri":
+        denom = (d0 * c(0) + d1 * c(1)) + d2 * c(2)
+        ron = (o0 * c(0) + o1 * c(1)) + o2 * c(2)
+        t = (c(3) - ron) / denom
+        w1 = (((o0 * c(4) + o1 * c(5)) + o2 * c(6))
+              + t * ((d0 * c(4) + d1 * c(5)) + d2 * c(6))) + c(7)
+        w2 = (((o0 * c(8) + o1 * c(9)) + o2 * c(10))
+              + t * ((d0 * c(8) + d1 * c(9)) + d2 * c(10))) + c(11)
+        w3 = (1.0 - w1) - w2
+        ok = (t > eps) & (w1 > 0.0) & (w2 > 0.0) & (w3 > 0.0)
+    else:
+        ocx, ocy, ocz = o0 - c(0), o1 - c(1), o2 - c(2)
+        half_b = (ocx * d0 + ocy * d1) + ocz * d2
+        cterm = ((ocx * ocx + ocy * ocy) + ocz * ocz) - c(3)
+        disc = half_b * half_b - cterm
+        sq = _sqrt_f32(torch.clamp_min(disc, 0.0))
+        t_near = (-half_b) - sq
+        t = torch.where((t_near < eps) & (c(4) > 1.5), (-half_b) + sq, t_near)
+        ok = (disc >= 0.0) & (t > eps)
+    slot = torch.arange(SLOTS, device=row.device)
+    ok = ok & (slot[None, :] < nslots[:, None])
+    pid = row[:, _PRIM_COL:_PRIM_COL + SLOTS].to(torch.int32)
+    t = torch.where(ok, t, _INF)
+    t_min, _ = torch.min(t, dim=1)
+    at_min = ok & (t == t_min[:, None])
+    p_min, _ = torch.min(torch.where(at_min, pid, torch.iinfo(torch.int32).max), dim=1)
+    return t_min, torch.where(at_min.any(dim=1), p_min, -1)
+
+
+def packet_traverse_plain(nodes, entries, runs, ro, rd, t_init, active,
+                          eps: float = 1e-4, leaf_kind: str = "tri",
+                          stack: int | None = None):
+    """Plain PyTorch twin of the kernel, on any device: a lockstep walk in
+    which every unfinished ray pops one stack entry per step, over the same
+    tables, in the same order, with the same f32 operations and tie rule.
+    Returns ``(t, prim, iters)`` like ``traverse``; raises on a stack
+    overflow or the ``16*M + 64`` step backstop."""
+    _check(nodes, entries, runs, ro, rd, t_init, active, leaf_kind)
+    if stack is None:
+        stack = stack_cap(entries.cpu().numpy())
+    n, m = ro.shape[0], nodes.shape[0]
+    dev = ro.device
+    eps_t = torch.tensor(eps, dtype=torch.float32, device=dev)
+    inv = torch.ones_like(rd) / rd
+    roinv = ro * inv
+    boxes = nodes[:, :6 * WIDTH]
+    kids = entries[:, :WIDTH]
+
+    t_best = t_init.clone()
+    prim_best = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    iters = torch.zeros((n,), dtype=torch.int32, device=dev)
+    st_code = torch.zeros((n, stack), dtype=torch.int64, device=dev)
+    st_t = torch.zeros((n, stack), dtype=torch.float32, device=dev)
+    sp = torch.where(active, 0, -1).to(torch.int64)
+
+    def leaf_step(rays, code):
+        v = -(code + 1)
+        row, cnt = v // _ENC, v % _ENC
+        for extra in (0, 1):
+            sel = cnt > extra * SLOTS
+            r, rr = rays[sel], row[sel] + extra
+            t_c, p_c = _leaf_candidates(runs[rr], cnt[sel] - extra * SLOTS,
+                                        ro[r], rd[r], eps_t, leaf_kind)
+            tb, pb = t_best[r], prim_best[r]
+            better = (t_c < tb) | ((t_c == tb) & (p_c >= 0) & (p_c < pb))
+            t_best[r] = torch.where(better, t_c, tb)
+            prim_best[r] = torch.where(better, p_c, pb)
+
+    for _ in range(16 * m + 64):
+        rays = torch.nonzero(sp >= 0).squeeze(1)
+        if rays.numel() == 0:
+            return t_best, prim_best, iters
+        s = sp[rays]
+        code = st_code[rays, s]
+        t_pop = st_t[rays, s]
+        sp[rays] = s - 1
+        iters[rays] += 1
+        live = t_pop < t_best[rays] + eps_t
+        rays, code, s = rays[live], code[live], s[live] - 1
+
+        # slab test of the 8 children
+        box = boxes[code]
+        t0 = torch.full((rays.numel(), WIDTH), -_INF, device=dev)
+        t1 = torch.full((rays.numel(), WIDTH), _INF, device=dev)
+        for dim in range(3):
+            iv, riv = inv[rays, dim:dim + 1], roinv[rays, dim:dim + 1]
+            ta = box[:, dim * 8:(dim + 1) * 8] * iv - riv
+            tb = box[:, (3 + dim) * 8:(4 + dim) * 8] * iv - riv
+            t0 = torch.maximum(t0, torch.minimum(ta, tb))
+            t1 = torch.minimum(t1, torch.maximum(ta, tb))
+        ent = kids[code]
+        hit = ((t1 > t0 - eps_t) & (t1 > 0.0) & (t0 < t_best[rays, None] + eps_t)
+               & (ent != int(_PAD)))
+        key = torch.where(hit, torch.clamp_min(t0, 0.0), _INF)
+        skey, slot = torch.sort(key, dim=1, stable=True)  # ties: lower slot
+        sent = ent.gather(1, slot).to(torch.int64)
+        entered = torch.isfinite(skey)
+
+        # leaf children inline, nearest first
+        for k in range(WIDTH):
+            sel = entered[:, k] & (sent[:, k] < 0)
+            sel &= skey[:, k] < t_best[rays] + eps_t
+            if bool(sel.any()):
+                leaf_step(rays[sel], sent[sel, k])
+
+        # node children: the nearest lands on top
+        is_node = entered & (sent >= 0)
+        n_node = is_node.sum(dim=1)
+        if bool((s + n_node >= stack).any()):
+            raise RuntimeError("packet traversal: stack overflow (corrupt tables?)")
+        above = torch.flip(torch.cumsum(torch.flip(is_node, [1]), 1), [1])
+        r_idx, k_idx = torch.nonzero(is_node, as_tuple=True)
+        pos = s[r_idx] + above[r_idx, k_idx]
+        st_code[rays[r_idx], pos] = sent[r_idx, k_idx]
+        st_t[rays[r_idx], pos] = skey[r_idx, k_idx]
+        sp[rays] = s + n_node
+    raise RuntimeError("packet traversal: iteration backstop reached (corrupt tables?)")

@@ -1,8 +1,8 @@
 """Render configuration (the reference's module-level constants, as data).
 
 Counterpart of ``learn_path_tracing_tpu.utils.config`` for the modern stages
-1-10: resolution / spp / propagate_limit / seed plus the integrator options
-and the torch device. The port reads no environment variables.
+1-10 and the legacy stages 14-15: resolution / spp / propagate_limit / seed
+plus the integrator options and the torch device. The port reads no environment variables.
 """
 
 from __future__ import annotations
@@ -17,8 +17,8 @@ class RenderConfig:
     spp: int = 128
     propagate_limit: int = 32
     seed: int = 0
-    bsdf: str = "modern"          # diffuse | modern
-    scene: str = "spheres"
+    bsdf: str = "modern"          # diffuse | modern | legacy
+    scene: str = "spheres"        # spheres | legacy
     camera_model: str = "thinlens"
     hit_backend: str = "auto"     # auto | cuda | xla
     out: str | None = None        # output path override (stages/CLI)
@@ -39,8 +39,8 @@ class RenderConfig:
         return asdict(self)
 
 
-# Stage presets of the modern stages 1-10 (file:line cites in stages/*.py of
-# the JAX package). The legacy stages come with the mesh slice.
+# Stage presets (file:line cites in stages/*.py of the JAX package). Keys:
+# modern stages 1-10, legacy stages "l14"/"l15" (l11-l13 are not ported).
 STAGE_CONFIGS = {
     1: RenderConfig(width=256, height=256, spp=1),
     2: RenderConfig(spp=1),
@@ -52,4 +52,8 @@ STAGE_CONFIGS = {
     8: RenderConfig(spp=8192),
     9: RenderConfig(spp=8192),
     10: RenderConfig(spp=8192),
+    "l14": RenderConfig(width=1500, height=1000, spp=32, bsdf="legacy",
+                        scene="legacy"),
+    "l15": RenderConfig(width=1500, height=1000, spp=32, bsdf="legacy",
+                        scene="legacy"),
 }

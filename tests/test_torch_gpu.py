@@ -4,20 +4,30 @@ the JAX package, so it runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest tests/test_torch_gpu.py -m gpu -q
 
-Tolerances: the sphere-scan kernel equals its plain twin bit for bit (the
-same IEEE-rounded operations in the same order); a GPU render equals a
-rerun bit for bit (fixed-point accumulation); a GPU render agrees with the
-CPU render within ``utils.checks.render_agreement``'s bounds (the
-transcendental functions of the two devices differ by ulps).
+Tolerances: the sphere-scan kernel and the packet-traversal kernels (K2
+triangle leaves, K3 sphere leaves) equal their plain twins bit for bit (the
+same IEEE-rounded operations in the same order, and an order-free tie
+rule); a GPU render, persistent or hybrid, equals a rerun bit for bit
+(fixed-point accumulation); a GPU render agrees with the CPU render within
+``utils.checks.render_agreement``'s bounds (the transcendental functions of
+the two devices differ by ulps).
 """
+
+import warnings
 
 import numpy as np
 import pytest
 import torch
 
+from learn_path_tracing_tpu_torch.accel import build_bvh, collapse
+from learn_path_tracing_tpu_torch.camera import Camera
+from learn_path_tracing_tpu_torch.integrator.hybrid import render_hybrid
 from learn_path_tracing_tpu_torch.integrator.persistent import render_persistent
+from learn_path_tracing_tpu_torch.io.obj import MeshData
 from learn_path_tracing_tpu_torch.models import random_scene, stage10_camera
+from learn_path_tracing_tpu_torch.ops import packet_traverse as tpt
 from learn_path_tracing_tpu_torch.ops import sphere_scan as tss
+from learn_path_tracing_tpu_torch.scene.legacy_world import LegacyWorld
 from learn_path_tracing_tpu_torch.utils.checks import render_agreement
 
 pytestmark = pytest.mark.gpu
@@ -77,5 +87,85 @@ def test_gpu_render_is_deterministic_and_matches_cpu(cuda):
     assert runs[0][1] == runs[1][1] and torch.equal(runs[0][0], runs[1][0])
     cpu_img, cpu_segs = render_persistent(world.device("cpu"), cam.params("cpu"), res,
                                           spp=4, limit=8)
+    rep = render_agreement(runs[0][0].cpu().numpy(), cpu_img.numpy(), runs[0][1], cpu_segs)
+    assert rep["ok"], rep
+
+
+def _packet_tables(leaf_kind, seed, count, max_leaf):
+    r = np.random.default_rng(seed)
+    if leaf_kind == "tri":
+        v0 = (r.normal(size=(count, 3)) * 3).astype(np.float32)
+        v1 = v0 + r.normal(size=(count, 3)).astype(np.float32)
+        v2 = v0 + r.normal(size=(count, 3)).astype(np.float32)
+        lo, hi = np.minimum(np.minimum(v0, v1), v2), np.maximum(np.maximum(v0, v1), v2)
+        wide = collapse(build_bvh(lo, hi, centroid=(v0 + v1 + v2) / 3, max_depth=16,
+                                  max_leaf=max_leaf), max_run=max_leaf)
+        return tpt.pack_packet_tables(wide, v0, v1, v2)
+    c = r.uniform(-6, 6, (count, 3)).astype(np.float32)
+    rad = r.uniform(0.1, 0.8, count).astype(np.float32)
+    tr = (r.uniform(size=count) < 0.3).astype(np.float32)
+    wide = collapse(build_bvh(c - rad[:, None], c + rad[:, None], centroid=c, max_depth=12,
+                              max_leaf=max_leaf), max_run=max_leaf)
+    return tpt.pack_sphere_packet_tables(wide, c, rad, tr)
+
+
+# ray counts off the 128-thread block; fat leaves (runs of 12: two rows)
+@pytest.mark.parametrize("leaf_kind,count,max_leaf,n", [
+    ("tri", 1, 4, 1), ("tri", 3000, 8, 5000), ("tri", 2000, 12, 3001),
+    ("sphere", 5000, 8, 5000), ("sphere", 700, 12, 777)])
+def test_packet_kernel_matches_twin_bitwise(cuda, leaf_kind, count, max_leaf, n):
+    tables = [torch.as_tensor(x, device=cuda)
+              for x in _packet_tables(leaf_kind, count + n, count, max_leaf)]
+    r = np.random.default_rng(n)
+    ro = (r.normal(size=(n, 3)) * 5).astype(np.float32)
+    rd = r.normal(size=(n, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    t_init = np.where(r.uniform(size=n) < 0.3, r.uniform(1, 10, n), np.inf).astype(np.float32)
+    active = r.uniform(size=n) < 0.8
+    args = [torch.as_tensor(x, device=cuda) for x in (ro, rd, t_init, active)]
+    before = dict(tpt.traverse.launches)
+    t, p, it = tpt.traverse(*tables, *args, leaf_kind=leaf_kind)
+    assert tpt.traverse.launches[leaf_kind] == before[leaf_kind] + 1
+    t2, p2, it2 = tpt.packet_traverse_plain(*tables, *args, leaf_kind=leaf_kind)
+    torch.cuda.synchronize()
+    assert torch.equal(t.view(torch.int32), t2.view(torch.int32))
+    assert torch.equal(p, p2) and torch.equal(it, it2)
+    assert n == 1 or bool((p >= 0).any())
+
+
+def test_packet_kernel_raises_on_stack_overflow(cuda):
+    tables = [torch.as_tensor(x, device=cuda) for x in _packet_tables("tri", 5, 3000, 4)]
+    ro = torch.zeros((64, 3), device=cuda)
+    rd = torch.nn.functional.normalize(torch.ones((64, 3), device=cuda), dim=-1)
+    t_init = torch.full((64,), float("inf"), device=cuda)
+    active = torch.ones((64,), dtype=torch.bool, device=cuda)
+    with pytest.raises(RuntimeError, match="stack overflow"):
+        tpt.traverse(*tables, ro, rd, t_init, active, stack=2)
+
+
+def test_gpu_hybrid_is_deterministic_and_matches_cpu(cuda):
+    world = LegacyWorld()
+    world.add_mesh(MeshData(
+        positions=np.array([[-3, 0, -3], [3, 0, -3], [3, 0, 3], [-3, 0, 3]], np.float32),
+        normals=np.array([[0, 1, 0]], np.float32),
+        uvs=np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32),
+        face_p=np.array([[0, 1, 2], [0, 2, 3]], np.int32), face_n=np.zeros((2, 3), np.int32),
+        face_t=np.array([[0, 1, 2], [0, 2, 3]], np.int32), face_tex=np.zeros(2, np.int32)))
+    world.add_sphere((0, 1, 0), 0.8)
+    world.add_sphere((1.5, 0.6, 0.5), 0.6, transparency=1)
+    world.textures.add("missing", 0, size=(8, 8))
+    world.set_environment(0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        world.build()
+    res = (48, 27)
+    cam = Camera(res)
+    cam.set_position((0, 2, 6))
+    cam.look_at((0, 0.5, 0))
+    runs = [render_hybrid(world.device(cuda), cam.params(cuda), res, spp=4, limit=8)
+            for _ in range(2)]
+    assert runs[0][1] == runs[1][1] and torch.equal(runs[0][0], runs[1][0])
+    cpu_img, cpu_segs = render_hybrid(world.device("cpu"), cam.params("cpu"), res, spp=4,
+                                      limit=8)
     rep = render_agreement(runs[0][0].cpu().numpy(), cpu_img.numpy(), runs[0][1], cpu_segs)
     assert rep["ok"], rep

@@ -1,0 +1,250 @@
+"""Port parity: the plain twin of the packet-traversal kernels K2 (triangle
+leaves) and K3 (sphere leaves) against the JAX package's Pallas kernel in
+interpret mode, and against a brute-force oracle.
+
+Tolerances, with their reasons:
+
+- Against Pallas: ``t`` within 1e-5 relative where both hit (XLA on the CPU
+  contracts the kernel's multiply-adds into FMAs; the port rounds every
+  operation), and for spheres also within 2e-7 absolute: ``-b ± sqrt(disc)``
+  cancels for origins near a surface, leaving an ulp of the O(1) terms on
+  a tiny ``t``; hit/miss and ``prim`` equal on at least 99.9 % of rays. Each
+  differing ray is printed and must be an exact tie (the TPU kernel picks
+  the earliest slot among near-equal keys, the port the smaller prim id)
+  or a grazing edge (a barycentric weight within 1e-4 of 0).
+- Against the brute force (every run row of the tables tested for every
+  ray with the twin's own leaf arithmetic and tie rule): bit for bit. So
+  the eps-relaxed slab test culls no hit.
+- ``packet_traverse_sorted``: the sort permutation, ``entered_n`` and the
+  carried payload equal JAX's exactly (the coherence keys are equal), and
+  the hits within the tolerance above.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from learn_path_tracing_tpu.accel.bvh import build_bvh as j_build_bvh
+from learn_path_tracing_tpu.accel.wide import collapse as j_collapse
+from learn_path_tracing_tpu.ops import packet_traverse as jpt
+from learn_path_tracing_tpu_torch.accel.wide import _PAD, decode_leaf
+from learn_path_tracing_tpu_torch.ops import packet_traverse as tpt
+
+torch.set_num_threads(2)
+
+
+def _tri_tables(seed, t_count, max_leaf):
+    r = np.random.default_rng(seed)
+    v0 = r.normal(size=(t_count, 3)).astype(np.float32) * 3
+    v1 = v0 + r.normal(size=(t_count, 3)).astype(np.float32)
+    v2 = v0 + r.normal(size=(t_count, 3)).astype(np.float32)
+    plow = np.minimum(np.minimum(v0, v1), v2)
+    phigh = np.maximum(np.maximum(v0, v1), v2)
+    flat = j_build_bvh(plow, phigh, centroid=(v0 + v1 + v2) / 3, max_depth=12,
+                       max_leaf=max_leaf, backend="numpy")
+    tables = jpt.pack_packet_tables(j_collapse(flat, max_run=max_leaf), v0, v1, v2)
+    return (v0, v1, v2), [np.asarray(x) for x in tables]
+
+
+def _sphere_tables(seed, s):
+    r = np.random.default_rng(seed)
+    c = r.uniform(-6, 6, (s, 3)).astype(np.float32)
+    rad = r.uniform(0.2, 1.2, s).astype(np.float32)
+    tr = (r.uniform(size=s) < 0.3).astype(np.float32)
+    flat = j_build_bvh(c - rad[:, None], c + rad[:, None], centroid=c, max_depth=12,
+                       max_leaf=8, backend="numpy")
+    return [np.asarray(x) for x in jpt.pack_sphere_packet_tables(j_collapse(flat), c, rad, tr)]
+
+
+def _rays(seed, n, scale=5.0, t_init=False, inactive=False, inside=None):
+    r = np.random.default_rng(seed)
+    ro = (r.normal(size=(n, 3)) * scale).astype(np.float32)
+    if inside is not None:                 # some origins inside spheres
+        c, rad = inside
+        k = r.integers(len(rad), size=n // 4)
+        ro[:n // 4] = c[k] + 0.5 * rad[k, None] * r.normal(size=(n // 4, 3)) / 2
+    rd = r.normal(size=(n, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    ti = np.full(n, np.inf, np.float32)
+    if t_init:
+        pick = r.uniform(size=n) < 0.4
+        ti[pick] = r.uniform(1, 10, pick.sum())
+    active = r.uniform(size=n) < 0.7 if inactive else np.ones(n, bool)
+    return ro, rd.astype(np.float32), ti, active
+
+
+def _port(tables, ro, rd, ti, active, leaf_kind="tri"):
+    t, p = tpt.packet_traverse(*(torch.tensor(x) for x in tables), torch.as_tensor(ro),
+                               torch.as_tensor(rd), torch.as_tensor(ti),
+                               torch.as_tensor(active), leaf_kind=leaf_kind)
+    return t.numpy(), p.numpy()
+
+
+def _jax(tables, ro, rd, ti, active, leaf_kind="tri"):
+    t, p = jpt.packet_traverse(*(jnp.asarray(x) for x in tables), jnp.asarray(ro),
+                               jnp.asarray(rd), jnp.asarray(ti), jnp.asarray(active),
+                               interpret=True, sort_rays=False, leaf_kind=leaf_kind)
+    return np.asarray(t), np.asarray(p)
+
+
+def _tri_eval(v, ro, rd, prim):
+    """f64 (t, smallest barycentric weight) of triangle ``prim`` per ray."""
+    p1, p2, p3 = (x[prim].astype(np.float64) for x in v)
+    ro, rd = ro.astype(np.float64), rd.astype(np.float64)
+    e1, e2 = p2 - p1, p3 - p1
+    n = np.cross(e1, e2)
+    t = np.sum((p1 - ro) * n, -1) / np.sum(rd * n, -1)
+    q = ro + t[:, None] * rd
+    area = np.sum(n * n, -1)
+    w1 = np.sum(np.cross(p3 - p2, q - p2) * n, -1) / area
+    w2 = np.sum(np.cross(p1 - p3, q - p3) * n, -1) / area
+    return t, np.minimum(np.minimum(w1, w2), 1 - w1 - w2)
+
+
+def _agree(tp, pp, tj, pj, explain, atol=0.0):
+    """The stated tolerance; ``explain(i)`` says why ray ``i`` may differ."""
+    hit_p, hit_j = pp >= 0, pj >= 0
+    both = hit_p & hit_j
+    np.testing.assert_allclose(tp[both], tj[both], rtol=1e-5, atol=atol)
+    np.testing.assert_array_equal(tp[~hit_p & ~hit_j], tj[~hit_p & ~hit_j])
+    differ = np.flatnonzero((hit_p != hit_j) | (pp != pj))
+    print(f"{len(differ)} of {len(pp)} rays differ in hit/miss or prim")
+    assert len(differ) <= 0.001 * len(pp)
+    for i in differ:
+        assert explain(i), f"ray {i}: port ({tp[i]}, {pp[i]}) vs JAX ({tj[i]}, {pj[i]})"
+    return int(hit_p.sum())
+
+
+def _tri_explain(v, ro, rd, tp, pp, tj, pj):
+    def explain(i):
+        prims = [p for p in (pp[i], pj[i]) if p >= 0]
+        t, w = _tri_eval(v, np.repeat(ro[i:i + 1], len(prims), 0),
+                         np.repeat(rd[i:i + 1], len(prims), 0), np.array(prims))
+        grazing = bool((np.abs(w) < 1e-4).any())
+        tie = len(prims) == 2 and abs(tp[i] - tj[i]) <= 1e-5 * abs(tj[i])
+        return grazing or tie
+    return explain
+
+
+@pytest.mark.parametrize("max_leaf,t_init,inactive", [(4, False, False), (8, True, True),
+                                                      (12, True, False)])
+def test_plain_k2_matches_pallas(max_leaf, t_init, inactive):
+    """Triangle leaves: plain seeds, ``t_init`` seeding with inactive lanes,
+    and fat leaves (runs of 12 spill into a second row)."""
+    v, tables = _tri_tables(max_leaf, 250, max_leaf)
+    ro, rd, ti, active = _rays(10 + max_leaf, 1024, t_init=t_init, inactive=inactive)
+    tp, pp = _port(tables, ro, rd, ti, active)
+    tj, pj = _jax(tables, ro, rd, ti, active)
+    hits = _agree(tp, pp, tj, pj, _tri_explain(v, ro, rd, tp, pp, tj, pj))
+    assert hits > 100
+    # inactive lanes keep t_init and report no prim; unbeaten lanes keep t_init
+    np.testing.assert_array_equal(tp[~active], ti[~active])
+    assert (pp[~active] == -1).all()
+    np.testing.assert_array_equal(tp[pp < 0], ti[pp < 0])
+
+
+def test_plain_k3_matches_pallas():
+    """Sphere leaves, with transparent spheres (the far root from inside),
+    ``t_init`` seeding and inactive lanes."""
+    tables = _sphere_tables(3, 300)
+    rows = tables[2]
+    c = np.stack([rows[:, k * 8:(k + 1) * 8] for k in range(3)], -1).reshape(-1, 3)
+    r2 = rows[:, 24:32].reshape(-1)
+    keep = np.isfinite(r2)
+    ro, rd, ti, active = _rays(21, 1024, scale=6.0, t_init=True, inactive=True,
+                               inside=(c[keep], np.sqrt(r2[keep])))
+    tp, pp = _port(tables, ro, rd, ti, active, "sphere")
+    tj, pj = _jax(tables, ro, rd, ti, active, "sphere")
+
+    def explain(i):   # spheres only tie exactly
+        return pp[i] >= 0 and pj[i] >= 0 and tp[i] == tj[i]
+
+    assert _agree(tp, pp, tj, pj, explain, atol=2e-7) > 200
+
+
+def _brute(tables, ro, rd, ti, active, leaf_kind):
+    """Every run row against every ray, with the twin's leaf test."""
+    nodes, entries, runs = (torch.tensor(x) for x in tables)
+    codes = entries[:, :8].reshape(-1)
+    codes = codes[(codes < 0) & (codes != int(_PAD))].numpy()
+    start, count = decode_leaf(codes)
+    rows, slots = [], []
+    for s, c in zip(start, count):
+        rows.append(s)
+        slots.append(min(c, 8))
+        if c > 8:
+            rows.append(s + 1)
+            slots.append(c - 8)
+    ro_t, rd_t = torch.as_tensor(ro), torch.as_tensor(rd)
+    t_best = torch.as_tensor(ti).clone()
+    p_best = torch.full((len(ro),), -1, dtype=torch.int32)
+    eps = torch.tensor(1e-4)
+    for row, ns in zip(rows, slots):
+        t_c, p_c = tpt._leaf_candidates(runs[row].expand(len(ro), 128),
+                                        torch.full((len(ro),), ns), ro_t, rd_t, eps,
+                                        leaf_kind)
+        better = (t_c < t_best) | ((t_c == t_best) & (p_c >= 0) & (p_c < p_best))
+        better &= torch.as_tensor(active)
+        t_best = torch.where(better, t_c, t_best)
+        p_best = torch.where(better, p_c, p_best)
+    return t_best.numpy(), p_best.numpy()
+
+
+@pytest.mark.parametrize("leaf_kind", ["tri", "sphere"])
+def test_plain_matches_brute_force(leaf_kind):
+    if leaf_kind == "tri":
+        _, tables = _tri_tables(5, 200, 12)
+    else:
+        tables = _sphere_tables(6, 200)
+    ro, rd, ti, active = _rays(7, 1500, t_init=True, inactive=True)
+    tp, pp = _port(tables, ro, rd, ti, active, leaf_kind)
+    tb, pb = _brute(tables, ro, rd, ti, active, leaf_kind)
+    assert (pb >= 0).sum() > 100
+    np.testing.assert_array_equal(pp, pb)
+    np.testing.assert_array_equal(tp.view(np.int32), tb.view(np.int32))
+
+
+def test_sorted_matches_jax():
+    """``packet_traverse_sorted``: the same permutation, ``entered_n`` and
+    carried payload as JAX; hits within the stated tolerance."""
+    v, tables = _tri_tables(2, 250, 8)
+    ro, rd, _, active = _rays(31, 1024, inactive=True)
+    treelets = jpt.treelet_boxes(*tables[:2])
+    tag = np.arange(1024, dtype=np.uint32) * 3
+    jt_s, jp_s, jro, _, jn, jorder, (jtag,) = jpt.packet_traverse_sorted(
+        *(jnp.asarray(x) for x in tables), jnp.asarray(ro), jnp.asarray(rd),
+        jnp.asarray(active), interpret=True, treelets=treelets, payload=(jnp.asarray(tag),))
+    out = tpt.packet_traverse_sorted(
+        *(torch.as_tensor(x) for x in tables), torch.as_tensor(ro), torch.as_tensor(rd),
+        torch.as_tensor(active), tuple(torch.as_tensor(np.asarray(x)) for x in treelets),
+        payload=(torch.as_tensor(tag.astype(np.int64)),))
+    tt_s, tp_s, tro, _, tn, torder, (ttag,) = out
+    np.testing.assert_array_equal(torder.numpy(), np.asarray(jorder))
+    assert int(tn) == int(jn)
+    np.testing.assert_array_equal(ttag.numpy(), np.asarray(jtag).astype(np.int64))
+    np.testing.assert_array_equal(tro.numpy(), np.asarray(jro))
+    order = torder.numpy()
+    tp, pp, tj, pj = tt_s.numpy(), tp_s.numpy(), np.asarray(jt_s), np.asarray(jp_s)
+    _agree(tp, pp, tj, pj, _tri_explain(v, ro[order], rd[order], tp, pp, tj, pj))
+    # every hit lies in the entered prefix; inactive rays sort last and miss
+    assert (np.flatnonzero(pp >= 0) < int(tn)).all()
+    assert not (pp[~active[order]] >= 0).any()
+
+
+def test_stack_overflow_and_backstop_raise():
+    _, tables = _tri_tables(1, 200, 4)
+    ro, rd, ti, active = _rays(1, 64)
+    args = [torch.as_tensor(x) for x in (*tables, ro, rd, ti, active)]
+    with pytest.raises(RuntimeError, match="stack overflow"):
+        tpt.packet_traverse(*args, stack=2)
+    # a node whose child is itself: the walk never ends
+    nodes = np.zeros((1, 128), np.float32)
+    nodes[0, :24] = -100.0
+    nodes[0, 24:48] = 100.0
+    entries = np.full((1, 128), _PAD, np.int32)
+    entries[0, 0] = 0
+    runs = np.zeros((1, 128), np.float32)
+    loop = [torch.as_tensor(x) for x in (nodes, entries, runs)] + args[3:]
+    with pytest.raises(RuntimeError, match="backstop"):
+        tpt.packet_traverse(*loop, stack=8)
