@@ -3,11 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths and checks them:
+Drives the port's three paths and checks them:
 
 - the 10_final sphere path: the stage-10 cover scene through
-  ``stages.common.run_path_traced`` → ``integrator.persistent`` →
-  ``scene.world.hit`` → the sphere-scan kernel (K1);
+  ``stages.common.run_path_traced`` → ``integrator.persistent`` (modular
+  engine) → ``scene.world.hit`` → the sphere-scan kernel (K1);
+- the mega engine: the same scene through
+  ``integrator.persistent.render_persistent(engine='mega')``, one fused
+  bounce-pass kernel (K4) per pass;
 - the legacy mesh path: ``stages.l14_mesh`` on a saved ``.world.npy`` →
   ``viewer.progressive`` → ``integrator.hybrid`` →
   ``scene.legacy_world`` → the packet-traversal kernel with triangle
@@ -21,23 +24,30 @@ Phases:
    source, all started together) and prints ``ptxas``'s register, memory
    and spill lines;
 3. holds each kernel against its plain PyTorch twin on the card, at the
-   paths' shapes, bitwise, timed with CUDA events (median of 20 runs):
-   K1 on the cover scene's wavefronts; K2 on the stand-in mesh's
+   paths' shapes, timed with CUDA events (median of 20 runs): K1 on the
+   cover scene's wavefronts, bitwise; K4 one pass from three states of the
+   1280x720, 64 spp headline (primary, after 10 passes, under 1 % live),
+   its integer rows, deposits and live count bitwise and any differing
+   float row named, counted and bounded; K2 on the stand-in mesh's
    1,843,200-ray primary slab (640x360, 8 samples), its first-bounce
    survivors, random rays with random ``t_init`` and half the lanes
    inactive, and rays starting on the surface; K3 on the same four kinds
-   of ray sets over the 8,192 spheres;
+   of ray sets over the 8,192 spheres, both bitwise;
 4. renders small images on the card and on the CPU (cover scene,
-   persistent; stand-in mesh + a sphere, hybrid) and holds each pair to
-   the agreement bounds of ``utils.checks``;
+   persistent modular and mega, two mega card renders bitwise equal;
+   stand-in mesh + a sphere, hybrid) and holds each pair to the agreement
+   bounds of ``utils.checks``;
 5. with every launch count set to 0 just before each and read just after:
    a hybrid render of the sphere world (the K3 path); the 640x360, 64 spp,
    depth-32 stand-in render through ``stages.l14_mesh`` after a warm-up,
    checking that the K2 launches equal the traversal calls the integrator
    counts (slabs plus pool passes), that the image is finite with a sane
-   mean (``outputs/chip_smoke_l14_standin.png``); and the 1280x720, 64 spp,
+   mean (``outputs/chip_smoke_l14_standin.png``); the 1280x720, 64 spp,
    depth-32 cover scene (``outputs/chip_smoke_10_final.png``), checking
-   one K1 launch per ``hit`` call.
+   one K1 launch per ``hit`` call; and the same frame through the mega
+   engine after a warm-up (``outputs/chip_smoke_10_final_mega.png``),
+   checking one K4 launch per pass and agreement with the modular frame,
+   then two more frames and a profiled one (device busy time, K4's share).
 
 The stand-in world (``standin_world``) takes the place of the reference's
 Yoimiya character, whose assets are not in the repository: one closed mesh
@@ -260,6 +270,195 @@ def headline(device):
         raise AssertionError(f"sphere-scan launches {launches} != hit calls {rep['passes']}")
     if not np.isfinite(arr).all() or not 0.05 < mean < 0.95:
         raise AssertionError(f"headline image is not sane: mean {mean}")
+    return launches, rep
+
+
+# ------------------------------------------------- the mega engine (K4) --
+
+MEGA_ROWS = {"ro": (0, 3), "rd": (3, 6), "throughput": (6, 9), "contrib": (10, 13)}
+MEGA_LATE = 0.01          # the late state: fewer live lanes than this share
+
+
+def mega_states(wd, cp, scalf, device):
+    """Three states at the headline shape for the K4 check: the primary
+    state, the state after 10 passes (advanced by the plain twin, so it does
+    not depend on the kernel under test) and a late state with fewer than
+    ``MEGA_LATE`` of the lanes live (advanced by the kernel: the twin takes
+    a few hundred passes to get there)."""
+    from learn_path_tracing_tpu_torch.integrator.persistent import bounce_pass_plain, mega_pass
+    from learn_path_tracing_tpu_torch.ops import bounce_megakernel as mk
+
+    n = RES[0] * RES[1]
+    stf, sti = mk.initial_state(cp, RES, SPP, 0)
+    states = {"primary": (stf, sti)}
+    for _ in range(10):
+        stf, sti, _ = bounce_pass_plain(stf, sti, wd, scalf, 0, RES, SPP, limit=DEPTH)
+    states["pass10"] = (stf, sti)
+    passes, live = 10, n
+    while live >= MEGA_LATE * n:
+        stf, sti, live_t = mega_pass(stf, sti, wd, scalf, 0, RES, SPP, limit=DEPTH)
+        live, passes = int(live_t), passes + 1
+    if live == 0:
+        raise AssertionError("the render ended before a late state was reached")
+    states[f"late (pass {passes})"] = (stf, sti)
+    return states
+
+
+def check_bounce_megakernel(device):
+    """K4 against its plain twin on the card, one pass from each of
+    ``mega_states``; returns the kernels-line entry (without ``launches``).
+    Every row must be equal bit for bit, as measured on the H100: the
+    integer rows (k, bounce, nearest sphere), the alive row, the live count,
+    the fixed-point deposits and the float rows. A float row that differs is
+    named with its count of differing lanes and its max |diff| before the
+    check fails."""
+    import torch
+
+    from learn_path_tracing_tpu_torch.integrator.persistent import bounce_pass_plain, mega_pass
+    from learn_path_tracing_tpu_torch.models import random_scene, stage10_camera
+    from learn_path_tracing_tpu_torch.ops import bounce_megakernel as mk
+
+    n = RES[0] * RES[1]
+    wd = random_scene(seed=SCENE_SEED).device(device)
+    cp = stage10_camera(RES).params(device)
+    scalf = mk.pack_camera(cp, RES)
+    max_err = 0.0
+    for name, (stf, sti) in mega_states(wd, cp, scalf, device).items():
+        live_in = int((stf[mk.ALIVE] > 0.5).sum())
+        out = {}
+        for kind, fn in (("kernel", mega_pass), ("twin", bounce_pass_plain)):
+            acc = torch.zeros((n, 3), dtype=torch.int64, device=device)
+            out[kind] = fn(stf, sti, wd, scalf, 0, RES, SPP, limit=DEPTH, acc=acc) + (acc,)
+        torch.cuda.synchronize()
+        (ks, ki, kl, ka), (ps, pi, pl, pa) = out["kernel"], out["twin"]
+        exact = {"k": bitwise_equal(ki[mk.K], pi[mk.K]),
+                 "bounce": bitwise_equal(ki[mk.BOUNCE], pi[mk.BOUNCE]),
+                 "sphere": bitwise_equal(ki[mk.OBJ], pi[mk.OBJ]),
+                 "unused rows": bitwise_equal(ki[3:], pi[3:]) and bitwise_equal(ks[13:], ps[13:]),
+                 "alive": bitwise_equal(ks[mk.ALIVE], ps[mk.ALIVE]),
+                 "live count": bitwise_equal(kl, pl), "deposits": bitwise_equal(ka, pa)}
+        rows = []
+        for row, (lo, hi) in MEGA_ROWS.items():
+            diff = (ks[lo:hi].view(torch.int32) != ps[lo:hi].view(torch.int32)).any(0)
+            lanes = int(diff.sum())
+            err = float((ks[lo:hi] - ps[lo:hi]).abs().max())
+            max_err = max(max_err, err)
+            if lanes:
+                rows.append(f"{row}: {lanes} lanes differ, max |diff| {err:.3g}")
+        _log(f"[k4] {name}: {live_in} live lanes in, {int(kl)} out, "
+             f"hit lanes {int((ki[mk.OBJ] >= 0).sum())}, bitwise equal: "
+             f"{', '.join(f'{k} {v}' for k, v in exact.items())}; float rows "
+             f"{'; '.join(rows) if rows else 'all bitwise equal'}")
+        if not all(exact.values()) or rows:
+            raise AssertionError(f"K4 differs from its twin on '{name}': {exact}; {rows}")
+
+    stf, sti = mk.initial_state(cp, RES, SPP, 0)
+    acc = torch.zeros((n, 3), dtype=torch.int64, device=device)
+    ms = cuda_ms(lambda: mk.bounce_pass(stf, sti, wd, scalf, 0, RES, SPP, limit=DEPTH,
+                                        acc=acc))
+    plain_ms = cuda_ms(lambda: bounce_pass_plain(stf, sti, wd, scalf, 0, RES, SPP,
+                                                 limit=DEPTH, acc=acc))
+    _log(f"[k4] time of a pass from the primary state, {n} lanes x "
+         f"{wd.scan_table.shape[0]} spheres: kernel {ms:.4f} ms, plain twin "
+         f"{plain_ms:.4f} ms (median of 20)")
+    return {"name": "bounce_megakernel", "route": "cuda",
+            "source": "learn_path_tracing_tpu_torch/csrc/bounce_megakernel.cu",
+            "replaces": "learn_path_tracing_tpu/ops/bounce_megakernel.py:167",
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+
+
+def check_mega_gpu_vs_cpu(device):
+    """The mega engine on the card twice (bit-identical) and on the CPU,
+    held to ``render_agreement``."""
+    import torch
+
+    from learn_path_tracing_tpu_torch.integrator.persistent import render_persistent
+    from learn_path_tracing_tpu_torch.models import random_scene, stage10_camera
+    from learn_path_tracing_tpu_torch.utils.checks import render_agreement
+
+    world = random_scene(seed=SCENE_SEED)
+    cam = stage10_camera(SMALL_RES)
+    runs = [render_persistent(world.device(dev), cam.params(dev), SMALL_RES, spp=SMALL_SPP,
+                              limit=SMALL_LIMIT, engine="mega")
+            for dev in (device, device, "cpu")]
+    same = runs[0][1] == runs[1][1] and bitwise_equal(runs[0][0], runs[1][0])
+    rep = render_agreement(runs[0][0].cpu().numpy(), runs[2][0].numpy(), runs[0][1],
+                           runs[2][1])
+    _log(f"[gpu-vs-cpu mega] {SMALL_RES[0]}x{SMALL_RES[1]} spp {SMALL_SPP} limit "
+         f"{SMALL_LIMIT}: two card renders bitwise equal: {same}; segments "
+         f"{runs[0][1]} vs {runs[2][1]}, {rep}")
+    if not same:
+        raise AssertionError("two mega renders on the card differ")
+    if not rep["ok"]:
+        raise AssertionError(f"GPU mega render disagrees with the CPU render: {rep}")
+    torch.cuda.synchronize()
+
+
+def mega_headline(device, modular):
+    """The cover scene at 1280x720, 64 spp, depth 32 through
+    ``render_persistent(engine='mega')``, after a warm-up; held to
+    ``render_agreement`` against the modular headline's linear image
+    (``modular``: ``headline``'s report) from the same run."""
+    import numpy as np
+    import torch
+
+    from learn_path_tracing_tpu_torch.core import color, image
+    from learn_path_tracing_tpu_torch.integrator.persistent import render_persistent
+    from learn_path_tracing_tpu_torch.models import random_scene, stage10_camera
+    from learn_path_tracing_tpu_torch.ops import bounce_megakernel as mk
+    from learn_path_tracing_tpu_torch.utils.checks import render_agreement
+
+    wd = random_scene(seed=SCENE_SEED).device(device)
+    cp = stage10_camera(RES).params(device)
+    t0 = time.time()
+    render_persistent(wd, cp, RES, spp=1, limit=DEPTH, seed=-1, engine="mega")
+    torch.cuda.synchronize()
+    _log(f"[mega headline] warm-up (spp 1) {time.time() - t0:.2f} s")
+
+    mk.bounce_pass.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    img, segs, st = render_persistent(wd, cp, RES, spp=SPP, limit=DEPTH, seed=0,
+                                      engine="mega", stats=True)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = mk.bounce_pass.launches
+    image.write_png(color.post_process(img), "outputs/chip_smoke_10_final_mega.png")
+    arr = img.cpu().numpy()
+    mean = float(arr.mean())
+    rep = render_agreement(arr, modular["linear"].cpu().numpy(), segs, modular["segments"])
+    _log(f"[mega headline] {RES[0]}x{RES[1]} spp {SPP} depth {DEPTH}: {seconds:.3f} s, "
+         f"{segs} segments, {segs / seconds / 1e6:.3f} Mrays/s, {st['passes']} passes, "
+         f"K4 launches {launches}, image mean {mean:.5f}; against the modular headline "
+         f"({modular['seconds']:.3f} s, {modular['segments']} segments): {rep}")
+    if launches != st["passes"]:
+        raise AssertionError(f"K4 launches {launches} != passes {st['passes']}")
+    if not np.isfinite(arr).all() or not 0.05 < mean < 0.95:
+        raise AssertionError(f"mega headline image is not sane: mean {mean}")
+    if not rep["ok"]:
+        raise AssertionError(f"the mega headline disagrees with the modular one: {rep}")
+
+    def frame():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render_persistent(wd, cp, RES, spp=SPP, limit=DEPTH, seed=0, engine="mega")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    walls = [seconds] + [frame() for _ in range(2)]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        prof_wall = frame()
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    k4_ms = sum(e.time_range.elapsed_us() for e in dev if "bounce_pass_kernel" in e.name) / 1e3
+    med = statistics.median(walls)
+    _log(f"[mega headline] frames {', '.join(f'{w:.4f}' for w in walls)} s (median "
+         f"{med:.4f} s = {segs / med / 1e6:.3f} Mrays/s); profiled frame {prof_wall:.4f} s: "
+         f"{len(dev)} device events, device busy {busy_ms:.3f} ms, K4 {k4_ms:.3f} ms, "
+         f"idle {1.0 - busy_ms / (med * 1e3):.4f} of the median frame")
+    if not dev:
+        raise AssertionError("torch.profiler recorded no device events")
     return launches
 
 
@@ -789,10 +988,12 @@ def build_kernels():
     print ptxas's register, memory and spill lines."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from learn_path_tracing_tpu_torch.ops import build, packet_traverse, sphere_scan
+    from learn_path_tracing_tpu_torch.ops import (bounce_megakernel, build, packet_traverse,
+                                                  sphere_scan)
 
     loaders = {"sphere_scan": sphere_scan.load_kernel,
-               "packet_traverse": packet_traverse.load_kernel}
+               "packet_traverse": packet_traverse.load_kernel,
+               "bounce_megakernel": bounce_megakernel.load_kernel}
     t0 = time.time()
     with ThreadPoolExecutor(len(loaders)) as pool:
         for fut in [pool.submit(fn) for fn in loaders.values()]:
@@ -828,7 +1029,9 @@ def main(argv=None) -> int:
         return 0
 
     k1 = check_sphere_scan(device)
+    k4 = check_bounce_megakernel(device)
     check_gpu_vs_cpu(device)
+    check_mega_gpu_vs_cpu(device)
     with tempfile.TemporaryDirectory() as directory:
         t0 = time.time()
         mesh_world = standin_world(directory)
@@ -853,10 +1056,11 @@ def main(argv=None) -> int:
 
         check_mesh_gpu_vs_cpu(device, directory)
         k2["launches"] = mesh_headline(mesh_world, mesh_wd, device, directory)
-    k1["launches"] = headline(device)
+    k1["launches"], modular = headline(device)
+    k4["launches"] = mega_headline(device, modular)
 
     print(card)
-    print(json.dumps({"kernels": [k1, k2, k3]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

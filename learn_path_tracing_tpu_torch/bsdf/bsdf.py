@@ -43,7 +43,7 @@ def scatter_modern(rays: Rays, hits: Hits, base) -> Rays:
     u3, u4 = rng.uniform2(base, 3)
 
     n = sp.sample_normal(d, hits.normal, mat.roughness[..., None], u1, u2)
-    cos_theta = torch.clamp_min(torch.sum(n * (-d), dim=-1), 0.0)
+    cos_theta = torch.clamp_min(sp.sum3(n * (-d))[..., 0], 0.0)
 
     # Metal lobe: tinted fresnel attenuation, mirror about perturbed normal.
     f_metal = sp.schlick(cos_theta[..., None], mat.albedo)

@@ -14,13 +14,21 @@ import torch
 TWO_PI = 6.283185307179586
 
 
+def sum3(v):
+    """Sum over a last axis of size 3 as ``(x + y) + z``, keeping dims:
+    f32[N,1]. The order is written out because ``torch.sum`` leaves it to
+    the device's reduction kernel; this one is the CPU's, and the bounce
+    kernel (``csrc/bounce_megakernel.cu``) adds in it too."""
+    return (v[..., 0:1] + v[..., 1:2]) + v[..., 2:3]
+
+
 def dot(a, b):
     """Batched dot product over the last axis, keeping dims: f32[N,1]."""
-    return torch.sum(a * b, dim=-1, keepdim=True)
+    return sum3(a * b)
 
 
 def normalize(v, eps: float = 0.0):
-    n = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
+    n = torch.sqrt(sum3(v * v))
     if eps:
         n = torch.clamp_min(n, eps)
     return v / n

@@ -70,6 +70,60 @@ def pixel_grid(resolution, device=None):
     return torch.arange(w * h, dtype=torch.int64, device=device)
 
 
+@dataclass(frozen=True)
+class LensFrame:
+    """A camera's constants at one resolution, on its device: what ray
+    generation reads. The bounce kernel reads the same values packed into
+    16 floats (``ops.bounce_megakernel.pack_camera``)."""
+
+    position: torch.Tensor       # f32[3]
+    direction: torch.Tensor      # f32[3] view direction
+    width_axis: torch.Tensor     # f32[3]
+    height_axis: torch.Tensor    # f32[3]
+    view_width: torch.Tensor     # f32
+    view_height: torch.Tensor    # f32
+    half_aperture: torch.Tensor  # f32
+    focal_length: torch.Tensor   # f32
+
+
+def lens_frame(params: CameraParams, resolution) -> LensFrame:
+    """The frame of ``params`` at ``resolution``, in f32 on its device."""
+    w, h = resolution
+    trans = rotation_matrix(params.yaw, params.pitch, params.roll)
+    fov_scale = params.fov_scale if params.fov_scale is not None else 0.5
+    view_width = 2.0 * torch.tan(params.fov * _DEG2RAD * fov_scale)
+    eye = torch.eye(3, dtype=torch.float32, device=params.device)  # made on the device: no copy
+    return LensFrame(
+        position=params.position, direction=trans @ -eye[2],
+        width_axis=trans @ eye[0], height_axis=trans @ eye[1],
+        view_width=view_width, view_height=view_width * (h / w),
+        half_aperture=params.aperture * 0.5, focal_length=params.focal_length)
+
+
+def thin_lens_rays(frame: LensFrame, resolution, pix, seed, sample):
+    """Thin-lens primary rays ``(ro, rd)``, each ``f32[N,3]``, for the
+    int64 absolute pixel ids ``pix``: sub-pixel jitter ``(i+u)/W - 0.5`` and
+    a disk sample on the aperture, from the camera stream of ``(seed,
+    sample, pixel)``."""
+    w, h = resolution
+    fi = (pix // h).to(torch.float32)
+    fj = (pix % h).to(torch.float32)
+    b = rng.base(rng.stream(seed, sample, 0, rng.STREAM_CAMERA), pix)
+    u0, u1 = rng.uniform2(b, 0)
+    u2, u3 = rng.uniform2(b, 2)
+    du = ((fi + u0) / w - 0.5) * frame.view_width
+    dv = ((fj + u1) / h - 0.5) * frame.view_height
+    target = frame.focal_length * (
+        frame.direction[None, :] + du[:, None] * frame.width_axis[None, :]
+        + dv[:, None] * frame.height_axis[None, :]
+    )
+    disk = sp.sample_in_disk(u2, u3)
+    origin = frame.half_aperture * (
+        disk[:, 0:1] * frame.width_axis[None, :] + disk[:, 1:2] * frame.height_axis[None, :]
+    )
+    return frame.position[None, :] + origin, sp.normalize(target - origin)
+
+
 def generate_rays_for_pixels(params: CameraParams, resolution, pixel_ids,
                              seed, sample, model: str = "thinlens") -> Rays:
     """Emit one primary ray for each absolute pixel id in ``pixel_ids``.
@@ -82,55 +136,35 @@ def generate_rays_for_pixels(params: CameraParams, resolution, pixel_ids,
     n = pixel_ids.shape[0]
     dev = pixel_ids.device
     pix = pixel_ids.to(torch.int64)
-    fi = (pix // h).to(torch.float32)
-    fj = (pix % h).to(torch.float32)
-
-    trans = rotation_matrix(params.yaw, params.pitch, params.roll)
-    fov_scale = params.fov_scale if params.fov_scale is not None else 0.5
-    view_width = 2.0 * torch.tan(params.fov * _DEG2RAD * fov_scale)
-    view_height = view_width * (h / w)
-    eye = torch.eye(3, dtype=torch.float32, device=dev)  # made on the device: no copy
-    direction = trans @ -eye[2]
-    width_axis = trans @ eye[0]
-    height_axis = trans @ eye[1]
+    f = lens_frame(params, resolution)
 
     if model == "center":
-        du = (fi / (w - 1) - 0.5) * view_width
-        dv = (fj / (h - 1) - 0.5) * view_height
+        fi = (pix // h).to(torch.float32)
+        fj = (pix % h).to(torch.float32)
+        du = (fi / (w - 1) - 0.5) * f.view_width
+        dv = (fj / (h - 1) - 0.5) * f.view_height
         rd = sp.normalize(
-            direction[None, :] + du[:, None] * width_axis[None, :]
-            + dv[:, None] * height_axis[None, :]
+            f.direction[None, :] + du[:, None] * f.width_axis[None, :]
+            + dv[:, None] * f.height_axis[None, :]
         )
         ro = params.position[None, :].expand(n, 3)
     elif model == "jitter":
         # Jittered pinhole: bit-identical to 'thinlens' with aperture=0 and
         # focal_length=1 (same u0/u1 counters, origin exactly 0), without the
         # second RNG hash and the disk sample.
+        fi = (pix // h).to(torch.float32)
+        fj = (pix % h).to(torch.float32)
         b = rng.base(rng.stream(seed, sample, 0, rng.STREAM_CAMERA), pix)
         u0, u1 = rng.uniform2(b, 0)
-        du = ((fi + u0) / w - 0.5) * view_width
-        dv = ((fj + u1) / h - 0.5) * view_height
+        du = ((fi + u0) / w - 0.5) * f.view_width
+        dv = ((fj + u1) / h - 0.5) * f.view_height
         rd = sp.normalize(
-            direction[None, :] + du[:, None] * width_axis[None, :]
-            + dv[:, None] * height_axis[None, :]
+            f.direction[None, :] + du[:, None] * f.width_axis[None, :]
+            + dv[:, None] * f.height_axis[None, :]
         )
         ro = params.position[None, :].expand(n, 3)
     elif model == "thinlens":
-        b = rng.base(rng.stream(seed, sample, 0, rng.STREAM_CAMERA), pix)
-        u0, u1 = rng.uniform2(b, 0)
-        u2, u3 = rng.uniform2(b, 2)
-        du = ((fi + u0) / w - 0.5) * view_width
-        dv = ((fj + u1) / h - 0.5) * view_height
-        target = params.focal_length * (
-            direction[None, :] + du[:, None] * width_axis[None, :]
-            + dv[:, None] * height_axis[None, :]
-        )
-        disk = sp.sample_in_disk(u2, u3)
-        origin = (params.aperture * 0.5) * (
-            disk[:, 0:1] * width_axis[None, :] + disk[:, 1:2] * height_axis[None, :]
-        )
-        ro = params.position[None, :] + origin
-        rd = sp.normalize(target - origin)
+        ro, rd = thin_lens_rays(f, resolution, pix, seed, sample)
     else:
         raise ValueError(f"unknown camera model: {model!r}")
 

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from ..bsdf.sampling import sum3
+
 INF = float("inf")
 T_MIN = 1e-4
 
@@ -58,7 +60,7 @@ def intersect_spheres(ro, rd, centers, radii, transparency, t_min: float = T_MIN
 def sphere_normal(point, center, radius):
     """Outward geometric normal at ``point`` on the sphere (normalized)."""
     v = point - center
-    n = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
+    n = torch.sqrt(sum3(v * v))
     return v / torch.clamp_min(n, 1e-20)
 
 

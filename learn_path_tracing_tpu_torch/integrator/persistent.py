@@ -1,7 +1,7 @@
 """Persistent-wavefront integrator with path regeneration.
 
-Counterpart of ``learn_path_tracing_tpu.integrator.persistent`` (its modular
-engine). Every lane stays busy:
+Counterpart of ``learn_path_tracing_tpu.integrator.persistent``, with its
+modular and mega engines. Every lane stays busy:
 
 - the render is a list of ``n*spp`` work items. When ``spp | n`` (the
   "grouped" schedule), lane ``L`` owns sample ``L % spp`` of the pixels
@@ -32,6 +32,14 @@ is far below float32 resolution.
 
 The loop reads the live-lane count to the host once per pass, to decide
 whether to continue or drain.
+
+The mega engine (``engine='mega'``) keeps the JAX package's schedule for
+it: the grouped schedule with a pool of ``n`` lanes, no halving and no
+drain. On a card each pass is one fused kernel launch
+(``ops.bounce_megakernel``, K4) that also deposits into the same fixed-point
+accumulator, so its image is order-free too. The kernel's plain version,
+``bounce_pass_plain``, is this module's ``step`` on the kernel's state
+layout, so the two engines share one step.
 """
 
 from __future__ import annotations
@@ -41,10 +49,14 @@ from dataclasses import dataclass
 
 import torch
 
-from ..bsdf.bsdf import SCATTERERS
-from ..camera.camera import CameraParams, generate_rays_for_pixels
+from ..bsdf.bsdf import SCATTERERS, scatter_modern
+from ..camera.camera import CameraParams, generate_rays_for_pixels, thin_lens_rays
 from ..core import rng
 from ..core.pytree import tree_where
+from ..core.types import Rays
+from ..ops import bounce_megakernel as mk
+from ..ops.sphere_scan import intersect_spheres_scan_plain
+from ..scene import world as world_mod
 from .wavefront import _scene_fns
 
 # Smallest auto-policy pool, as in the JAX package (its measured knee).
@@ -57,7 +69,7 @@ POOL_ALIGN = 1024
 DRAIN_RATIO = 8
 DRAIN_FLOOR = 256
 
-_FIXED_ONE = 2.0 ** 32  # fixed-point accumulator units per unit radiance
+_FIXED_ONE = mk.FIXED_ONE  # fixed-point accumulator units per unit radiance
 
 
 @dataclass(frozen=True)
@@ -85,9 +97,9 @@ def schedule(n: int, spp: int) -> Schedule:
         while pool // 2 >= POOL_FLOOR:
             pool //= 2
         pool = -(-pool // spp) * spp
-        step = math.lcm(POOL_ALIGN, spp)
-        if step <= pool and (pool // step) * step * 2 >= POOL_FLOOR:
-            pool = (pool // step) * step
+        align = math.lcm(POOL_ALIGN, spp)
+        if align <= pool and (pool // align) * align * 2 >= POOL_FLOOR:
+            pool = (pool // align) * align
     items_per = -(-(n * spp) // pool) if grouped else spp
 
     def round256(v):
@@ -101,6 +113,67 @@ def schedule(n: int, spp: int) -> Schedule:
     return Schedule(grouped, pool, items_per, tuple(levels))
 
 
+def mega_schedule(n: int, spp: int) -> Schedule:
+    """The mega engine's schedule: grouped, a pool of all ``n`` lanes, no
+    drain (``spp | n``)."""
+    return Schedule(True, n, spp, ())
+
+
+def item_fn(sched: Schedule, n: int, spp: int, device):
+    """``item_of(k, group, sample)``: the ``k``-th work item of each lane →
+    ``(valid, pixel, sample)``, each ``[P]``. ``group``/``sample`` default to
+    the pool's lane constants (a drain passes its compacted ones)."""
+    grouped, pool, items_per = sched.grouped, sched.pool, sched.items_per
+    groups = pool // spp if grouped else 0
+    lanes = torch.arange(pool, dtype=torch.int64, device=device)
+
+    def item_of(k, group=lanes // spp, sample=lanes % spp):
+        if grouped:
+            pixel = group + k * groups
+            valid = (k < items_per) & (pixel < n)
+            return valid, torch.clamp_max(pixel, n - 1), sample
+        witem = lanes + k * pool
+        valid = witem < n * spp
+        return valid, torch.clamp_max(witem // spp, n - 1), witem % spp
+
+    return item_of
+
+
+def step(world_data, rays, k, bounce, item_of, *, hit, background, scatter, primary,
+         seed, limit: int):
+    """One bounce pass of a lane wavefront, the one step of both engines.
+
+    ``hit(world_data, rays) -> Hits``, ``background(world_data, rd, escaped)
+    -> f32[N,3]``, ``scatter(rays, hits, base) -> Rays`` and
+    ``primary(pixel, sample) -> Rays`` are the scene's, the BSDF's and the
+    camera's; ``item_of`` is ``item_fn``'s. Lanes whose path ends (escape or
+    bounce budget) advance to their next work item and start its primary
+    ray. Returns ``(rays', k', bounce', pixel, contrib, hits)``: ``contrib``
+    is the escaped radiance, due at ``pixel``, the item before the advance.
+    """
+    _, pixel, sample = item_of(k)
+    hits = hit(world_data, rays)
+    escaped = rays.alive & ~hits.hit
+    contrib = torch.where(
+        escaped[:, None], background(world_data, rays.rd, escaped) * rays.throughput, 0.0)
+
+    base = rng.base(rng.stream(seed, sample, bounce, rng.STREAM_BSDF), pixel)
+    scattered = scatter(rays, hits, base)
+    survived = rays.alive & hits.hit & (bounce + 1 < limit)
+
+    # lanes whose path ended advance to their next work item
+    ended = rays.alive & ~survived
+    next_k = k + ended.to(torch.int64)
+    nvalid, npix, nsamp = item_of(next_k)
+    need_regen = ended & nvalid
+    fresh = primary(npix, nsamp)
+
+    nxt = tree_where(survived, scattered, tree_where(need_regen, fresh, rays))
+    nxt = nxt.with_alive(survived | need_regen)
+    bounce = torch.where(survived, bounce + 1, torch.zeros_like(bounce))
+    return nxt, next_k, bounce, pixel, contrib, hits
+
+
 def render_persistent(world_data, cam: CameraParams, resolution, spp: int,
                       limit: int = 32, seed=0, bsdf: str = "modern",
                       camera_model: str = "thinlens", scene: str = "spheres",
@@ -109,21 +182,27 @@ def render_persistent(world_data, cam: CameraParams, resolution, spp: int,
     """Returns ``(image f32[W,H,3], segments int)``, plus a stats dict when
     ``stats``. The same sample values as ``wavefront.render``.
 
-    ``engine``: 'auto' and 'modular' compose the per-stage ops; 'mega' (the
-    fused bounce megakernel) is not ported yet. The JAX package's pool and
-    drain overrides (``pool_mult``, ``pool_div``, ``drain_ratio``,
+    ``engine``: 'auto' and 'modular' compose the per-stage ops; 'mega' runs
+    each pass as one fused bounce kernel (``ops.bounce_megakernel``, K4) over
+    a full-width pool of ``W·H`` lanes. The mega engine takes only the
+    sphere scene with the modern BSDF and the thin-lens camera, and needs
+    ``spp | W·H``; it raises ``ValueError`` on any other argument, where the
+    JAX package drops the arguments silently. Its samples are the modular
+    engine's, so on the CPU the two images agree. The JAX package's pool
+    and drain overrides (``pool_mult``, ``pool_div``, ``drain_ratio``,
     ``drain_floor``) and its TPU-only accumulation and unroll knobs are not
     carried over: the port uses the auto policy.
     """
-    if engine == "mega":
-        raise NotImplementedError(
-            "engine 'mega' needs the bounce megakernel, not ported yet")
-    if engine not in ("auto", "modular"):
-        raise ValueError(f"unknown engine: {engine!r}")
     w, h = resolution
-    acc, segments, st = _persistent_core(
-        world_data, cam, resolution, spp, limit, seed, bsdf, camera_model,
-        scene, hit_backend, schedule(w * h, spp))
+    if engine == "mega":
+        _check_mega(w * h, spp, bsdf, camera_model, scene, hit_backend)
+        acc, segments, st = _render_mega(world_data, cam, resolution, spp, limit, seed)
+    elif engine in ("auto", "modular"):
+        acc, segments, st = _persistent_core(
+            world_data, cam, resolution, spp, limit, seed, bsdf, camera_model,
+            scene, hit_backend, schedule(w * h, spp))
+    else:
+        raise ValueError(f"unknown engine: {engine!r}")
     img = (acc / spp).reshape(w, h, 3)
     if stats:
         return img, segments, st
@@ -138,69 +217,36 @@ def _persistent_core(world_data, cam: CameraParams, resolution, spp: int,
     w, h = resolution
     n = w * h
     dev = cam.device
-    scatter = SCATTERERS[bsdf]
     hit_fn, background_fn = _scene_fns(scene)
-    grouped, pool, items_per = sched.grouped, sched.pool, sched.items_per
-    total = n * spp
-    groups = pool // spp if grouped else 0
-    lanes = torch.arange(pool, dtype=torch.int64, device=dev)
-
-    def item_of(k, group=lanes // spp, sample=lanes % spp):
-        """k-th work item of each lane → (valid, pixel [P], sample [P]).
-        ``group``/``sample`` are the lanes' constants (compacted in drains)."""
-        if grouped:
-            pixel = group + k * groups
-            valid = (k < items_per) & (pixel < n)
-            return valid, torch.clamp_max(pixel, n - 1), sample
-        witem = lanes + k * pool
-        valid = witem < total
-        return valid, torch.clamp_max(witem // spp, n - 1), witem % spp
+    item_of = item_fn(sched, n, spp, dev)
+    lanes = torch.arange(sched.pool, dtype=torch.int64, device=dev)
 
     def primary(pixel, sample):
         return generate_rays_for_pixels(cam, resolution, pixel, seed, sample,
                                         model=camera_model)
 
-    def step(rays, k, bounce, item_fn):
-        """One bounce pass; shared by the full-width and drain loops.
-        Returns (rays', k', bounce', pixel, contrib)."""
-        _, pixel, sample = item_fn(k)
-        hits = hit_fn(world_data, rays, hit_backend)
-        escaped = rays.alive & ~hits.hit
-        contrib = torch.where(
-            escaped[:, None],
-            background_fn(world_data, rays.rd, escaped) * rays.throughput, 0.0)
+    def hit(wd, rays):
+        return hit_fn(wd, rays, hit_backend)
 
-        base = rng.base(rng.stream(seed, sample, bounce, rng.STREAM_BSDF), pixel)
-        scattered = scatter(rays, hits, base)
-        survived = rays.alive & hits.hit & (bounce + 1 < limit)
-
-        # lanes whose path ended advance to their next work item
-        ended = rays.alive & ~survived
-        next_k = k + ended.to(torch.int64)
-        nvalid, npix, nsamp = item_fn(next_k)
-        need_regen = ended & nvalid
-        fresh = primary(npix, nsamp)
-
-        rays = tree_where(survived, scattered, tree_where(need_regen, fresh, rays))
-        rays = rays.with_alive(survived | need_regen)
-        bounce = torch.where(survived, bounce + 1, torch.zeros_like(bounce))
-        return rays, next_k, bounce, pixel, contrib
+    fns = dict(hit=hit, background=background_fn, scatter=SCATTERERS[bsdf],
+               primary=primary, seed=seed, limit=limit)
 
     acc = torch.zeros((n, 3), dtype=torch.int64, device=dev)
 
-    def run(rays, k, bounce, item_fn, live, stop_at):
+    def run(rays, k, bounce, items, live, stop_at):
         """Bounce passes while more than ``stop_at`` lanes are live."""
         segments = passes = 0
         while live > stop_at:
-            rays, k, bounce, pixel, contrib = step(rays, k, bounce, item_fn)
+            rays, k, bounce, pixel, contrib, _ = step(world_data, rays, k, bounce, items,
+                                                      **fns)
             acc.index_add_(0, pixel, torch.round(contrib * _FIXED_ONE).to(torch.int64))
             segments += live
             passes += 1
             live = int(rays.alive.sum())
         return rays, k, bounce, live, segments, passes
 
-    k = torch.zeros((pool,), dtype=torch.int64, device=dev)
-    bounce = torch.zeros((pool,), dtype=torch.int64, device=dev)
+    k = torch.zeros((sched.pool,), dtype=torch.int64, device=dev)
+    bounce = torch.zeros((sched.pool,), dtype=torch.int64, device=dev)
     valid0, pix0, samp0 = item_of(k)
     rays = primary(pix0, samp0).with_alive(valid0)
     live = int(valid0.sum())
@@ -228,8 +274,101 @@ def _persistent_core(world_data, cam: CameraParams, resolution, spp: int,
 
     acc_f32 = (acc.to(torch.float64) / _FIXED_ONE).to(torch.float32)
     return acc_f32, segments, {
-        "pool": pool,
+        "pool": sched.pool,
         "passes_full": passes_full,
         "drain_widths": levels,
         "drain_passes": tuple(drain_passes),
     }
+
+
+def _check_mega(n: int, spp: int, bsdf: str, camera_model: str, scene: str,
+                hit_backend: str):
+    """The arguments the mega engine takes, each named where it is not."""
+    for name, value, want in (("bsdf", bsdf, "modern"),
+                              ("camera_model", camera_model, "thinlens"),
+                              ("scene", scene, "spheres"),
+                              ("hit_backend", hit_backend, "auto")):
+        if value != want:
+            raise ValueError(f"engine 'mega' takes only {name}={want!r}, got {value!r}")
+    if spp < 1 or n % spp:
+        raise ValueError(f"engine 'mega' needs spp | W*H: spp={spp}, W*H={n}")
+
+
+def _render_mega(world_data, cam: CameraParams, resolution, spp: int, limit: int, seed):
+    """The mega engine: ``mega_schedule``'s ``W·H`` lanes, lane ``L`` owning
+    sample ``L % spp`` of the pixels ``L // spp + k·(W·H/spp)``. While a lane
+    lives, one ``mega_pass`` advances every lane and deposits its escaped
+    radiance into the fixed-point accumulator. Returns ``(acc f32[n,3],
+    segments int, {"passes": int})``."""
+    w, h = resolution
+    n = w * h
+    stf, sti = mk.initial_state(cam, resolution, spp, seed)
+    scalf = mk.pack_camera(cam, resolution)
+    acc = torch.zeros((n, 3), dtype=torch.int64, device=cam.device)
+    live, segments, passes = n, 0, 0
+    while live > 0:
+        segments += live
+        stf, sti, live_t = mega_pass(stf, sti, world_data, scalf, seed, resolution, spp,
+                                     limit=limit, acc=acc)
+        live = int(live_t)
+        passes += 1
+    return (acc.to(torch.float64) / _FIXED_ONE).to(torch.float32), segments, {"passes": passes}
+
+
+def mega_pass(stf, sti, world_data, scalf, seed, resolution, spp: int,
+              limit: int = 32, t_min: float = mk.T_MIN, acc=None):
+    """One pass of the mega engine → ``(stf', sti', live)``, on
+    ``ops.bounce_megakernel``'s state layout: kernel K4
+    (``ops.bounce_megakernel.bounce_pass``) for CUDA tensors, its plain
+    version ``bounce_pass_plain`` for CPU tensors, and ``ValueError`` for
+    any other device."""
+    if stf.device.type == "cpu":
+        mk.check_operands(stf, sti, world_data, scalf, resolution, spp, acc)
+        return bounce_pass_plain(stf, sti, world_data, scalf, seed, resolution, spp,
+                                 limit, t_min, acc)
+    return mk.bounce_pass(stf, sti, world_data, scalf, seed, resolution, spp, limit,
+                          t_min, acc)
+
+
+def bounce_pass_plain(stf, sti, world_data, scalf, seed, resolution, spp: int,
+                      limit: int = 32, t_min: float = mk.T_MIN, acc=None):
+    """Kernel K4's plain version, on any device: ``step`` on the kernel's
+    state layout and ``mega_schedule``, with the plain sphere scan, the sky,
+    ``scatter_modern`` and thin-lens primaries from ``scalf``. So on the CPU
+    it gives the modular engine's samples exactly. Arguments and result as
+    ``ops.bounce_megakernel.bounce_pass``'s."""
+    w, h = resolution
+    n = w * h
+    alive = stf[mk.ALIVE] > 0.5
+    rays = Rays(ro=stf[mk.RO:mk.RO + 3].T.contiguous(), rd=stf[mk.RD:mk.RD + 3].T.contiguous(),
+                throughput=stf[mk.THP:mk.THP + 3].T.contiguous(), alive=alive)
+    frame = mk.unpack_camera(scalf)
+
+    def hit(wd, r):
+        scan = intersect_spheres_scan_plain(r.ro, r.rd, wd.scan_table, wd.scan_attrs,
+                                            t_min=t_min)
+        return world_mod.hit_record(r, *scan)
+
+    def primary(pixel, sample):
+        ro, rd = thin_lens_rays(frame, resolution, pixel, seed, sample)
+        return Rays(ro=ro, rd=rd, throughput=torch.ones_like(ro), alive=alive)
+
+    nxt, k, bounce, pixel, contrib, hits = step(
+        world_data, rays, sti[mk.K].to(torch.int64), sti[mk.BOUNCE].to(torch.int64),
+        item_fn(mega_schedule(n, spp), n, spp, stf.device), hit=hit,
+        background=_scene_fns("spheres")[1], scatter=scatter_modern, primary=primary,
+        seed=seed, limit=limit)
+
+    stf_out = torch.zeros_like(stf)
+    stf_out[mk.RO:mk.RO + 3] = nxt.ro.T
+    stf_out[mk.RD:mk.RD + 3] = nxt.rd.T
+    stf_out[mk.THP:mk.THP + 3] = nxt.throughput.T
+    stf_out[mk.ALIVE] = nxt.alive.to(torch.float32)
+    stf_out[mk.CONTRIB:mk.CONTRIB + 3] = contrib.T
+    sti_out = torch.zeros_like(sti)
+    sti_out[mk.K] = k.to(torch.int32)
+    sti_out[mk.BOUNCE] = bounce.to(torch.int32)
+    sti_out[mk.OBJ] = torch.where(alive, hits.obj, -1).to(torch.int32)
+    if acc is not None:
+        acc.index_add_(0, pixel, torch.round(contrib * _FIXED_ONE).to(torch.int64))
+    return stf_out, sti_out, nxt.alive.sum().to(torch.int32).reshape(1)

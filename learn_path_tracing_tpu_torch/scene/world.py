@@ -17,6 +17,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..bsdf.sampling import sum3
 from ..core.types import Hits, Material, Materials, Rays
 from ..geometry.sphere import intersect_spheres, sphere_normal
 from ..ops.sphere_scan import intersect_spheres_scan, pack_spheres
@@ -140,7 +141,12 @@ def hit(world: SphereWorldData, rays: Rays, t_min: float = 1e-4,
         raise NotImplementedError("hit backend 'bvh' comes with the mesh slice")
     else:
         raise ValueError(f"unknown hit backend: {backend!r}")
+    return hit_record(rays, t, idx, attr)
 
+
+def hit_record(rays: Rays, t, idx, attr) -> Hits:
+    """The ``Hits`` of a nearest-sphere scan's result: ``t f32[N]`` (inf on a
+    miss), the winner ``idx i32[N]`` and its ``scan_attrs`` row ``attr``."""
     hit_mask = torch.isfinite(t)
     t_safe = torch.where(hit_mask, t, torch.zeros_like(t))
     point = rays.ro + t_safe[:, None] * rays.rd
@@ -150,7 +156,7 @@ def hit(world: SphereWorldData, rays: Rays, t_min: float = 1e-4,
     # JAX package's Pallas path (world.py:146) that runs on its accelerator;
     # its CPU path uses a bare 1/ior, which differs only for metals (ior=0),
     # where the dielectric lobe that reads the ior is discarded anyway.
-    backface = torch.sum(rays.rd * normal, dim=-1) > 0.0
+    backface = sum3(rays.rd * normal)[:, 0] > 0.0
     normal = torch.where(backface[:, None], -normal, normal)
     ior = attr[:, _IOR]
     ior = torch.where(backface, 1.0 / torch.clamp_min(ior, 1e-9), ior)

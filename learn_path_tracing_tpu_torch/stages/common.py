@@ -87,7 +87,8 @@ def run_path_traced(world, camera, cfg: RenderConfig, out_name, post=True):
     items; chunk results average into the final image, each chunk with the
     seed ``cfg.seed + first sample`` (plain progressive MC accumulation).
     Returns ``(image f32[W,H,3], report)``; the report holds the wall
-    seconds, segments, Mrays/s and the integrator's pass counts.
+    seconds, segments, Mrays/s, the integrator's pass counts and the linear
+    image before post-processing.
     """
     res = (cfg.width, cfg.height)
     dev = cfg.device
@@ -130,4 +131,4 @@ def run_path_traced(world, camera, cfg: RenderConfig, out_name, post=True):
     image.write_png(img, out)
     print(f"wrote {out}")
     return img, {"seconds": elapsed, "segments": segs_total, "mrays": mrays,
-                 "passes": passes, "chunks": chunks, "out": out}
+                 "passes": passes, "chunks": chunks, "out": out, "linear": acc}

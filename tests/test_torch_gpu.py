@@ -4,11 +4,12 @@ the JAX package, so it runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest tests/test_torch_gpu.py -m gpu -q
 
-Tolerances: the sphere-scan kernel and the packet-traversal kernels (K2
-triangle leaves, K3 sphere leaves) equal their plain twins bit for bit (the
-same IEEE-rounded operations in the same order, and an order-free tie
-rule); a GPU render, persistent or hybrid, equals a rerun bit for bit
-(fixed-point accumulation); a GPU render agrees with the CPU render within
+Tolerances: the sphere-scan kernel, the packet-traversal kernels (K2
+triangle leaves, K3 sphere leaves) and the bounce megakernel (K4) equal
+their plain twins bit for bit (the same IEEE-rounded operations in the same
+order, and an order-free tie rule); a GPU render, persistent (modular or
+mega) or hybrid, equals a rerun bit for bit (fixed-point accumulation); a
+GPU render agrees with the CPU render within
 ``utils.checks.render_agreement``'s bounds (the transcendental functions of
 the two devices differ by ulps).
 """
@@ -22,9 +23,11 @@ import torch
 from learn_path_tracing_tpu_torch.accel import build_bvh, collapse
 from learn_path_tracing_tpu_torch.camera import Camera
 from learn_path_tracing_tpu_torch.integrator.hybrid import render_hybrid
-from learn_path_tracing_tpu_torch.integrator.persistent import render_persistent
+from learn_path_tracing_tpu_torch.integrator.persistent import (bounce_pass_plain, mega_pass,
+                                                                render_persistent)
 from learn_path_tracing_tpu_torch.io.obj import MeshData
 from learn_path_tracing_tpu_torch.models import random_scene, stage10_camera
+from learn_path_tracing_tpu_torch.ops import bounce_megakernel as tmk
 from learn_path_tracing_tpu_torch.ops import packet_traverse as tpt
 from learn_path_tracing_tpu_torch.ops import sphere_scan as tss
 from learn_path_tracing_tpu_torch.scene.legacy_world import LegacyWorld
@@ -167,5 +170,43 @@ def test_gpu_hybrid_is_deterministic_and_matches_cpu(cuda):
     assert runs[0][1] == runs[1][1] and torch.equal(runs[0][0], runs[1][0])
     cpu_img, cpu_segs = render_hybrid(world.device("cpu"), cam.params("cpu"), res, spp=4,
                                       limit=8)
+    rep = render_agreement(runs[0][0].cpu().numpy(), cpu_img.numpy(), runs[0][1], cpu_segs)
+    assert rep["ok"], rep
+
+
+# a pass from the primary state and one after six passes, at a size off the
+# 256-thread block (48x27 = 1,296 lanes)
+@pytest.mark.parametrize("passes", [0, 6])
+def test_bounce_megakernel_matches_twin_bitwise(cuda, passes):
+    res, spp = (48, 27), 4
+    wd = random_scene(seed=20230328).device(cuda)
+    cp = stage10_camera(res).params(cuda)
+    scalf = tmk.pack_camera(cp, res)
+    stf, sti = tmk.initial_state(cp, res, spp, 0)
+    for _ in range(passes):
+        stf, sti, _ = bounce_pass_plain(stf, sti, wd, scalf, 0, res, spp, limit=8)
+    accs = [torch.zeros((res[0] * res[1], 3), dtype=torch.int64, device=cuda) for _ in range(2)]
+    before = tmk.bounce_pass.launches
+    k_stf, k_sti, k_live = mega_pass(stf, sti, wd, scalf, 0, res, spp, limit=8, acc=accs[0])
+    assert tmk.bounce_pass.launches == before + 1
+    p_stf, p_sti, p_live = bounce_pass_plain(stf, sti, wd, scalf, 0, res, spp, limit=8,
+                                             acc=accs[1])
+    torch.cuda.synchronize()
+    assert torch.equal(k_stf.view(torch.int32), p_stf.view(torch.int32))
+    assert torch.equal(k_sti, p_sti) and torch.equal(k_live, p_live)
+    assert torch.equal(accs[0], accs[1])
+
+
+def test_gpu_mega_is_deterministic_and_matches_cpu(cuda):
+    res = (48, 27)
+    world = random_scene(seed=20230328)
+    cam = stage10_camera(res)
+    before = tmk.bounce_pass.launches
+    runs = [render_persistent(world.device(cuda), cam.params(cuda), res, spp=4, limit=8,
+                              engine="mega", stats=True) for _ in range(2)]
+    assert tmk.bounce_pass.launches - before == 2 * runs[0][2]["passes"]
+    assert runs[0][1] == runs[1][1] and torch.equal(runs[0][0], runs[1][0])
+    cpu_img, cpu_segs = render_persistent(world.device("cpu"), cam.params("cpu"), res,
+                                          spp=4, limit=8, engine="mega")
     rep = render_agreement(runs[0][0].cpu().numpy(), cpu_img.numpy(), runs[0][1], cpu_segs)
     assert rep["ok"], rep

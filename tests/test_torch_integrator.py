@@ -118,7 +118,19 @@ def test_runs_are_bitwise_identical():
     assert a[1] == b[1] and torch.equal(a[0], b[0])
 
 
-def test_engine_mega_not_ported():
+def test_engine_mega_renders():
+    """``engine='mega'`` renders the modular engine's image (the mega
+    engine's own tests are in test_torch_mega.py)."""
     wd = random_scene(seed=SEED).device("cpu")
-    with pytest.raises(NotImplementedError):
-        render_persistent(wd, stage10_camera(RES).params(), RES, spp=4, engine="mega")
+    cp = stage10_camera(RES).params()
+    img, segs, st = render_persistent(wd, cp, RES, spp=4, limit=6, seed=3, engine="mega",
+                                      stats=True)
+    ref_img, ref_segs = render_persistent(wd, cp, RES, spp=4, limit=6, seed=3)
+    assert img.shape == (32, 18, 3) and segs == ref_segs and st["passes"] >= 6
+    assert torch.equal(img, ref_img)
+
+
+def test_unknown_engine_raises():
+    wd = random_scene(seed=SEED).device("cpu")
+    with pytest.raises(ValueError, match="engine"):
+        render_persistent(wd, stage10_camera(RES).params(), RES, spp=4, engine="wavefront")
