@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths and checks them:
+Drives the port's paths and checks them:
 
 - the 10_final sphere path: the stage-10 cover scene through
   ``stages.common.run_path_traced`` → ``integrator.persistent`` (modular
@@ -13,9 +13,11 @@ Drives the port's three paths and checks them:
   bounce-pass kernel (K4) per pass;
 - the legacy mesh path: ``stages.l14_mesh`` on a saved ``.world.npy`` →
   ``viewer.progressive`` → ``integrator.hybrid`` →
-  ``scene.legacy_world`` → the packet-traversal kernel with triangle
-  leaves (K2); a world of 8,192 spheres takes the same kernel with sphere
-  leaves (K3).
+  ``scene.legacy_world`` → the packet-traversal kernel of the packet
+  version: K2 (version 2, triangle leaves), K5a (version 1, the v1 packet
+  walk) or K5b (version 3, the tile-ranged walk); a world of 8,192 spheres
+  takes K2's template with sphere leaves (K3); the viewer's wavefront
+  engine reaches the same kernels through ``hit_legacy``.
 
 Phases:
 
@@ -24,28 +26,36 @@ Phases:
    source, all started together) and prints ``ptxas``'s register, memory
    and spill lines;
 3. holds each kernel against its plain PyTorch twin on the card, at the
-   paths' shapes, timed with CUDA events (median of 20 runs): K1 on the
-   cover scene's wavefronts, bitwise; K4 one pass from three states of the
-   1280x720, 64 spp headline (primary, after 10 passes, under 1 % live),
-   its integer rows, deposits and live count bitwise and any differing
-   float row named, counted and bounded; K2 on the stand-in mesh's
-   1,843,200-ray primary slab (640x360, 8 samples), its first-bounce
-   survivors, random rays with random ``t_init`` and half the lanes
-   inactive, and rays starting on the surface; K3 on the same four kinds
-   of ray sets over the 8,192 spheres, both bitwise;
+   paths' shapes, timed with CUDA events (median of 20 runs), with the
+   bound of its work: K1 on the cover scene's wavefronts, bitwise; K4 one
+   pass from three states of the 1280x720, 64 spp headline (primary,
+   after 10 passes, under 1 % live), its integer rows, deposits and live
+   count bitwise and any differing float row named, counted and bounded;
+   K2, K5a and K5b on the stand-in mesh's 1,843,200-ray primary slab
+   (640x360, 8 samples), its first-bounce survivors, random rays with
+   random ``t_init`` and half the lanes inactive, rays starting on the
+   surface and exactly axis-parallel rays (which K5a hits and K2 misses),
+   bitwise in ``(t, prim)``, then timed in turns in lane order and in
+   coherence-sorted order with their mean pops per ray; K3 on the first
+   four kinds of ray sets over the 8,192 spheres, bitwise;
 4. renders small images on the card and on the CPU (cover scene,
    persistent modular and mega, two mega card renders bitwise equal;
    stand-in mesh + a sphere, hybrid) and holds each pair to the agreement
    bounds of ``utils.checks``;
 5. with every launch count set to 0 just before each and read just after:
    a hybrid render of the sphere world (the K3 path); the 640x360, 64 spp,
-   depth-32 stand-in render through ``stages.l14_mesh`` after a warm-up,
-   checking that the K2 launches equal the traversal calls the integrator
-   counts (slabs plus pool passes), that the image is finite with a sane
-   mean (``outputs/chip_smoke_l14_standin.png``); the 1280x720, 64 spp,
-   depth-32 cover scene (``outputs/chip_smoke_10_final.png``), checking
-   one K1 launch per ``hit`` call; and the same frame through the mega
-   engine after a warm-up (``outputs/chip_smoke_10_final_mega.png``),
+   depth-32 stand-in render through ``stages.l14_mesh`` under packet
+   versions 2, 1 and 3, each after a warm-up, checking that the version's
+   kernel launches equal the traversal calls the integrator counts (slabs
+   plus pool passes) and no other kernel runs, that the image is finite
+   with a sane mean (``outputs/chip_smoke_l14_standin*.png``), and that
+   versions 1 and 3 give version 2's segments and linear image bit for
+   bit; the viewer cell (640x360, 8 spp, depth 10) through
+   ``ProgressiveRenderer(engine='wavefront')`` under each version, held to
+   the hybrid engine's frame by ``render_agreement``; the 1280x720, 64
+   spp, depth-32 cover scene (``outputs/chip_smoke_10_final.png``),
+   checking one K1 launch per ``hit`` call; and the same frame through the
+   mega engine after a warm-up (``outputs/chip_smoke_10_final_mega.png``),
    checking one K4 launch per pass and agreement with the modular frame,
    then two more frames and a profiled one (device busy time, K4's share).
 
@@ -55,10 +65,11 @@ of 23,424 triangles (a displaced, subdivided icosphere 16 units tall on a
 tessellated base), a 1024² PBR texture set and a 2048x1024 HDR
 environment, all made from a seed.
 
-``python3 chip_smoke.py --profile-mesh`` runs only the kernel build and
-``mesh_profile``: where the stand-in frame's time goes (frame times, the
-profiler's device busy time and K2's share, peak memory, synchronised
-per-layer host times), printed as one JSON line.
+``python3 chip_smoke.py --profile-mesh [--packet-version 1|2|3]`` runs only
+the kernel build and ``mesh_profile``: where the stand-in frame's time goes
+under that packet version (frame times, the profiler's device busy time and
+the traversal kernel's share, peak memory, synchronised per-layer host
+times), printed as one JSON line.
 
 Any failed phase raises, so the script exits non-zero. The last lines are
 the ``nvidia-smi`` name and power limit, a JSON line of the kernels, and
@@ -86,7 +97,9 @@ MESH_RES, MESH_SPP, MESH_DEPTH, MESH_CHUNK = (640, 360), 64, 32, 8
 STANDIN_SEED = 20231016
 STANDIN_TEX, STANDIN_ENV = 1024, (2048, 1024)   # PBR set side, EXR (w, h)
 N_SPHERES = 8192          # past the 4,096-sphere brute-scan ceiling: K3
-TWIN_RAYS = 65536         # rays of the random and on-surface twin sets
+TWIN_RAYS = 65536         # rays of the random, on-surface and axis twin sets
+# the viewer-fps cell (scripts/measure_viewer_fps.py): the wavefront engine
+VIEWER_RES, VIEWER_SPP, VIEWER_DEPTH = (640, 360), 8, 10
 
 
 def _log(msg):
@@ -126,6 +139,28 @@ def bitwise_equal(x, y) -> bool:
     if x.dtype == torch.float32:
         x, y = x.view(torch.int32), y.view(torch.int32)
     return bool(torch.equal(x, y))
+
+
+# the least time the card could take for a kernel's work (bound_ms in the
+# kernels line): bytes over the memory rate or FP32 operations over the
+# FP32 rate outside the tensor cores, whichever is longer (NVIDIA's H100
+# SXM data sheet: 3.35 TB/s HBM3, 67 TFLOP/s FP32)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+SCAN_FLOP_PER_PAIR = 20       # K1/K4: oc, half_b, c0, disc, sqrt, roots
+SLAB_FLOP_PER_CHILD = 24      # K2/K3/K5: 6 mul, 6 sub, 6 min/max, 6 compares
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, flops) -> dict:
+    """``bound_ms`` and ``bound_by`` of moving ``n_bytes`` (each input read
+    once, each output written once) and doing ``flops`` FP32 operations."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def scan_inputs(device):
@@ -206,12 +241,17 @@ def check_sphere_scan(device):
     ms = cuda_ms(lambda: ss.intersect_spheres_scan(ro, rd, wd.scan_table, wd.scan_attrs))
     plain_ms = cuda_ms(lambda: ss.intersect_spheres_scan_plain(
         ro, rd, wd.scan_table, wd.scan_attrs))
+    outs = ss.intersect_spheres_scan(ro, rd, wd.scan_table, wd.scan_attrs)
+    b = bound(nbytes(ro, rd, wd.scan_table, wd.scan_attrs, *outs),
+              ro.shape[0] * wd.scan_table.shape[0] * SCAN_FLOP_PER_PAIR)
     _log(f"[k1] time at {ro.shape[0]} rays x {wd.scan_table.shape[0]} spheres: "
-         f"kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms (median of 20)")
-    return {"name": "sphere_scan", "route": "cuda",
+         f"kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms (median of 20), bound "
+         f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return {"name": "sphere_scan", "id": "k1", "route": "cuda",
             "source": "learn_path_tracing_tpu_torch/csrc/sphere_scan.cu",
             "replaces": "learn_path_tracing_tpu/ops/sphere_scan.py:49",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": None}
 
 
 def check_gpu_vs_cpu(device):
@@ -358,13 +398,20 @@ def check_bounce_megakernel(device):
                                         acc=acc))
     plain_ms = cuda_ms(lambda: bounce_pass_plain(stf, sti, wd, scalf, 0, RES, SPP,
                                                  limit=DEPTH, acc=acc))
+    # every lane of the primary state is live: a full scan each, the state
+    # read and written once
+    live = int((stf[mk.ALIVE] > 0.5).sum())
+    b = bound(2 * nbytes(stf, sti) + nbytes(wd.scan_table, wd.scan_attrs, scalf, acc),
+              live * wd.scan_table.shape[0] * SCAN_FLOP_PER_PAIR)
     _log(f"[k4] time of a pass from the primary state, {n} lanes x "
          f"{wd.scan_table.shape[0]} spheres: kernel {ms:.4f} ms, plain twin "
-         f"{plain_ms:.4f} ms (median of 20)")
-    return {"name": "bounce_megakernel", "route": "cuda",
+         f"{plain_ms:.4f} ms (median of 20), bound {b['bound_ms']:.4f} ms "
+         f"({b['bound_by']})")
+    return {"name": "bounce_megakernel", "id": "k4", "route": "cuda",
             "source": "learn_path_tracing_tpu_torch/csrc/bounce_megakernel.cu",
             "replaces": "learn_path_tracing_tpu/ops/bounce_megakernel.py:167",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": None}
 
 
 def check_mega_gpu_vs_cpu(device):
@@ -678,7 +725,10 @@ def _build_quiet(world, **kw):
 def traversal_sets(wd, tables, stack, leaf_kind, device, seed):
     """Ray sets for a packet-kernel check, at the mesh path's shapes:
     ``{name: (ro, rd, t_init, active)}``. The bounce set is traced with
-    the plain twin, so it does not depend on the kernel under test."""
+    the plain twin, so it does not depend on the kernel under test. For
+    triangle tables a fifth set, ``axis``, shoots exactly axis-parallel
+    rays from outside the figure at surface points: v1's slab form hits
+    them, the hoisted form of K2/K5b gives ``inf - inf`` and misses."""
     import torch
 
     from learn_path_tracing_tpu_torch.bsdf.bsdf import scatter_legacy
@@ -722,7 +772,16 @@ def traversal_sets(wd, tables, stack, leaf_kind, device, seed):
     k = torch.randint(len(ro_b), (m,), generator=g).to(device)
     surf = hits.point[sel][k]
     rd_s = torch.nn.functional.normalize(torch.randn((m, 3), generator=g), dim=-1).to(device)
-    sets["surface"] = (surf.contiguous(), rd_s, inf[:m], torch.ones_like(active, device=device))
+    ones = torch.ones_like(active, device=device)
+    sets["surface"] = (surf.contiguous(), rd_s, inf[:m], ones)
+    if leaf_kind == "tri":
+        k = torch.randint(len(ro_b), (m,), generator=g).to(device)
+        rd_a = torch.zeros((m, 3))
+        rd_a[torch.arange(m), torch.randint(3, (m,), generator=g)] = torch.where(
+            torch.rand(m, generator=g) < 0.5, -1.0, 1.0)
+        rd_a = rd_a.to(device)
+        ro_a = hits.point[sel][k] - rd_a * float((hi - lo).norm())
+        sets["axis"] = (ro_a.contiguous(), rd_a, inf[:m], ones)
     return sets
 
 
@@ -736,45 +795,112 @@ def wd_bounds(tables):
     return lo, hi
 
 
+PACKET_ENTRIES = {   # kernels-line name and TPU kernel of each packet kernel
+    "k2": ("packet_traverse_tri", "learn_path_tracing_tpu/ops/packet_traverse.py:390"),
+    "k3": ("packet_traverse_sphere", "learn_path_tracing_tpu/ops/packet_traverse.py:390"),
+    "k5a": ("packet_walk_v1", "learn_path_tracing_tpu/ops/packet_traverse.py:239"),
+    "k5b": ("packet_walk_v3", "learn_path_tracing_tpu/ops/packet_traverse.py:733"),
+}
+
+
+def zero_launches():
+    from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
+
+    pt.traverse.launches.update(dict.fromkeys(pt.traverse.launches, 0))
+
+
 def check_packet(wd, tables, stack, leaf_kind, device, seed):
-    """K2 or K3 against its plain twin on the card; returns the
-    kernels-line entry (without ``launches``)."""
+    """The packet kernels of ``leaf_kind`` against the plain twin on the
+    card: K2, K5a and K5b for triangles (the twin with the version's slab
+    form), K3 for spheres, bit for bit in ``(t, prim)`` on every set (and
+    in the pops for K2/K3, whose pops are per ray like the twin's). Then
+    each kernel is timed in turns in lane order and in coherence-sorted
+    order on every set. Returns ``{kernel: kernels-line entry (without
+    launches)}``."""
     import torch
 
     from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
 
+    versions = (2, 1, 3) if leaf_kind == "tri" else (2,)
+    kern = {v: pt.KERNELS[(leaf_kind, v)] for v in versions}
     sets = traversal_sets(wd, tables, stack, leaf_kind, device, seed)
-    max_err = 0.0
+    max_err = dict.fromkeys(versions, 0.0)
     for name, (ro, rd, t_init, active) in sets.items():
-        t, p, it = pt.traverse(*tables, ro, rd, t_init, active, leaf_kind=leaf_kind,
-                               stack=stack)
-        t2, p2, it2 = pt.packet_traverse_plain(*tables, ro, rd, t_init, active,
-                                               leaf_kind=leaf_kind, stack=stack)
-        torch.cuda.synchronize()
-        hit_k, hit_p = p >= 0, p2 >= 0
-        both = hit_k & hit_p
-        err = float(torch.max(torch.abs(t[both] - t2[both]))) if bool(both.any()) else 0.0
-        max_err = max(max_err, err)
-        same = (bitwise_equal(t, t2) and bitwise_equal(p, p2) and bitwise_equal(it, it2))
-        _log(f"[{leaf_kind}] {name}: {ro.shape[0]} rays ({int(active.sum())} active), "
-             f"hit rate {float(hit_k.float().mean()):.4f}, pops/ray mean "
-             f"{float(it.float().mean()):.2f} max {int(it.max())}, bitwise equal "
-             f"(t, prim, pops): {same}, max |dt| {err:.3g}, hit/miss mismatches "
-             f"{int((hit_k != hit_p).sum())}, prim mismatches {int((p != p2).sum())}")
-        if not same:
-            raise AssertionError(f"packet kernel ({leaf_kind}) differs from its twin on '{name}'")
+        plain, hit = {}, {}
+        for v in versions:
+            slab = pt.SLABS[v]
+            if slab not in plain:
+                plain[slab] = pt.packet_traverse_plain(*tables, ro, rd, t_init, active,
+                                                       leaf_kind=leaf_kind, stack=stack,
+                                                       slab=slab)
+            t2, p2, it2 = plain[slab]
+            t, p, it = pt.traverse(*tables, ro, rd, t_init, active, leaf_kind=leaf_kind,
+                                   stack=stack, version=v)
+            torch.cuda.synchronize()
+            hit[v], hit_p = p >= 0, p2 >= 0
+            both = hit[v] & hit_p
+            err = float(torch.max(torch.abs(t[both] - t2[both]))) if bool(both.any()) else 0.0
+            max_err[v] = max(max_err[v], err)
+            same = (bitwise_equal(t, t2) and bitwise_equal(p, p2)
+                    and (v != 2 or bitwise_equal(it, it2)))
+            _log(f"[{kern[v]}] {name}: {ro.shape[0]} rays ({int(active.sum())} active), "
+                 f"hit rate {float(hit[v].float().mean()):.4f}, pops per ray mean "
+                 f"{float(it.float().mean()):.2f} max {int(it.max())} (the twin's per-ray "
+                 f"walk: mean {float(it2.float().mean()):.2f}), bitwise equal (t, prim"
+                 f"{', pops' if v == 2 else ''}): {same}, max |dt| {err:.3g}, hit/miss "
+                 f"mismatches {int((hit[v] != hit_p).sum())}, prim mismatches "
+                 f"{int((p != p2).sum())}")
+            if not same:
+                raise AssertionError(f"{kern[v]} differs from its twin on '{name}'")
+        if name == "axis":
+            gained = int((hit[1] & ~hit[2]).sum())
+            _log(f"[axis] K5a hits {int(hit[1].sum())}, K2 {int(hit[2].sum())}, K5b "
+                 f"{int(hit[3].sum())} of {ro.shape[0]}; K5a hits {gained} that K2 misses")
+            if gained == 0:
+                raise AssertionError("K5a hits no axis-parallel ray that K2 misses")
+
+    # times in turns, lane order and coherence-sorted (the sort outside the timing)
+    treelets = tuple(torch.as_tensor(x, device=device) for x in
+                     pt.treelet_boxes(tables[0].cpu().numpy(), tables[1].cpu().numpy()))
+    ms = {}
+    for name, rays in sets.items():
+        order = torch.argsort(pt._coherence_key(tables[0], rays[0], rays[1], treelets),
+                              stable=True)
+        for kind, args in (("lane", rays), ("sorted", tuple(x[order] for x in rays))):
+            cells = []
+            for v in versions:
+                ms[name, kind, v] = cuda_ms(lambda v=v, args=args: pt.traverse(
+                    *tables, *args, leaf_kind=leaf_kind, stack=stack, version=v))
+                pops = float(pt.traverse(*tables, *args, leaf_kind=leaf_kind, stack=stack,
+                                         version=v)[2].float().mean())
+                cells.append(f"{kern[v]} {ms[name, kind, v]:.4f} ms ({pops:.2f} pops/ray)")
+            _log(f"[{leaf_kind} time] {name}, {rays[0].shape[0]} rays, {kind} order: "
+                 f"{', '.join(cells)} (median of 20)")
+
     ro, rd, t_init, active = sets["primary"]
-    ms = cuda_ms(lambda: pt.traverse(*tables, ro, rd, t_init, active,
-                                     leaf_kind=leaf_kind, stack=stack))
-    plain_ms = cuda_ms(lambda: pt.packet_traverse_plain(
-        *tables, ro, rd, t_init, active, leaf_kind=leaf_kind, stack=stack))
-    _log(f"[{leaf_kind}] time at {ro.shape[0]} primary rays, {tables[0].shape[0]} nodes, "
-         f"{tables[2].shape[0]} run rows: kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms "
-         f"(median of 20)")
-    return {"name": f"packet_traverse_{leaf_kind}", "route": "cuda",
-            "source": "learn_path_tracing_tpu_torch/csrc/packet_traverse.cu",
-            "replaces": "learn_path_tracing_tpu/ops/packet_traverse.py:390",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    n = ro.shape[0]
+    out = {}
+    for v in versions:
+        slab = pt.SLABS[v]
+        plain_ms = cuda_ms(lambda: pt.packet_traverse_plain(
+            *tables, ro, rd, t_init, active, leaf_kind=leaf_kind, stack=stack, slab=slab))
+        # the per-ray walk's pops on this set: 8 slab tests each (leaf tests
+        # not counted); the tables read once, the rays and (t, prim, pops) once
+        pops = int(pt.packet_traverse_plain(*tables, ro, rd, t_init, active, leaf_kind=leaf_kind,
+                                            stack=stack, slab=slab)[2].sum())
+        b = bound(nbytes(*tables, ro, rd, t_init, active) + 12 * n,
+                  pops * 8 * SLAB_FLOP_PER_CHILD)
+        _log(f"[{kern[v]}] time at {n} primary rays in lane order, {tables[0].shape[0]} "
+             f"nodes, {tables[2].shape[0]} run rows: kernel {ms['primary', 'lane', v]:.4f} ms, "
+             f"plain twin {plain_ms:.4f} ms (median of 20), bound {b['bound_ms']:.4f} ms "
+             f"({b['bound_by']})")
+        name, replaces = PACKET_ENTRIES[kern[v]]
+        out[kern[v]] = {"name": name, "id": kern[v], "route": "cuda",
+                        "source": "learn_path_tracing_tpu_torch/csrc/packet_traverse.cu",
+                        "replaces": replaces, "max_abs_err": max_err[v],
+                        "ms": ms["primary", "lane", v], "plain_ms": plain_ms, **b,
+                        "library_ms": None}
+    return out
 
 
 def check_mesh_gpu_vs_cpu(device, directory):
@@ -815,20 +941,24 @@ def sphere_path(wd, device):
     cam = Camera(res, fov=60)
     cam.set_position((0.0, 8.0, -10.0))
     cam.look_at((0.0, 8.0, 40.0))
-    pt.traverse.launches.update(tri=0, sphere=0)
+    zero_launches()
     img, segs, st = render_hybrid(wd, cam.params(device), res, spp=4, limit=8, stats=True)
-    launches = pt.traverse.launches["sphere"]
+    launches = dict(pt.traverse.launches)
     _log(f"[sphere path] {res[0]}x{res[1]} spp 4 limit 8 over {N_SPHERES} spheres: "
          f"{segs} segments, {st['n_chunks']} slabs + {st['passes']} pool passes, "
-         f"K3 launches {launches}, image mean {float(img.mean()):.5f}")
-    if launches != st["n_chunks"] + st["passes"] or pt.traverse.launches["tri"]:
-        raise AssertionError(f"K3 launches {launches} != traversal calls "
-                             f"{st['n_chunks'] + st['passes']}")
-    return launches
+         f"launches {launches}, image mean {float(img.mean()):.5f}")
+    if launches.pop("k3") != st["n_chunks"] + st["passes"] or any(launches.values()):
+        raise AssertionError(f"K3 launches != traversal calls {st['n_chunks'] + st['passes']}")
+    return st["n_chunks"] + st["passes"]
 
 
-def mesh_headline(world, wd, device, directory):
-    """The stand-in at 640x360, 64 spp, depth 32 through stages.l14_mesh."""
+def mesh_headline(world, device, directory):
+    """The stand-in at 640x360, 64 spp, depth 32 through stages.l14_mesh
+    under packet versions 2, 1 and 3, each after a warm-up, with the counts
+    set to 0 just before each frame: the version's kernel is launched once
+    per traversal call (slabs plus pool passes) and no other, and versions
+    1 and 3 give version 2's segments and linear image bit for bit.
+    Returns ``{kernel: launches}``."""
     import os
 
     import numpy as np
@@ -851,36 +981,89 @@ def mesh_headline(world, wd, device, directory):
             or tuple(env_hw) != STANDIN_ENV[::-1]):
         raise AssertionError(f"the stand-in's assets on disk are not full size: "
                              f"{sizes}, EXR {env_hw}")
-    t0 = time.time()
-    render_hybrid(wd, l14_camera(MESH_RES).params(device), MESH_RES, spp=MESH_CHUNK,
-                  limit=MESH_DEPTH, seed=-1)
-    torch.cuda.synchronize()
-    _log(f"[mesh headline] warm-up (spp {MESH_CHUNK}) {time.time() - t0:.2f} s")
+    out, ref = {}, None
+    for v in (2, 1, 3):
+        kernel = pt.KERNELS["tri", v]
+        t0 = time.time()
+        render_hybrid(world.device(device, packet_version=v), l14_camera(MESH_RES).params(device),
+                      MESH_RES, spp=MESH_CHUNK, limit=MESH_DEPTH, seed=-1)
+        torch.cuda.synchronize()
+        _log(f"[mesh headline v{v}] warm-up (spp {MESH_CHUNK}) {time.time() - t0:.2f} s")
 
-    pt.traverse.launches.update(tri=0, sphere=0)
-    frame, rep = l14_mesh.main([
-        "--world", path, "--width", str(MESH_RES[0]), "--height", str(MESH_RES[1]),
-        "--spp", str(MESH_SPP), "--limit", str(MESH_DEPTH), "--device", device,
-        "--out", "outputs/chip_smoke_l14_standin.png"])
-    launches = pt.traverse.launches["tri"]
-    calls = rep["n_chunks"] + rep["passes"]
-    arr = frame.cpu().numpy()
-    mean = float(arr.mean())
-    _log(f"[mesh headline] {MESH_RES[0]}x{MESH_RES[1]} spp {MESH_SPP} depth {MESH_DEPTH}: "
-         f"{rep['seconds']:.3f} s, {rep['segments']} segments, {rep['mrays']:.3f} Mrays/s, "
-         f"primary hit fraction {rep['primary_hit_fraction']:.4f}, slabs {rep['n_chunks']} "
-         f"(chunk_spp {rep['chunk_spp']}), pool {rep['pool_w']} lanes, cap {rep['cap']}, "
-         f"passes_by_width {rep['passes_by_width']}, K2 launches {launches}, "
-         f"frame mean {mean:.5f}, load warnings {len(rep['load_warnings'])}, "
-         f"sky-gradient fallback {rep['env_gradient']}")
-    if launches != calls or pt.traverse.launches["sphere"]:
-        raise AssertionError(f"K2 launches {launches} != traversal calls {calls}")
-    if rep["load_warnings"] or rep["env_gradient"]:
-        raise AssertionError(f"the stand-in's textures or EXR fell back: "
-                             f"{rep['load_warnings']}, sky gradient {rep['env_gradient']}")
-    if not np.isfinite(arr).all() or not 0.02 < mean < 10.0:
-        raise AssertionError(f"mesh headline image is not sane: mean {mean}")
-    return launches
+        zero_launches()
+        frame, rep = l14_mesh.main([
+            "--world", path, "--width", str(MESH_RES[0]), "--height", str(MESH_RES[1]),
+            "--spp", str(MESH_SPP), "--limit", str(MESH_DEPTH), "--device", device,
+            "--packet-version", str(v),
+            "--out", f"outputs/chip_smoke_l14_standin{'' if v == 2 else f'_v{v}'}.png"])
+        launches = dict(pt.traverse.launches)
+        calls = rep["n_chunks"] + rep["passes"]
+        arr = frame.cpu().numpy()
+        mean = float(arr.mean())
+        _log(f"[mesh headline v{v}] {MESH_RES[0]}x{MESH_RES[1]} spp {MESH_SPP} depth "
+             f"{MESH_DEPTH}: {rep['seconds']:.3f} s, {rep['segments']} segments, "
+             f"{rep['mrays']:.3f} Mrays/s, primary hit fraction "
+             f"{rep['primary_hit_fraction']:.4f}, slabs {rep['n_chunks']} (chunk_spp "
+             f"{rep['chunk_spp']}), pool {rep['pool_w']} lanes, cap {rep['cap']}, "
+             f"passes_by_width {rep['passes_by_width']}, launches {launches}, frame mean "
+             f"{mean:.5f}, load warnings {len(rep['load_warnings'])}, sky-gradient "
+             f"fallback {rep['env_gradient']}")
+        if launches.pop(kernel) != calls or any(launches.values()):
+            raise AssertionError(f"{kernel} launches != traversal calls {calls}, or "
+                                 f"another kernel ran: {pt.traverse.launches}")
+        if rep["load_warnings"] or rep["env_gradient"]:
+            raise AssertionError(f"the stand-in's textures or EXR fell back: "
+                                 f"{rep['load_warnings']}, sky gradient {rep['env_gradient']}")
+        if not np.isfinite(arr).all() or not 0.02 < mean < 10.0:
+            raise AssertionError(f"mesh headline image is not sane: mean {mean}")
+        if ref is None:
+            ref = rep
+        else:
+            same = (rep["segments"] == ref["segments"]
+                    and bitwise_equal(rep["linear"], ref["linear"]))
+            _log(f"[mesh headline v{v}] segments and linear image bit for bit those of "
+                 f"version 2 ({ref['seconds']:.3f} s): {same}")
+            if not same:
+                raise AssertionError(f"the version-{v} frame differs from version 2's")
+        out[kernel] = calls
+    return out
+
+
+def viewer_wavefront(world, device):
+    """The viewer cell (640x360, 8 spp, depth 10): a ProgressiveRenderer
+    frame of the hybrid engine, then one of ``engine='wavefront'`` under
+    each packet version (``hit_legacy`` per bounce pass, so K2, K5a or K5b),
+    each held to the hybrid frame by ``render_agreement``."""
+    import torch
+
+    from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
+    from learn_path_tracing_tpu_torch.utils.checks import render_agreement
+    from learn_path_tracing_tpu_torch.viewer.progressive import ProgressiveRenderer
+
+    def frame(engine, v):
+        pr = ProgressiveRenderer(world.device(device, packet_version=v), l14_camera(VIEWER_RES),
+                                 VIEWER_RES, spp_per_frame=VIEWER_SPP, limit=VIEWER_DEPTH,
+                                 camera_model="jitter", engine=engine)
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pr.render(moved=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        img = (pr.acc / pr.spp).reshape(VIEWER_RES[0], VIEWER_RES[1], 3).cpu().numpy()
+        return img, pr.last_stats["segments"], seconds, dict(pt.traverse.launches)
+
+    ref = frame("hybrid", 2)
+    _log(f"[viewer] hybrid v2 {VIEWER_RES[0]}x{VIEWER_RES[1]} spp {VIEWER_SPP} depth "
+         f"{VIEWER_DEPTH}: {ref[2]:.3f} s, {ref[1]} segments, launches {ref[3]}")
+    for v in (2, 1, 3):
+        kernel = pt.KERNELS["tri", v]
+        img, segs, seconds, launches = frame("wavefront", v)
+        rep = render_agreement(img, ref[0], segs, ref[1])
+        _log(f"[viewer] wavefront v{v}: {seconds:.3f} s, {segs} segments, launches "
+             f"{launches}; against the hybrid frame: {rep}")
+        if not rep["ok"] or not launches.pop(kernel) or any(launches.values()):
+            raise AssertionError(f"the wavefront frame (v{v}) fails: {rep}, {launches}")
 
 
 def _timed(table, name, fn):
@@ -900,13 +1083,18 @@ def _timed(table, name, fn):
     return wrapper
 
 
-def mesh_profile(device, directory, frames=3):
+# device kernel of each packet version, as the profiler names it
+TRAVERSAL_KERNEL_NAMES = {2: "packet_traverse_kernel", 1: "packet_walk_v1_kernel",
+                          3: "packet_walk_v3_kernel"}
+
+
+def mesh_profile(device, directory, frames=3, packet_version=2):
     """Where the stand-in frame's time goes (``--profile-mesh``): ``frames``
-    unprofiled frames of the l14 headline's renderer on the reloaded world,
-    one under ``torch.profiler`` (device busy time, device events, K2's
-    share, peak memory), and one with each layer wrapped in synchronised
-    timers (inclusive host ms; the synchronisation inflates that frame).
-    Returns the summary dict."""
+    unprofiled frames of the l14 headline's renderer on the reloaded world
+    under ``packet_version``, one under ``torch.profiler`` (device busy
+    time, device events, the traversal kernel's share, peak memory), and
+    one with each layer wrapped in synchronised timers (inclusive host ms;
+    the synchronisation inflates that frame). Returns the summary dict."""
     import os
 
     import torch
@@ -924,7 +1112,7 @@ def mesh_profile(device, directory, frames=3):
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         wd = lw.LegacyWorld().load(path, path_map=make_asset_path_map(directory),
-                                   device=device)
+                                   device=device, packet_version=packet_version)
     pr = ProgressiveRenderer(wd, l14_camera(MESH_RES), MESH_RES, spp_per_frame=MESH_SPP,
                              limit=MESH_DEPTH, seed=0, bsdf="legacy", scene="legacy",
                              camera_model="jitter")
@@ -947,12 +1135,12 @@ def mesh_profile(device, directory, frames=3):
     dev_events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
-    k2 = [e for e in dev_events if "packet_traverse_kernel" in e.name]
-    k2_ms = sum(e.time_range.elapsed_us() for e in k2) / 1e3
+    trav = [e for e in dev_events if TRAVERSAL_KERNEL_NAMES[packet_version] in e.name]
+    trav_ms = sum(e.time_range.elapsed_us() for e in trav) / 1e3
 
     layers = {}
     patches = [(lw, "trace_shade_compact"), (lw, "trace_legacy"), (lw, "packet_traverse"),
-               (lw, "shade_from_trace"), (lw, "_attrs_rows"), (lw, "environment_color"),
+               (lw, "packet_traverse_sorted"), (lw, "shade_from_trace"), (lw, "_attrs_rows"), (lw, "environment_color"),
                (hybrid, "generate_rays_for_pixels")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in patches]
     saved_scatter = SCATTERERS["legacy"]
@@ -967,12 +1155,13 @@ def mesh_profile(device, directory, frames=3):
         SCATTERERS["legacy"] = saved_scatter
 
     med = statistics.median(walls)
-    out = {"frames_s": walls, "segments": segs, "mrays_median": segs / med / 1e6,
+    out = {"packet_version": packet_version, "frames_s": walls, "segments": segs,
+           "mrays_median": segs / med / 1e6,
            "profiled_frame_s": prof_wall, "device_busy_ms": busy_ms,
            "device_events": len(dev_events), "idle_share_vs_median_frame":
            1.0 - busy_ms / (med * 1e3) if dev_events else None,
-           "k2_launches": len(k2), "k2_device_ms": k2_ms,
-           "k2_share_of_busy": k2_ms / busy_ms if busy_ms else None,
+           "traversal_launches": len(trav), "traversal_device_ms": trav_ms,
+           "traversal_share_of_busy": trav_ms / busy_ms if busy_ms else None,
            "peak_mem_gib": peak / 2**30, "synchronised_frame_s": sync_wall,
            "layers_ms_calls": {k: [round(v[0], 3), v[1]] for k, v in
                                sorted(layers.items(), key=lambda kv: -kv[1][0])},
@@ -1013,6 +1202,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     ap.add_argument("--profile-mesh", action="store_true",
                     help="only profile the stand-in mesh frame (see mesh_profile)")
+    ap.add_argument("--packet-version", type=int, choices=(1, 2, 3), default=2,
+                    help="the mesh traversal kernel of --profile-mesh (2: K2, 1: K5a, 3: K5b)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1024,7 +1215,7 @@ def main(argv=None) -> int:
     build_kernels()
     if args.profile_mesh:
         with tempfile.TemporaryDirectory() as directory:
-            mesh_profile(device, directory)
+            mesh_profile(device, directory, packet_version=args.packet_version)
         print(card)
         return 0
 
@@ -1044,23 +1235,26 @@ def main(argv=None) -> int:
         _log(f"[stand-in] {tri.tex.shape[0]} triangles, {tri.packet[0].shape[0]} wide nodes, "
              f"{tri.packet[2].shape[0]} run rows, stack {tri.stack}; built in "
              f"{time.time() - t0:.2f} s")
-        k2 = check_packet(mesh_wd, tri.packet, tri.stack, "tri", device, seed=7)
+        tri_kernels = check_packet(mesh_wd, tri.packet, tri.stack, "tri", device, seed=7)
 
         t0 = time.time()
         sph_wd = _build_quiet(sphere_world(), device=device)
         sph = sph_wd.spheres
         _log(f"[sphere world] {N_SPHERES} spheres, {sph.packet[0].shape[0]} wide nodes, "
              f"stack {sph.stack}; built in {time.time() - t0:.2f} s")
-        k3 = check_packet(sph_wd, sph.packet, sph.stack, "sphere", device, seed=8)
+        k3 = check_packet(sph_wd, sph.packet, sph.stack, "sphere", device, seed=8)["k3"]
         k3["launches"] = sphere_path(sph_wd, device)
 
         check_mesh_gpu_vs_cpu(device, directory)
-        k2["launches"] = mesh_headline(mesh_world, mesh_wd, device, directory)
+        for kernel, launches in mesh_headline(mesh_world, device, directory).items():
+            tri_kernels[kernel]["launches"] = launches
+        viewer_wavefront(mesh_world, device)
     k1["launches"], modular = headline(device)
     k4["launches"] = mega_headline(device, modular)
 
     print(card)
-    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
+    print(json.dumps({"kernels": [k1, tri_kernels["k2"], k3, k4, tri_kernels["k5a"],
+                                  tri_kernels["k5b"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -78,13 +78,14 @@ def _unstrip(atlas, channels: int) -> np.ndarray:
     return out
 
 
-def legacy_world_from_numpy(world, device=None) -> LegacyWorldData:
+def legacy_world_from_numpy(world, device=None, packet_version: int = 2) -> LegacyWorldData:
     """A ``LegacyWorldData`` from the JAX package's ``LegacyWorldData`` with
     every leaf a numpy array (e.g. ``jax.tree_util.tree_map(np.asarray,
     wd)``); fields are read by name. The traversal tables, triangle
     attributes and sphere arrays are taken as they are; the strip-packed
     atlases are unpacked to the classic ones (the material atlas stays
-    bfloat16, exactly)."""
+    bfloat16, exactly). ``packet_version`` picks the mesh traversal kernel
+    (the JAX package reads it from ``LPT_PACKET_VERSION`` instead)."""
     def t(x, dtype=np.float32):
         return torch.as_tensor(np.array(x, dtype), device=device)
 
@@ -124,4 +125,5 @@ def legacy_world_from_numpy(world, device=None) -> LegacyWorldData:
         env_high=t(world.envs.info_high, np.int32),
         env_id=int(np.asarray(world.env_id)),
         tri_attr=None if world.tri_attr is None else t(world.tri_attr),
-        env_gradient_h=world.env_gradient_h)
+        env_gradient_h=world.env_gradient_h,
+        packet_version=packet_version)

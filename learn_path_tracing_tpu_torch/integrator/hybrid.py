@@ -6,7 +6,8 @@ camera rays):
 
 - **phase A (per spp chunk)**: all ``n * chunk_spp`` camera rays of the
   chunk are traced in one dense, pixel-major, traversal-only pass
-  (``scene.legacy_world.trace_legacy``: no attributes, no atlas taps).
+  (``scene.legacy_world.trace_legacy``: no attributes, no atlas taps; in
+  lane order under every packet version, the rays being coherent already).
   Escapes deposit their radiance at once.
 - **survivor extraction**: a sort on ``t`` moves the hits to a prefix;
   primaries are regenerable from (pixel, sample), so only the work-item id,
@@ -223,7 +224,8 @@ def _hybrid_core(world_data, cam: CameraParams, resolution, spp: int,
         # phase A: dense pixel-major primaries, traversal only
         wid_a = (lanes // chunk_spp) * spp + ci * chunk_spp + lanes % chunk_spp
         rays, _, _ = regen(wid_a)
-        t, prim, src = trace_legacy(world_data, rays)
+        # scanline-coherent already: no coherence sort (packet versions 1, 3)
+        t, prim, src = trace_legacy(world_data, rays, sort_rays=False)
         segments += slab
         hitm = torch.isfinite(t)
         esc = ~hitm

@@ -5,7 +5,9 @@ bounce passes over the whole flat wavefront with an ``alive`` mask. A path
 contributes ``background(rd) * throughput`` only if it escapes within the
 bounce budget; paths that exhaust the budget contribute nothing.
 
-``render_accumulate`` and ``render_chunked`` are not ported yet.
+``render``, ``render_accumulate`` (the progressive viewer's wavefront
+engine) and ``render_chunked`` add samples in the same order, so for the
+same samples they give the same bits.
 """
 
 from __future__ import annotations
@@ -103,15 +105,45 @@ def render(world_data, cam: CameraParams, resolution, spp: int, limit: int = 32,
     The image is mean linear radiance. ``segments`` counts live ray segments
     actually traced — the Mrays metric numerator.
     """
-    w, h = resolution
-    acc = torch.zeros((w * h, 3), dtype=torch.float32, device=cam.device)
+    return render_chunked(world_data, cam, resolution, spp, limit=limit, seed=seed,
+                          chunk_spp=max(spp, 1), bsdf=bsdf, camera_model=camera_model,
+                          scene=scene, hit_backend=hit_backend)
+
+
+def render_accumulate(world_data, cam: CameraParams, acc, sample_start: int,
+                      resolution, spp_per_call: int, limit: int = 32, seed=0,
+                      bsdf: str = "modern", camera_model: str = "thinlens",
+                      scene: str = "spheres", hit_backend: str = "auto"):
+    """Progressive step: add samples ``sample_start + k`` for ``k <
+    spp_per_call`` into ``acc f32[N,3]`` (radiance sums, one row per
+    pixel). Returns ``(acc, segments int)``: a new tensor, ``acc`` itself
+    is not written."""
     segs = 0
-    for s in range(spp):
+    for k in range(spp_per_call):
         radiance, segments = trace_sample(
-            world_data, cam, resolution, seed, s, limit,
+            world_data, cam, resolution, seed, sample_start + k, limit,
             bsdf=bsdf, camera_model=camera_model, scene=scene,
             hit_backend=hit_backend,
         )
         acc = acc + radiance
+        segs += segments
+    return acc, segs
+
+
+def render_chunked(world_data, cam: CameraParams, resolution, spp: int,
+                   limit: int = 32, seed=0, chunk_spp: int = 8,
+                   bsdf: str = "modern", camera_model: str = "thinlens",
+                   scene: str = "spheres", hit_backend: str = "auto"):
+    """``render`` dispatched as ``render_accumulate`` calls of ``chunk_spp``
+    samples (the same RNG counters and order of adds, so the same image).
+    Returns (image f32[W,H,3], segments int)."""
+    w, h = resolution
+    acc = torch.zeros((w * h, 3), dtype=torch.float32, device=cam.device)
+    segs = 0
+    for s0 in range(0, spp, chunk_spp):
+        acc, segments = render_accumulate(
+            world_data, cam, acc, s0, resolution, min(chunk_spp, spp - s0),
+            limit=limit, seed=seed, bsdf=bsdf, camera_model=camera_model,
+            scene=scene, hit_backend=hit_backend)
         segs += segments
     return (acc / spp).reshape(w, h, 3), segs

@@ -1,10 +1,25 @@
-"""Kernels K2/K3: nearest hit over an 8-wide BVH, with their plain twin.
+"""Kernels K2/K3/K5a/K5b: nearest hit over an 8-wide BVH, with their plain
+twin.
 
-Counterpart of ``learn_path_tracing_tpu.ops.packet_traverse``. The JAX
-package walks a shared SMEM stack per 1024-ray packet on the TPU's scalar
-core (``_kernel_v2``); the port gives every ray its own stack
-(``csrc/packet_traverse.cu``, one thread per ray), which is how the
-reference walks its BVH. The data contract is the JAX package's:
+Counterpart of ``learn_path_tracing_tpu.ops.packet_traverse``, whose kernel
+versions (the JAX package's ``LPT_PACKET_VERSION``) are the ``version``
+argument here, all in ``csrc/packet_traverse.cu``:
+
+- version 2 (default): K2 (triangle leaves) and K3 (sphere leaves) for the
+  TPU's ``_kernel_v2``. The TPU walks one shared SMEM stack per 1024-ray
+  packet; the port gives every ray its own stack (one thread per ray),
+  which is how the reference walks its BVH.
+- version 1: K5a for ``_kernel`` (v1), one packet of 32 rays per warp with
+  a shared stack whose entries carry the mask of the lanes that entered
+  them; leaves are pushed like nodes, and nodes are slab-tested in v1's
+  form ``(lo - ro)*inv``.
+- version 3: K5b for ``_kernel_v3`` (tile-ranged), one packet of 256 rays
+  per block, its 8 warps standing for v3's 8 lane tiles; every entry
+  carries the range of warps that entered it and each warp's lane mask,
+  and only warps in range do the pop's slab and leaf work.
+
+Sphere leaves take version 2 only, as in the JAX package. The data
+contract is the JAX package's:
 
 - ``nodes f32[M,128]``: the 8 child AABBs of wide node ``i``, component-major
   (column ``c + 8*k`` for ``k`` = lo.x, lo.y, lo.z, hi.x, hi.y, hi.z);
@@ -21,12 +36,16 @@ reference walks its BVH. The data contract is the JAX package's:
   takes the far root when the near root is ``< eps``; empty slots have
   ``r² = -inf``.
 
-Semantics shared by the kernel and ``packet_traverse_plain`` (the same f32
+Semantics shared by the kernels and ``packet_traverse_plain`` (the same f32
 operations in the same order, each rounded on its own):
 
-- slab test of each child as ``t = lo*inv - ro*inv`` with ``inv = 1/rd``,
-  NaN-propagating min/max; a child is entered when
-  ``t1 > t0 - eps``, ``t1 > 0`` and ``t0 < t_best + eps``;
+- slab test of each child as ``t = lo*inv - ro*inv`` (versions 2 and 3,
+  ``slab='hoisted'``) or ``t = (lo - ro)*inv`` (version 1,
+  ``slab='direct'``) with ``inv = 1/rd``, NaN-propagating min/max; a child
+  is entered when ``t1 > t0 - eps``, ``t1 > 0`` and ``t0 < t_best + eps``.
+  The two forms differ on a direction component of exactly 0: the hoisted
+  one gives ``inf - inf = NaN`` where ``lo`` and ``ro`` have the same sign
+  and rejects the box, so such a ray misses what version 1 hits;
 - entered leaf children are tested at once, nearest first (key
   ``max(t0, 0)``, ties to the lower slot), each skipped if its key is no
   longer ``< t_best + eps``; entered node children are pushed so that the
@@ -41,9 +60,15 @@ operations in the same order, each rounded on its own):
 - ``t_init`` seeds the best ``t`` per ray (``prim`` stays -1 unless beaten);
   inactive rays are not walked and return ``(t_init, -1)``.
 
-``traverse`` dispatches on the device: CUDA tensors launch the kernel (and
-count the launch in ``traverse.launches[leaf_kind]``), CPU tensors run the
-plain twin. There is no fallback between the two.
+The packet kernels (K5a, K5b) walk a packet's union of nodes, each lane
+testing only what its own mask says it entered, so their ``(t, prim)``
+are the per-ray walk's; their ``iters`` are the packet's pops, given to
+each of its rays (the twin's are per ray), so ``iters`` is reported and
+not compared.
+
+``traverse`` dispatches on the device: CUDA tensors launch the version's
+kernel (and count the launch in ``traverse.launches[<kernel>]``), CPU
+tensors run the plain twin. There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -62,7 +87,11 @@ SLOTS = 8                   # primitive slots per run row
 _PRIM_COL = SLOT_F * SLOTS  # cols 96..103: prim index per slot (f32)
 _ENC = 64
 LEAF_KINDS = ("tri", "sphere")
-MAX_STACK = 256             # the kernel's per-thread stack (csrc kMaxStack)
+VERSIONS = (1, 2, 3)
+# the kernel that carries each (leaf kind, version), as traverse.launches counts
+KERNELS = {("tri", 2): "k2", ("sphere", 2): "k3", ("tri", 1): "k5a", ("tri", 3): "k5b"}
+SLABS = {1: "direct", 2: "hoisted", 3: "hoisted"}
+MAX_STACK = 256             # the kernels' stack entries (csrc kMaxStack)
 _INF = float("inf")
 
 # Treelet-key sentinels (see _treelet_entry_key / _coherence_key): rays that
@@ -185,8 +214,11 @@ def pack_sphere_packet_tables(wbvh: WideBVH, centers, radii, transparency):
 
 def stack_cap(entries) -> int:
     """Stack entries a walk of these tables can need: ``1 + 7*depth``, with
-    ``depth`` the number of wide-node levels (each pop of a node removes one
-    entry and pushes at most 8; leaves never touch the stack)."""
+    ``depth`` the number of wide-node levels. A pop of a node at level
+    ``L`` replaces it by at most 8 children while each ancestor on its path
+    leaves at most 7 unvisited children below it: ``7*(L-1) + 8``. That
+    holds whether leaf children are pushed too (version 1) or tested inline
+    (versions 2 and 3): a leaf pop only removes an entry."""
     entries = np.asarray(entries)
     depth, level = 0, [0]
     while level:
@@ -274,9 +306,13 @@ def _coherence_key(nodes, ro, rd, treelets, eps: float = 0.0):
 
 # ----------------------------------------------------------- entry points --
 
-def _check(nodes, entries, runs, ro, rd, t_init, active, leaf_kind):
+def _check(nodes, entries, runs, ro, rd, t_init, active, leaf_kind, version=2):
     if leaf_kind not in LEAF_KINDS:
         raise ValueError(f"unknown leaf kind: {leaf_kind!r}")
+    if version not in VERSIONS:
+        raise ValueError(f"unknown packet version: {version!r} (one of {VERSIONS})")
+    if leaf_kind != "tri" and version != 2:
+        raise ValueError("sphere leaf runs require version 2")
     n = ro.shape[0]
     for name, x, dtype, shape in (
             ("nodes", nodes, torch.float32, (nodes.shape[0], 128)),
@@ -294,50 +330,69 @@ def _check(nodes, entries, runs, ro, rd, t_init, active, leaf_kind):
 
 
 def traverse(nodes, entries, runs, ro, rd, t_init, active, eps: float = 1e-4,
-             leaf_kind: str = "tri", stack: int | None = None):
+             leaf_kind: str = "tri", stack: int | None = None, version: int = 2):
     """Nearest hit of ``N`` rays → ``(t f32[N], prim i32[N], iters i32[N])``:
     ``t`` is ``t_init`` and ``prim`` -1 where nothing beats ``t_init``;
-    ``iters`` counts each ray's stack pops. ``stack`` is the tables'
-    ``stack_cap`` (computed from ``entries`` when None).
+    ``iters`` counts stack pops (each ray's in the twin and K2/K3, its
+    packet's in K5a/K5b). ``stack`` is the tables' ``stack_cap`` (computed
+    from ``entries`` when None); ``version`` picks the kernel (1, 2 or 3).
 
     CUDA tensors launch the kernel, CPU tensors run the plain twin."""
-    _check(nodes, entries, runs, ro, rd, t_init, active, leaf_kind)
+    _check(nodes, entries, runs, ro, rd, t_init, active, leaf_kind, version)
     if stack is None:
         stack = stack_cap(entries.cpu().numpy())
     if ro.device.type == "cpu":
         return packet_traverse_plain(nodes, entries, runs, ro, rd, t_init, active,
-                                     eps=eps, leaf_kind=leaf_kind, stack=stack)
+                                     eps=eps, leaf_kind=leaf_kind, stack=stack,
+                                     slab=SLABS[version])
     if ro.device.type != "cuda":
         raise ValueError(f"packet traversal: no kernel for device {ro.device}")
-    return _launch(nodes, entries, runs, ro, rd, t_init, active, eps, leaf_kind, stack)
+    return _launch(nodes, entries, runs, ro, rd, t_init, active, eps, leaf_kind, stack,
+                   version)
 
 
-traverse.launches = {kind: 0 for kind in LEAF_KINDS}
+traverse.launches = {kernel: 0 for kernel in KERNELS.values()}
 
 
 def packet_traverse(nodes, entries, runs, ro, rd, t_init, active,
                     eps: float = 1e-4, leaf_kind: str = "tri",
-                    stack: int | None = None):
+                    stack: int | None = None, version: int = 2,
+                    sort_rays: bool = False, treelets=None):
     """Nearest-hit traversal in caller lane order: ``(t, prim)``. ``t`` is
     ``t_init`` where nothing beats it (inactive rays included) and ``prim``
     is -1 there.
 
-    The JAX package's ``sort_rays`` (a coherence sort that shrinks the
-    TPU packets' node unions) is not carried over: a per-ray walk does not
-    share nodes across rays; ``packet_traverse_sorted`` keeps the sort's
-    contract for callers that want it."""
-    t, prim, _ = traverse(nodes, entries, runs, ro, rd, t_init, active,
-                          eps=eps, leaf_kind=leaf_kind, stack=stack)
+    ``sort_rays``: the JAX package's coherence sort around the kernel
+    (``_sort_fwd``/``_sort_inv``): rays are stably sorted by the treelet
+    key (``treelets``: the tables' ``treelet_boxes``, computed when None),
+    traversed, and put back in lane order. A packet kernel's cost is its
+    packet's node union, which the sort shrinks; the result is the same
+    either way (a permutation, and an order-free tie rule)."""
+    if not sort_rays:
+        t, prim, _ = traverse(nodes, entries, runs, ro, rd, t_init, active, eps=eps,
+                              leaf_kind=leaf_kind, stack=stack, version=version)
+        return t, prim
+    if treelets is None:
+        treelets = tuple(torch.as_tensor(x, device=ro.device) for x in
+                         treelet_boxes(nodes.cpu().numpy(), entries.cpu().numpy()))
+    order = torch.argsort(_coherence_key(nodes, ro, rd, treelets), stable=True)
+    t_s, p_s, _ = traverse(nodes, entries, runs, ro[order], rd[order], t_init[order],
+                           active[order], eps=eps, leaf_kind=leaf_kind, stack=stack,
+                           version=version)
+    t, prim = torch.empty_like(t_s), torch.empty_like(p_s)
+    t[order] = t_s
+    prim[order] = p_s
     return t, prim
 
 
 def packet_traverse_sorted(nodes, entries, runs, ro, rd, active, treelets,
                            eps: float = 1e-4, stack: int | None = None,
-                           payload=()):
+                           payload=(), version: int = 2):
     """Coherence-sorted traversal: the JAX package's entry for fused hit
-    shading on single-structure worlds (``t_init`` is +inf). The port's
-    render path does not call it (``scene.legacy_world`` traverses in lane
-    order); it keeps the JAX contract for callers that want the sort.
+    shading on single-structure worlds (``t_init`` is +inf).
+    ``scene.legacy_world.trace_shade_compact`` takes it for versions 1 and
+    3 (packet kernels), as the JAX package does; version 2 walks in lane
+    order (the sort cost more than it saved there).
 
     Rays are stably sorted by the treelet coherence key, inactive rays last
     (``_KEY_INACTIVE``), and traversed in that order. Returns ``(t_s,
@@ -357,7 +412,7 @@ def packet_traverse_sorted(nodes, entries, runs, ro, rd, active, treelets,
     entered_n = torch.sum(key_s < _KEY_ENTERED_LIM)
     t_init = torch.full_like(ro_s[:, 0], _INF)
     t, prim, _ = traverse(nodes, entries, runs, ro_s, rd_s, t_init, active_s,
-                          eps=eps, stack=stack)
+                          eps=eps, stack=stack, version=version)
     t_s = torch.where(prim >= 0, t, _INF)
     out = (t_s, prim, ro_s, rd_s, entered_n, order_idx)
     if payload:
@@ -367,7 +422,7 @@ def packet_traverse_sorted(nodes, entries, runs, ro, rd, active, treelets,
 
 # ------------------------------------------------------------------ kernel --
 
-def _launch(nodes, entries, runs, ro, rd, t_init, active, eps, leaf_kind, stack):
+def _launch(nodes, entries, runs, ro, rd, t_init, active, eps, leaf_kind, stack, version):
     if stack > MAX_STACK:
         raise ValueError(f"packet traversal kernel: the tables need a stack of "
                          f"{stack} entries, the kernel holds {MAX_STACK}")
@@ -391,11 +446,11 @@ def _launch(nodes, entries, runs, ro, rd, t_init, active, eps, leaf_kind, stack)
             nodes.data_ptr(), entries.data_ptr(), runs.data_ptr(), ro.data_ptr(),
             rd.data_ptr(), t_init.data_ptr(), active.data_ptr(), t.data_ptr(),
             prim.data_ptr(), iters.data_ptr(), err.data_ptr(), n, stack,
-            16 * m + 64, float(eps), LEAF_KINDS.index(leaf_kind), stream)
+            16 * m + 64, float(eps), LEAF_KINDS.index(leaf_kind), version, stream)
     if code != 0:
         msg = lib.lpt_error_string(code).decode()
         raise RuntimeError(f"packet traversal kernel launch failed: {msg} ({code})")
-    traverse.launches[leaf_kind] += 1
+    traverse.launches[KERNELS[(leaf_kind, version)]] += 1
     flags = int(err.item())
     if flags:
         what = {1: "stack overflow", 2: "iteration backstop reached",
@@ -409,7 +464,7 @@ def load_kernel() -> ctypes.CDLL:
     """Build (first use) and load the kernel library with its C signature."""
     lib = build.load("packet_traverse")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.lpt_packet_traverse.argtypes = [vp] * 11 + [ci, ci, ci, ctypes.c_float, ci, vp]
+    lib.lpt_packet_traverse.argtypes = [vp] * 11 + [ci, ci, ci, ctypes.c_float, ci, ci, vp]
     lib.lpt_packet_traverse.restype = ci
     lib.lpt_error_string.argtypes = [ci]
     lib.lpt_error_string.restype = ctypes.c_char_p
@@ -464,13 +519,17 @@ def _leaf_candidates(row, nslots, o, d, eps, leaf_kind):
 
 def packet_traverse_plain(nodes, entries, runs, ro, rd, t_init, active,
                           eps: float = 1e-4, leaf_kind: str = "tri",
-                          stack: int | None = None):
-    """Plain PyTorch twin of the kernel, on any device: a lockstep walk in
+                          stack: int | None = None, slab: str = "hoisted"):
+    """Plain PyTorch twin of the kernels, on any device: a lockstep walk in
     which every unfinished ray pops one stack entry per step, over the same
-    tables, in the same order, with the same f32 operations and tie rule.
-    Returns ``(t, prim, iters)`` like ``traverse``; raises on a stack
-    overflow or the ``16*M + 64`` step backstop."""
+    tables, in the same order as K2, with the same f32 operations and tie
+    rule. ``slab``: ``'hoisted'`` (``lo*inv - ro*inv``: K2, K3, K5b) or
+    ``'direct'`` (``(lo - ro)*inv``: K5a). Returns ``(t, prim, iters)``
+    like ``traverse``, ``iters`` per ray; raises on a stack overflow or the
+    ``16*M + 64`` step backstop."""
     _check(nodes, entries, runs, ro, rd, t_init, active, leaf_kind)
+    if slab not in ("hoisted", "direct"):
+        raise ValueError(f"unknown slab form: {slab!r}")
     if stack is None:
         stack = stack_cap(entries.cpu().numpy())
     n, m = ro.shape[0], nodes.shape[0]
@@ -518,9 +577,14 @@ def packet_traverse_plain(nodes, entries, runs, ro, rd, t_init, active,
         t0 = torch.full((rays.numel(), WIDTH), -_INF, device=dev)
         t1 = torch.full((rays.numel(), WIDTH), _INF, device=dev)
         for dim in range(3):
-            iv, riv = inv[rays, dim:dim + 1], roinv[rays, dim:dim + 1]
-            ta = box[:, dim * 8:(dim + 1) * 8] * iv - riv
-            tb = box[:, (3 + dim) * 8:(4 + dim) * 8] * iv - riv
+            iv = inv[rays, dim:dim + 1]
+            lo, hi = box[:, dim * 8:(dim + 1) * 8], box[:, (3 + dim) * 8:(4 + dim) * 8]
+            if slab == "direct":
+                o = ro[rays, dim:dim + 1]
+                ta, tb = (lo - o) * iv, (hi - o) * iv
+            else:
+                riv = roinv[rays, dim:dim + 1]
+                ta, tb = lo * iv - riv, hi * iv - riv
             t0 = torch.maximum(t0, torch.minimum(ta, tb))
             t1 = torch.minimum(t1, torch.maximum(ta, tb))
         ent = kids[code]

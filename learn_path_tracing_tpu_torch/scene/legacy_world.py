@@ -11,8 +11,10 @@ as the escape radiance, and ``.world.npy`` save/load.
   any other device.
 - ``trace_legacy``: traversal only, nearest ``(t, prim, src)`` over the
   sphere set and every mesh. Meshes go through the packet-traversal kernel
-  (K2); spheres through the sphere scan (K1) up to ``SPHERE_SCAN_CEILING``
-  spheres and through the sphere-leaf packet kernel (K3) above it.
+  of the world's ``packet_version`` (K2 for 2, K5a for 1, K5b for 3: the
+  JAX package's ``LPT_PACKET_VERSION``, as data); spheres through the
+  sphere scan (K1) up to ``SPHERE_SCAN_CEILING`` spheres and through the
+  sphere-leaf packet kernel (K3) above it.
 - ``shade_from_trace`` / ``hit_legacy``: attributes and the atlas tap
   (``_attrs_block``) on the hit lanes only, then the legacy hit record
   (fixed ior and absorptivity, back-face flip).
@@ -20,16 +22,26 @@ as the escape radiance, and ``.world.npy`` save/load.
   returns hits compacted to a prefix and never restores lane order.
 - ``environment_color``: the equirect IBL lookup.
 
+Ray order follows the JAX package for the packet kernels (versions 1 and
+3), whose cost is a packet's node union: ``trace_legacy`` and so
+``hit_legacy`` traverse coherence-sorted unless the caller passes
+``sort_rays=False`` (the hybrid integrator's primary slabs), and
+``trace_shade_compact`` takes ``packet_traverse_sorted`` with the caller's
+payload on single-mesh worlds from 4,096 rays. Version 2 (a ray per
+thread) walks in lane order everywhere: its sort cost time on the card and
+changed no result. Every route gives the same ``(t, prim)`` (the sorts are
+permutations, the tie rule is order-free), so renders do not depend on the
+version except on rays with a direction component of exactly 0, which the
+v1 slab form hits and the others miss.
+
 Differences from the JAX package, none of which changes a result: the
 material atlas is the classic ``[W, H, 8]`` one (bfloat16, as the JAX
 package stores its strip-packed twin) sampled by ``sample_bilinear``;
 attribute shading runs on exactly the hit rows instead of static prefix
 buckets (``_attrs_switch``'s ``_r256`` widths exist for XLA's static
-shapes); every world traverses in lane order, so the fused single-mesh
-hit path keeps its contract (the same ``Hits`` as the composed path) but
-not its coherence sort, which cost time on the card and changed no result
-(``ops.packet_traverse.packet_traverse_sorted`` keeps that sort's JAX
-contract off the main path); the multi-mesh default merges meshes under one BVH, as there. ``load`` always
+shapes); the fused single-mesh hit path (``_hit_legacy_fused``) is the
+composed sort, traversal and unsort, which the JAX package's tests hold
+bitwise equal to it; the multi-mesh default merges meshes under one BVH, as there. ``load`` always
 rebuilds the BVHs (the JAX package's ``rebuild_bvh=False`` and
 ``textures_from_obj`` serve the reference's asset files and are not
 carried over).
@@ -55,9 +67,11 @@ from ..io.texture import (
     sample_bilinear,
 )
 from ..ops.packet_traverse import (
+    VERSIONS,
     pack_packet_tables,
     pack_sphere_packet_tables,
     packet_traverse,
+    packet_traverse_sorted,
     stack_cap,
     treelet_boxes,
 )
@@ -102,7 +116,7 @@ class MeshDeviceData:
     tex: torch.Tensor  # i32[T]
     packet: tuple      # (nodes, entries, runs) traversal tables
     treelets: tuple    # (lo f32[64,3], hi f32[64,3]) depth-2 subtree boxes,
-                       # for packet_traverse_sorted (off the render path)
+                       # the coherence key of versions 1 and 3
     stack: int         # traversal stack bound of the tables
 
 
@@ -137,6 +151,14 @@ class LegacyWorldData:
     # gradient (its source file was missing): environment_color then
     # evaluates it in closed form
     env_gradient_h: int | None = None
+    # kernel version of the mesh traversal (ops.packet_traverse: 2 = K2,
+    # 1 = K5a, 3 = K5b); sphere tables always take version 2
+    packet_version: int = 2
+
+    def __post_init__(self):
+        if self.packet_version not in VERSIONS:
+            raise ValueError(f"packet_version must be one of {VERSIONS}, "
+                             f"got {self.packet_version!r}")
 
     @property
     def device(self) -> torch.device:
@@ -312,7 +334,8 @@ class LegacyWorld:
     def set_environment(self, id):
         self.environment = int(id)
 
-    def _finish(self, meshes, spheres, path_map, device) -> LegacyWorldData:
+    def _finish(self, meshes, spheres, path_map, device,
+                packet_version) -> LegacyWorldData:
         """Atlases plus the device structures → the world on ``device``."""
         _default_environment(self.environments)
         atlas_np = build_texture_atlas(self.textures.configs,
@@ -335,6 +358,7 @@ class LegacyWorld:
             tri_attr=_tri_attr_table(tuple(meshes)),
             env_gradient_h=_active_gradient_h(self.environments,
                                               self.environment, env_grad_ids),
+            packet_version=packet_version,
         )
         self._data = {"cpu": data}
         return self.device(device)
@@ -342,7 +366,8 @@ class LegacyWorld:
     # ------------------------------------------------------------- build --
     def build(self, mesh_max_depth=24, sphere_max_depth=12, max_leaf=8,
               mesh_max_leaf=8, path_map=None, merge_meshes: bool = True,
-              sphere_packet: bool | None = None, device=None) -> LegacyWorldData:
+              sphere_packet: bool | None = None, device=None,
+              packet_version: int = 2) -> LegacyWorldData:
         """Pack textures, build atlases, BVHs and kernel tables; returns the
         world on ``device`` (default CPU).
 
@@ -350,7 +375,9 @@ class LegacyWorld:
         merged BVH (one kernel launch per wavefront); False keeps one
         structure per mesh, traced in turn with each seeded by the best
         ``t`` so far (the reference's composition). ``sphere_packet``
-        overrides the brute-scan ceiling (True: packet tables always)."""
+        overrides the brute-scan ceiling (True: packet tables always).
+        ``packet_version``: the mesh traversal kernel (2: K2, 1: K5a, 3:
+        K5b), the JAX package's ``LPT_PACKET_VERSION``."""
         self.textures.build()
         _default_environment(self.environments)
         self.environments.build()
@@ -402,16 +429,22 @@ class LegacyWorld:
             }
 
         self._bvh_records = (mesh_records, sphere_record)
-        return self._finish(mesh_devices, sphere_device, path_map, device)
+        return self._finish(mesh_devices, sphere_device, path_map, device,
+                            packet_version)
 
-    def device(self, device=None) -> LegacyWorldData:
-        """The built world's tensors on ``device`` (cached per device)."""
+    def device(self, device=None, packet_version: int | None = None) -> LegacyWorldData:
+        """The built world's tensors on ``device`` (cached per device), with
+        the mesh traversal of ``packet_version`` (default: the one it was
+        built or loaded with)."""
         if not self._data:
             raise RuntimeError("call build() or load() first")
         key = str(torch.device(device or "cpu"))
         if key not in self._data:
             self._data[key] = self._data["cpu"].to(device)
-        return self._data[key]
+        data = self._data[key]
+        if packet_version is None or packet_version == data.packet_version:
+            return data
+        return dataclasses.replace(data, packet_version=packet_version)
 
     # --------------------------------------------------------------- I/O --
     def save(self, filename):
@@ -428,10 +461,12 @@ class LegacyWorld:
         )
 
     def load(self, filename, path_map=None, merge_meshes: bool = True,
-             sphere_packet: bool | None = None, device=None) -> LegacyWorldData:
+             sphere_packet: bool | None = None, device=None,
+             packet_version: int = 2) -> LegacyWorldData:
         """Load a ``.world.npy`` onto ``device``, rebuilding the BVHs from
         the stored geometry with the build settings (meshes depth 24,
-        leaves of 8; spheres depth 12, leaves of 4).
+        leaves of 8; spheres depth 12, leaves of 4); ``packet_version`` as
+        in ``build``.
 
         Not carried over from the JAX package: ``rebuild_bvh=False`` (the
         file's own trees, for parity debugging against the reference's
@@ -458,7 +493,8 @@ class LegacyWorld:
             sphere_device = _sphere_device(
                 s["center"], s["radius"], np.asarray(s["transparency"], np.float32),
                 s["texture_id"], sbvh, sphere_packet)
-        return self._finish(mesh_devices, sphere_device, path_map, device)
+        return self._finish(mesh_devices, sphere_device, path_map, device,
+                            packet_version)
 
 
 # --------------------------------------------------------------- tracing --
@@ -627,15 +663,20 @@ def _assemble_hits_at(rd, point, t_best, prim_best, hit_mask, normal, uv,
                 material=mat)
 
 
-def trace_legacy(world: LegacyWorldData, rays: Rays, eps: float = EPSILON):
+def trace_legacy(world: LegacyWorldData, rays: Rays, eps: float = EPSILON,
+                 sort_rays: bool = True):
     """Traversal-only nearest hit across the sphere set and every mesh.
 
     Returns ``(t_best f32[N] (+inf on miss), prim_best i32[N] (-1 on miss),
     src_best i32[N] (-1 none / 0 spheres / 1+k mesh k))``. No attribute
     gathers or atlas taps happen here; ``shade_from_trace`` adds them.
     Each structure after the first is seeded with the best ``t`` so far.
-    Rays are traversed in caller lane order.
+    Meshes are traversed coherence-sorted under packet versions 1 and 3
+    unless ``sort_rays`` is False (scanline-coherent primaries), and in
+    lane order under version 2; spheres always in lane order. The result
+    does not depend on the order.
     """
+    sort = sort_rays and world.packet_version != 2
     n = rays.count
     dev = rays.ro.device
     ro, rd = rays.ro.contiguous(), rays.rd.contiguous()
@@ -660,7 +701,9 @@ def trace_legacy(world: LegacyWorldData, rays: Rays, eps: float = EPSILON):
 
     for k, mesh in enumerate(world.meshes):
         t, p = packet_traverse(*mesh.packet, ro, rd, t_init=t_best,
-                               active=rays.alive, eps=eps, stack=mesh.stack)
+                               active=rays.alive, eps=eps, stack=mesh.stack,
+                               version=world.packet_version, sort_rays=sort,
+                               treelets=mesh.treelets)
         better = (t < t_best) & (p >= 0)
         t_best = torch.where(better, t, t_best)
         prim_best = torch.where(better, p, prim_best)
@@ -684,29 +727,43 @@ def shade_from_trace(world: LegacyWorldData, rays: Rays, t_best, prim_best,
     return _assemble_hits(world, rays, t_best, prim_best, hit_mask, *attrs)
 
 
-def hit_legacy(world: LegacyWorldData, rays: Rays, eps: float = EPSILON) -> Hits:
+def hit_legacy(world: LegacyWorldData, rays: Rays, eps: float = EPSILON,
+               sort_rays: bool = True) -> Hits:
     """Nearest hit across the sphere set and every mesh, with materials from
-    the texture atlas (15_module.py:838-848 + 864-953 semantics). The same
-    ``Hits`` as the JAX package's fused single-mesh path; rays are traversed
-    in lane order (no coherence sort)."""
-    t_best, prim_best, src_best = trace_legacy(world, rays, eps=eps)
+    the texture atlas (15_module.py:838-848 + 864-953 semantics): the same
+    ``Hits`` as the JAX package's fused single-mesh path. ``sort_rays`` as
+    in ``trace_legacy``."""
+    t_best, prim_best, src_best = trace_legacy(world, rays, eps=eps, sort_rays=sort_rays)
     return shade_from_trace(world, rays, t_best, prim_best, src_best)
 
 
 def trace_shade_compact(world: LegacyWorldData, ro, rd, alive, payload,
                         eps: float = EPSILON):
-    """Bounce step for pool integrators whose lane order is free: traverse
-    in lane order, compact the hits to a prefix, shade exactly the hit rows,
-    and never restore lane order.
+    """Bounce step for pool integrators whose lane order is free: traverse,
+    compact the hits to a prefix, shade exactly the hit rows, and never
+    restore lane order.
 
-    ``payload``: the caller's per-lane ``[N, ...]`` state, carried through
-    the stable hit-compaction sort. Returns ``(hits, rd_c, payload_c,
-    nhits)`` in compacted order: rows ``[0, nhits)`` are the hits, the rest
-    misses and inactive lanes; ``nhits`` is an int (one host read).
+    Single-mesh worlds under packet versions 1 and 3 from 4,096 rays
+    traverse through ``packet_traverse_sorted``, which carries ``payload``
+    through its coherence sort, as the JAX package does; other worlds
+    traverse through ``trace_legacy``. ``payload``: the caller's per-lane
+    ``[N, ...]`` state, carried through the stable hit-compaction sort.
+    Returns ``(hits, rd_c, payload_c, nhits)`` in compacted order: rows
+    ``[0, nhits)`` are the hits, the rest misses and inactive lanes;
+    ``nhits`` is an int (one host read).
     """
-    rays = Rays(ro=ro, rd=rd, throughput=torch.ones_like(ro), alive=alive)
-    t_s, prim_s, src_s = trace_legacy(world, rays, eps=eps)
-    prim_s = torch.where(alive, prim_s, -1)
+    n = ro.shape[0]
+    if (world.packet_version != 2 and world.spheres is None
+            and len(world.meshes) == 1 and n >= 4096):
+        mesh = world.meshes[0]
+        t_s, prim_s, ro, rd, _, _, payload = packet_traverse_sorted(
+            *mesh.packet, ro, rd, alive, mesh.treelets, eps=eps, stack=mesh.stack,
+            payload=payload, version=world.packet_version)
+        src_s = torch.where(prim_s >= 0, 1, -1).to(torch.int32)
+    else:
+        rays = Rays(ro=ro, rd=rd, throughput=torch.ones_like(ro), alive=alive)
+        t_s, prim_s, src_s = trace_legacy(world, rays, eps=eps)
+        prim_s = torch.where(alive, prim_s, -1)
     hit_s = prim_s >= 0
     point_s = ro + torch.where(hit_s, t_s, 0.0)[:, None] * rd
     order = torch.argsort((~hit_s).to(torch.int32), stable=True)

@@ -3,7 +3,8 @@
 Counterpart of ``learn_path_tracing_tpu.stages.common``: each stage module
 mirrors one reference stage (same scene, camera, resolution and spp defaults,
 same output filename under ``outputs/``). Run as
-``python -m learn_path_tracing_tpu_torch.stages.s10_final [--spp N] [--device cuda]``.
+``python -m learn_path_tracing_tpu_torch.stages.s10_final [--spp N] [--device cuda|cpu]``
+(the card unless ``--device cpu`` is given).
 """
 
 from __future__ import annotations
@@ -27,8 +28,19 @@ from ..utils.config import RenderConfig
 CHUNK_WORK_ITEMS = 250_000_000
 
 
+def require_device(device) -> None:
+    """Raise unless ``device`` can run here: asking for CUDA (the default)
+    on a machine without a CUDA device fails instead of rendering on the
+    CPU."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r}: no CUDA device is available "
+            "(torch.cuda.is_available() is False); pass --device cpu to render on the CPU")
+
+
 def parse_args(cfg: RenderConfig, description="", argv=None) -> RenderConfig:
-    """CLI over a stage's RenderConfig preset; returns the merged config."""
+    """CLI over a stage's RenderConfig preset; returns the merged config.
+    Raises (``require_device``) if the device cannot run here."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--width", type=int, default=cfg.width)
     p.add_argument("--height", type=int, default=cfg.height)
@@ -37,12 +49,13 @@ def parse_args(cfg: RenderConfig, description="", argv=None) -> RenderConfig:
     p.add_argument("--limit", type=int, default=cfg.propagate_limit,
                    help="bounce limit")
     p.add_argument("--seed", type=int, default=cfg.seed)
-    p.add_argument("--device", type=str,
-                   default="cuda" if torch.cuda.is_available() else "cpu",
-                   help="torch device to render on (default: cuda if present)")
+    p.add_argument("--device", type=str, default=cfg.device,
+                   help="torch device to render on (default: cuda; the CPU "
+                        "only when asked for with --device cpu)")
     p.add_argument("--hit-backend", type=str, default=cfg.hit_backend,
                    choices=["auto", "cuda", "xla"])
     a = p.parse_args(argv)
+    require_device(a.device)
     return cfg.with_(width=a.width, height=a.height, spp=a.spp, out=a.out,
                      propagate_limit=a.limit, seed=a.seed, device=a.device,
                      hit_backend=a.hit_backend)
@@ -92,6 +105,7 @@ def run_path_traced(world, camera, cfg: RenderConfig, out_name, post=True):
     """
     res = (cfg.width, cfg.height)
     dev = cfg.device
+    require_device(dev)
     wd = world.device(dev)
     cp = camera.params(dev)
 

@@ -2,7 +2,17 @@
 
 Counterpart of ``learn_path_tracing_tpu.utils.config`` for the modern stages
 1-10 and the legacy stages 14-15: resolution / spp / propagate_limit / seed
-plus the integrator options and the torch device. The port reads no environment variables.
+plus the integrator options and the torch device. The port reads no
+environment variables, so what the JAX package takes from them is data
+here: ``packet_version`` is its ``LPT_PACKET_VERSION``
+(``learn_path_tracing_tpu/ops/packet_traverse.py:48-50``), the mesh
+traversal kernel (2: K2, one ray per thread; 1: K5a, the v1 packet walk
+per warp; 3: K5b, the tile-ranged walk per block). Its ``LPT_PACKET_BLOCK``
+(the TPU's rays per packet) has no counterpart: the packet sizes are fixed
+by the warp (32 rays, K5a) and the block (256 rays, K5b).
+
+``device`` defaults to ``"cuda"``: a render that does not ask for the CPU
+runs on the card or fails (``stages.common.require_device``).
 """
 
 from __future__ import annotations
@@ -22,7 +32,8 @@ class RenderConfig:
     camera_model: str = "thinlens"
     hit_backend: str = "auto"     # auto | cuda | xla
     out: str | None = None        # output path override (stages/CLI)
-    device: str = "cpu"           # torch device the render runs on
+    device: str = "cuda"          # torch device the render runs on
+    packet_version: int = 2       # mesh traversal kernel (LPT_PACKET_VERSION)
 
     @property
     def resolution(self):
@@ -41,6 +52,9 @@ class RenderConfig:
 
 # Stage presets (file:line cites in stages/*.py of the JAX package). Keys:
 # modern stages 1-10, legacy stages "l14"/"l15" (l11-l13 are not ported).
+# The legacy presets keep packet_version 2, the JAX package's default
+# LPT_PACKET_VERSION; l14's --packet-version picks 1 or 3 (its
+# LPT_PACKET_BLOCK has no counterpart here: packets are a warp or a block).
 STAGE_CONFIGS = {
     1: RenderConfig(width=256, height=256, spp=1),
     2: RenderConfig(spp=1),

@@ -7,9 +7,12 @@ otherwise; the display frame is ``(acc / spp) ** (1/2.2)`` (plain gamma,
 no ACES). ``state()``/``restore()`` expose the complete resume state (the
 accumulator and the counters: the RNG is counter-based).
 
-Every frame renders with the hybrid integrator (``integrator.hybrid``), on
-every device. ``engine='wavefront'`` needs ``render_accumulate``, which is
-not ported yet, and raises.
+Two engines, with the same RNG counters (absolute pixel, sample and
+bounce), so switching engines never changes the converged image: the hybrid
+integrator (``integrator.hybrid``; 'auto' takes it on every device) and the
+masked wavefront (``integrator.wavefront.render_accumulate``, one
+``hit_legacy`` per bounce pass for legacy scenes, so it reaches the world's
+packet-traversal kernel too).
 """
 
 from __future__ import annotations
@@ -32,12 +35,9 @@ class ProgressiveRenderer:
         preview and restarts clean accumulation at full quality.
 
         ``engine``: 'auto' and 'hybrid' render with
-        ``integrator.hybrid.render_hybrid``; 'wavefront' raises until
-        ``render_accumulate`` is ported."""
-        if engine == "wavefront":
-            raise NotImplementedError(
-                "engine 'wavefront' needs render_accumulate, not ported yet")
-        if engine not in ("auto", "hybrid"):
+        ``integrator.hybrid.render_hybrid``, 'wavefront' with
+        ``integrator.wavefront.render_accumulate``."""
+        if engine not in ("auto", "hybrid", "wavefront"):
             raise ValueError(f"unknown engine: {engine!r}")
         self.world_data = world_data
         self.camera = camera
@@ -50,20 +50,31 @@ class ProgressiveRenderer:
         self.camera_model = camera_model
         self.preview_spp = int(preview_spp)
         self.preview_limit = int(preview_limit)
-        self.engine = "hybrid"
+        self.engine = "wavefront" if engine == "wavefront" else "hybrid"
         self.device = world_data.device
         w, h = self.resolution
         self.acc = torch.zeros((w * h, 3), dtype=torch.float32, device=self.device)
         self.spp = 0
         self._preview_only = False
-        self.last_stats = None   # render_hybrid's stats of the last batch
+        # the last batch's segments and spp (and render_hybrid's stats)
+        self.last_stats = None
 
     def _accumulate(self, acc, sample_start, spp, limit):
         """``acc`` plus ``spp`` more samples' radiance sums."""
+        cam = self.camera.params(self.device)
+        if self.engine == "wavefront":
+            from ..integrator.wavefront import render_accumulate
+
+            acc, segments = render_accumulate(
+                self.world_data, cam, acc, sample_start, self.resolution, spp,
+                limit=limit, seed=self.seed, bsdf=self.bsdf,
+                camera_model=self.camera_model, scene=self.scene)
+            self.last_stats = {"segments": segments, "spp": spp}
+            return acc
         from ..integrator.hybrid import render_hybrid
 
         img, segments, st = render_hybrid(
-            self.world_data, self.camera.params(self.device), self.resolution,
+            self.world_data, cam, self.resolution,
             spp=spp, limit=limit, seed=self.seed, bsdf=self.bsdf,
             camera_model=self.camera_model, scene=self.scene,
             sample_base=sample_start, stats=True)

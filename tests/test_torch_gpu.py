@@ -112,11 +112,15 @@ def _packet_tables(leaf_kind, seed, count, max_leaf):
     return tpt.pack_sphere_packet_tables(wide, c, rad, tr)
 
 
-# ray counts off the 128-thread block; fat leaves (runs of 12: two rows)
-@pytest.mark.parametrize("leaf_kind,count,max_leaf,n", [
-    ("tri", 1, 4, 1), ("tri", 3000, 8, 5000), ("tri", 2000, 12, 3001),
-    ("sphere", 5000, 8, 5000), ("sphere", 700, 12, 777)])
-def test_packet_kernel_matches_twin_bitwise(cuda, leaf_kind, count, max_leaf, n):
+# ray counts off the 128-thread block (and K5a's 32-ray, K5b's 256-ray
+# packets); fat leaves (runs of 12: two rows). Versions 1 and 3 (K5a, K5b)
+# report their packet's pops, so their iters are not compared.
+@pytest.mark.parametrize("leaf_kind,count,max_leaf,n,version", [
+    ("tri", 1, 4, 1, 2), ("tri", 3000, 8, 5000, 2), ("tri", 2000, 12, 3001, 2),
+    ("sphere", 5000, 8, 5000, 2), ("sphere", 700, 12, 777, 2),
+    ("tri", 1, 4, 1, 1), ("tri", 3000, 8, 5000, 1), ("tri", 2000, 12, 3001, 1),
+    ("tri", 1, 4, 1, 3), ("tri", 3000, 8, 5000, 3), ("tri", 2000, 12, 3001, 3)])
+def test_packet_kernel_matches_twin_bitwise(cuda, leaf_kind, count, max_leaf, n, version):
     tables = [torch.as_tensor(x, device=cuda)
               for x in _packet_tables(leaf_kind, count + n, count, max_leaf)]
     r = np.random.default_rng(n)
@@ -126,24 +130,53 @@ def test_packet_kernel_matches_twin_bitwise(cuda, leaf_kind, count, max_leaf, n)
     t_init = np.where(r.uniform(size=n) < 0.3, r.uniform(1, 10, n), np.inf).astype(np.float32)
     active = r.uniform(size=n) < 0.8
     args = [torch.as_tensor(x, device=cuda) for x in (ro, rd, t_init, active)]
+    kernel = tpt.KERNELS[(leaf_kind, version)]
     before = dict(tpt.traverse.launches)
-    t, p, it = tpt.traverse(*tables, *args, leaf_kind=leaf_kind)
-    assert tpt.traverse.launches[leaf_kind] == before[leaf_kind] + 1
-    t2, p2, it2 = tpt.packet_traverse_plain(*tables, *args, leaf_kind=leaf_kind)
+    t, p, it = tpt.traverse(*tables, *args, leaf_kind=leaf_kind, version=version)
+    assert tpt.traverse.launches[kernel] == before[kernel] + 1
+    t2, p2, it2 = tpt.packet_traverse_plain(*tables, *args, leaf_kind=leaf_kind,
+                                            slab=tpt.SLABS[version])
     torch.cuda.synchronize()
     assert torch.equal(t.view(torch.int32), t2.view(torch.int32))
-    assert torch.equal(p, p2) and torch.equal(it, it2)
+    assert torch.equal(p, p2)
+    assert version != 2 or torch.equal(it, it2)
     assert n == 1 or bool((p >= 0).any())
 
 
-def test_packet_kernel_raises_on_stack_overflow(cuda):
+def test_packet_kernels_on_axis_parallel_rays(cuda):
+    """Rays along +z into a mesh in the positive x, y quadrant: K5a (v1's
+    slab form) hits them, K2 and K5b (the hoisted form) miss them, each
+    equal to its twin."""
+    r = np.random.default_rng(60)
+    v0 = (r.uniform(1, 5, (60, 3)) * [1, 1, 2]).astype(np.float32)
+    v1 = v0 + r.uniform(0.3, 1.0, (60, 3)).astype(np.float32) * [1, 0, 0.2]
+    v2 = v0 + r.uniform(0.3, 1.0, (60, 3)).astype(np.float32) * [0, 1, 0.2]
+    lo, hi = np.minimum(np.minimum(v0, v1), v2), np.maximum(np.maximum(v0, v1), v2)
+    wide = collapse(build_bvh(lo, hi, centroid=(v0 + v1 + v2) / 3, max_leaf=4), max_run=4)
+    tables = [torch.as_tensor(x, device=cuda) for x in tpt.pack_packet_tables(wide, v0, v1, v2)]
+    cent = (v0 + v1 + v2) / 3
+    ro = np.concatenate([cent[:, :2], np.full((60, 1), -5.0)], 1).astype(np.float32)
+    rd = np.tile(np.array([[0, 0, 1]], np.float32), (60, 1))
+    args = [torch.as_tensor(x, device=cuda) for x in
+            (ro, rd, np.full(60, np.inf, np.float32), np.ones(60, bool))]
+    hits = {}
+    for version in (1, 2, 3):
+        t, p, _ = tpt.traverse(*tables, *args, version=version)
+        t2, p2, _ = tpt.packet_traverse_plain(*tables, *args, slab=tpt.SLABS[version])
+        assert torch.equal(t.view(torch.int32), t2.view(torch.int32)) and torch.equal(p, p2)
+        hits[version] = int((p >= 0).sum())
+    assert hits[1] == 60 and hits[2] == hits[3] == 0
+
+
+@pytest.mark.parametrize("version", [1, 2, 3])
+def test_packet_kernel_raises_on_stack_overflow(cuda, version):
     tables = [torch.as_tensor(x, device=cuda) for x in _packet_tables("tri", 5, 3000, 4)]
     ro = torch.zeros((64, 3), device=cuda)
     rd = torch.nn.functional.normalize(torch.ones((64, 3), device=cuda), dim=-1)
     t_init = torch.full((64,), float("inf"), device=cuda)
     active = torch.ones((64,), dtype=torch.bool, device=cuda)
     with pytest.raises(RuntimeError, match="stack overflow"):
-        tpt.traverse(*tables, ro, rd, t_init, active, stack=2)
+        tpt.traverse(*tables, ro, rd, t_init, active, stack=2, version=version)
 
 
 def test_gpu_hybrid_is_deterministic_and_matches_cpu(cuda):

@@ -15,7 +15,10 @@ Tolerances, with their reasons:
   quadratic), and a flipped sample moves its pixel by up to 1/spp.
 - Port against port (wavefront vs persistent, run against rerun): segments
   exactly equal; images to 1e-6 (wavefront sums samples in f32, the
-  persistent integrator in fixed point) or bitwise.
+  persistent integrator in fixed point) or bitwise. ``render_accumulate``
+  in two calls and ``render_chunked`` against ``render``: bit for bit (the
+  same samples added in the same order); against the JAX package's
+  ``render_accumulate``/``render_chunked``: ``render_agreement``.
 
 Determinism: the persistent integrator accumulates in int64 fixed point, so
 its image does not depend on the order of the scatter-adds, and two runs
@@ -32,7 +35,8 @@ from learn_path_tracing_tpu.models import stage10_camera as j_stage10_camera
 from learn_path_tracing_tpu_torch.camera import Camera
 from learn_path_tracing_tpu_torch.integrator import persistent
 from learn_path_tracing_tpu_torch.integrator.persistent import render_persistent, schedule
-from learn_path_tracing_tpu_torch.integrator.wavefront import render
+from learn_path_tracing_tpu_torch.integrator.wavefront import (render, render_accumulate,
+                                                               render_chunked)
 from learn_path_tracing_tpu_torch.models import random_scene, stage8_scene, stage10_camera
 from learn_path_tracing_tpu_torch.utils.checks import render_agreement
 
@@ -134,3 +138,31 @@ def test_unknown_engine_raises():
     wd = random_scene(seed=SEED).device("cpu")
     with pytest.raises(ValueError, match="engine"):
         render_persistent(wd, stage10_camera(RES).params(), RES, spp=4, engine="wavefront")
+
+
+def test_render_accumulate_and_chunked_match_jax():
+    from learn_path_tracing_tpu.integrator.wavefront import render_accumulate as j_accumulate
+    from learn_path_tracing_tpu.integrator.wavefront import render_chunked as j_chunked
+
+    import jax.numpy as jnp
+
+    wd, cam = random_scene(seed=SEED).device("cpu"), stage10_camera(RES).params("cpu")
+    n = RES[0] * RES[1]
+    acc, segs_a = render_accumulate(wd, cam, torch.zeros((n, 3)), 0, RES, 2, limit=8)
+    acc, segs_b = render_accumulate(wd, cam, acc, 2, RES, 2, limit=8)
+    img, segs = render(wd, cam, RES, 4, limit=8)
+    assert segs_a + segs_b == segs
+    assert torch.equal((acc / 4).reshape(RES[0], RES[1], 3), img)
+    c_img, c_segs = render_chunked(wd, cam, RES, 4, limit=8, chunk_spp=3)
+    assert c_segs == segs and torch.equal(c_img, img)
+
+    jwd, jcam = j_random_scene(seed=SEED).device(), j_stage10_camera(RES).params()
+    j_acc, j_segs = j_accumulate(jwd, jcam, jnp.zeros((n, 3), jnp.float32), jnp.uint32(0), RES,
+                                 4, limit=8)
+    rep = render_agreement((acc / 4).reshape(RES[0], RES[1], 3).numpy(),
+                           (np.asarray(j_acc) / 4).reshape(RES[0], RES[1], 3), segs,
+                           float(j_segs))
+    assert rep["ok"], rep
+    jc_img, jc_segs = j_chunked(jwd, jcam, RES, 4, limit=8, chunk_spp=3)
+    rep = render_agreement(c_img.numpy(), np.asarray(jc_img), c_segs, float(jc_segs))
+    assert rep["ok"], rep

@@ -23,8 +23,8 @@ Tolerances, with their reasons:
   absolute (the ``sampling.py`` tolerances: asin/atan2/sin/cos differ by
   ulps between XLA and PyTorch).
 - Port against port (the sorted traversal entry against lane order, the
-  compacted bounce step against the composed hit path, save/load round
-  trip): bit for bit.
+  compacted bounce step against the composed hit path, the packet versions
+  against each other, save/load round trip): bit for bit.
 """
 
 import os
@@ -373,6 +373,45 @@ def test_fused_and_compact_equal_composed(tmp_path, kind):
     assert torch.equal(hits.t[:n], ref.t[tag[:n]])
     assert torch.equal(hits.normal[:n], ref.normal[tag[:n]])
     assert torch.equal(hits.material.albedo[:n], ref.material.albedo[tag[:n]])
+
+
+def test_packet_versions_give_the_same_hits(tmp_path, monkeypatch):
+    """Port against port, bit for bit: on a single-mesh world, packet
+    versions 1 and 3 (coherence-sorted walks; ``trace_shade_compact`` from
+    4,096 rays through ``packet_traverse_sorted`` with the payload) give
+    version 2's lane-order ``hit_legacy`` and, per carried tag,
+    ``trace_shade_compact``."""
+    tw = tlw.LegacyWorld(environment_size=(128, 64))
+    _populate(tw, obj, str(tmp_path), "mesh")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        tw.build()
+    ro, rd, alive = _rays_at(5000, 19, inactive=True)
+    rays = _t_rays(ro, rd, alive)
+    idx = torch.arange(5000)
+    sorted_calls = []
+    sorted_walk = tlw.packet_traverse_sorted
+    monkeypatch.setattr(tlw, "packet_traverse_sorted",
+                        lambda *a, **kw: sorted_calls.append(kw["version"]) or sorted_walk(*a, **kw))
+
+    def run(version):
+        wd = tw.device(packet_version=version)
+        hits, rd_c, (tag,), n = tlw.trace_shade_compact(wd, rays.ro, rays.rd, rays.alive, (idx,))
+        by_lane = {k: torch.zeros_like(getattr(hits, k)) for k in ("t", "point", "normal", "obj")}
+        for k, v in by_lane.items():
+            v[tag[:n]] = getattr(hits, k)[:n]
+        return tlw.hit_legacy(wd, rays), by_lane, n
+
+    ref_hit, ref_compact, ref_n = run(2)
+    assert sorted_calls == [] and ref_n > 500
+    for version in (1, 3):
+        got_hit, got_compact, n = run(version)
+        assert sorted_calls[-1] == version and n == ref_n
+        for k in ("t", "point", "normal", "uv", "obj", "hit"):
+            assert torch.equal(getattr(got_hit, k), getattr(ref_hit, k)), k
+        assert torch.equal(got_hit.material.albedo, ref_hit.material.albedo)
+        for k in ref_compact:
+            assert torch.equal(got_compact[k], ref_compact[k]), k
 
 
 def test_degenerate_triangle(tmp_path):

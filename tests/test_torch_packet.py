@@ -1,6 +1,7 @@
 """Port parity: the plain twin of the packet-traversal kernels K2 (triangle
-leaves) and K3 (sphere leaves) against the JAX package's Pallas kernel in
-interpret mode, and against a brute-force oracle.
+leaves), K3 (sphere leaves), K5a (version 1) and K5b (version 3) against the
+JAX package's Pallas kernels of the same version in interpret mode, and
+against a brute-force oracle.
 
 Tolerances, with their reasons:
 
@@ -18,6 +19,13 @@ Tolerances, with their reasons:
 - ``packet_traverse_sorted``: the sort permutation, ``entered_n`` and the
   carried payload equal JAX's exactly (the coherence keys are equal), and
   the hits within the tolerance above.
+- Versions 1 and 3 (the twin with v1's slab form ``(lo - ro)*inv``, and
+  with the hoisted form, v3 being v2's function) against JAX's v1 and v3
+  kernels: the same tolerance. On exactly axis-parallel rays, where the
+  two slab forms differ, ``prim`` equal and ``t`` to 1e-5 relative: v1
+  hits every ray on both sides, v2 and v3 none.
+- The lane-order entry's coherence sort (``sort_rays=True``) against lane
+  order, per version: bit for bit.
 """
 
 import jax.numpy as jnp
@@ -74,17 +82,19 @@ def _rays(seed, n, scale=5.0, t_init=False, inactive=False, inside=None):
     return ro, rd.astype(np.float32), ti, active
 
 
-def _port(tables, ro, rd, ti, active, leaf_kind="tri"):
+def _port(tables, ro, rd, ti, active, leaf_kind="tri", version=2, sort_rays=False):
     t, p = tpt.packet_traverse(*(torch.tensor(x) for x in tables), torch.as_tensor(ro),
                                torch.as_tensor(rd), torch.as_tensor(ti),
-                               torch.as_tensor(active), leaf_kind=leaf_kind)
+                               torch.as_tensor(active), leaf_kind=leaf_kind, version=version,
+                               sort_rays=sort_rays)
     return t.numpy(), p.numpy()
 
 
-def _jax(tables, ro, rd, ti, active, leaf_kind="tri"):
+def _jax(tables, ro, rd, ti, active, leaf_kind="tri", version=2):
     t, p = jpt.packet_traverse(*(jnp.asarray(x) for x in tables), jnp.asarray(ro),
                                jnp.asarray(rd), jnp.asarray(ti), jnp.asarray(active),
-                               interpret=True, sort_rays=False, leaf_kind=leaf_kind)
+                               interpret=True, sort_rays=False, leaf_kind=leaf_kind,
+                               version=version)
     return np.asarray(t), np.asarray(p)
 
 
@@ -142,6 +152,72 @@ def test_plain_k2_matches_pallas(max_leaf, t_init, inactive):
     np.testing.assert_array_equal(tp[~active], ti[~active])
     assert (pp[~active] == -1).all()
     np.testing.assert_array_equal(tp[pp < 0], ti[pp < 0])
+
+
+@pytest.mark.parametrize("version", [1, 3])
+@pytest.mark.parametrize("max_leaf,t_init,inactive", [(4, False, False), (8, True, True),
+                                                      (12, True, False)])
+def test_plain_k5_matches_pallas(max_leaf, t_init, inactive, version):
+    """The twin of K5a (v1's slab form) and of K5b (the hoisted form)
+    against JAX's v1 and v3 kernels, on the cases of the K2 comparison."""
+    v, tables = _tri_tables(max_leaf, 250, max_leaf)
+    ro, rd, ti, active = _rays(10 + max_leaf, 1024, t_init=t_init, inactive=inactive)
+    tp, pp = _port(tables, ro, rd, ti, active, version=version)
+    tj, pj = _jax(tables, ro, rd, ti, active, version=version)
+    assert _agree(tp, pp, tj, pj, _tri_explain(v, ro, rd, tp, pp, tj, pj)) > 100
+    np.testing.assert_array_equal(tp[~active], ti[~active])
+    assert (pp[~active] == -1).all()
+
+
+def test_axis_parallel_rays_hit_only_in_version_1():
+    """Rays along +z, aimed at the centroids of 60 triangles that lie in
+    the positive x, y quadrant: v1's ``(lo - ro)*inv`` hits them all, while
+    the hoisted ``lo*inv - ro*inv`` of v2 and v3 gives ``inf - inf = NaN``
+    at the root and misses them all, in JAX's kernels and in the twin."""
+    r = np.random.default_rng(60)
+    v0 = (r.uniform(1, 5, (60, 3)) * [1, 1, 2]).astype(np.float32)
+    v1 = (v0 + r.uniform(0.3, 1.0, (60, 3)) * [1, 0, 0.2]).astype(np.float32)
+    v2 = (v0 + r.uniform(0.3, 1.0, (60, 3)) * [0, 1, 0.2]).astype(np.float32)
+    lo, hi = np.minimum(np.minimum(v0, v1), v2), np.maximum(np.maximum(v0, v1), v2)
+    flat = j_build_bvh(lo, hi, centroid=(v0 + v1 + v2) / 3, max_leaf=4, backend="numpy")
+    tables = [np.asarray(x) for x in
+              jpt.pack_packet_tables(j_collapse(flat, max_run=4), v0, v1, v2)]
+    cent = (v0 + v1 + v2) / 3
+    ro = np.concatenate([cent[:, :2], np.full((60, 1), -5.0)], 1).astype(np.float32)
+    rd = np.tile(np.array([[0, 0, 1]], np.float32), (60, 1))
+    ti, active = np.full(60, np.inf, np.float32), np.ones(60, bool)
+    for version in (1, 2, 3):
+        tp, pp = _port(tables, ro, rd, ti, active, version=version)
+        tj, pj = _jax(tables, ro, rd, ti, active, version=version)
+        np.testing.assert_array_equal(pp, pj)
+        np.testing.assert_allclose(tp, tj, rtol=1e-5)
+        assert (pp >= 0).sum() == (60 if version == 1 else 0), version
+
+
+@pytest.mark.parametrize("version", [1, 2, 3])
+def test_sorted_lane_order_entry_is_lane_exact(version):
+    """``packet_traverse(sort_rays=True)`` (the coherence sort before the
+    kernel and the inverse after) returns lane order bit for bit."""
+    _, tables = _tri_tables(2, 250, 8)
+    ro, rd, ti, active = _rays(41, 1500, t_init=True, inactive=True)
+    t0, p0 = _port(tables, ro, rd, ti, active, version=version)
+    t1, p1 = _port(tables, ro, rd, ti, active, version=version, sort_rays=True)
+    assert (p0 >= 0).sum() > 100
+    np.testing.assert_array_equal(p1, p0)
+    np.testing.assert_array_equal(t1.view(np.int32), t0.view(np.int32))
+
+
+def test_versions_and_leaf_kinds():
+    """Sphere leaves take version 2 only, versions are 1, 2 or 3, and each
+    (leaf kind, version) has its own launch count."""
+    tables = [torch.as_tensor(x) for x in _sphere_tables(6, 50)]
+    rays = [torch.as_tensor(x) for x in _rays(3, 16)]
+    for version in (1, 3):
+        with pytest.raises(ValueError, match="version 2"):
+            tpt.packet_traverse(*tables, *rays, leaf_kind="sphere", version=version)
+    with pytest.raises(ValueError, match="packet version"):
+        tpt.packet_traverse(*tables, *rays, leaf_kind="sphere", version=4)
+    assert set(tpt.traverse.launches) == set(tpt.KERNELS.values()) == {"k2", "k3", "k5a", "k5b"}
 
 
 def test_plain_k3_matches_pallas():

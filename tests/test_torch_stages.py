@@ -6,6 +6,8 @@
   to a few ulps; a value on a rounding boundary of the 8-bit raster may
   land one step apart).
 - Importing every module of the port loads neither JAX nor the JAX package.
+- Every entry point renders on the card unless asked for the CPU: without a
+  CUDA device, a run that does not say ``--device cpu`` fails.
 """
 
 import subprocess
@@ -21,7 +23,8 @@ import learn_path_tracing_tpu_torch.stages as tstages
 from learn_path_tracing_tpu_torch.camera import Camera
 from learn_path_tracing_tpu_torch.core.image import read_png
 from learn_path_tracing_tpu_torch.models import stage4_scene
-from learn_path_tracing_tpu_torch.stages import common, s10_final
+from learn_path_tracing_tpu_torch.stages import common, l14_mesh, s10_final
+from learn_path_tracing_tpu_torch.utils.config import STAGE_CONFIGS, RenderConfig
 
 torch.set_num_threads(2)
 
@@ -88,3 +91,23 @@ print("ok", len([k for k in sys.modules if k.startswith(pkg.__name__)]))
                          timeout=300, cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_device_defaults_to_the_card(monkeypatch):
+    """``RenderConfig`` and the stage CLIs default to ``cuda`` whether or not
+    a card is present; without one, a run that does not ask for the CPU
+    fails naming the missing CUDA device instead of rendering on the CPU."""
+    assert RenderConfig().device == "cuda" and STAGE_CONFIGS["l14"].device == "cuda"
+    checked = []
+    monkeypatch.setattr(common, "require_device", checked.append)
+    assert common.parse_args(STAGE_CONFIGS[10], argv=[]).device == "cuda"
+    assert checked == ["cuda"]
+    monkeypatch.undo()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for run in (lambda: common.parse_args(STAGE_CONFIGS[10], argv=[]),
+                lambda: l14_mesh.main(["--world", "absent.world.npy"]),
+                lambda: common.run_path_traced(stage4_scene(), Camera((8, 8)),
+                                               RenderConfig(width=8, height=8, spp=1), "x.png")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run()
+    assert common.parse_args(STAGE_CONFIGS[10], argv=["--device", "cpu"]).device == "cpu"

@@ -4,7 +4,9 @@
 Tolerances: accumulation and resume are exact (the viewer sums f32 images
 times their spp, so two frames equal one frame of twice the spp to f32
 rounding, 1e-6; a restored state continues bit for bit); the stage's frame
-equals the viewer's own render bit for bit.
+equals the viewer's own render bit for bit; the wavefront engine's image
+is the hybrid engine's to 1e-6 (f32 sums against fixed point) with the
+same segments.
 """
 
 import numpy as np
@@ -77,10 +79,23 @@ def test_preview_then_full_quality(standin):
     assert pr.spp == 2 and pr.last_stats["spp"] == 2
 
 
-def test_wavefront_engine_is_not_ported(standin):
+def test_wavefront_engine_matches_hybrid(standin):
+    """``engine='wavefront'`` (``render_accumulate``, one ``hit_legacy`` a
+    bounce pass) against the hybrid engine, frame after frame: the same
+    RNG counters, so the same segments, and the accumulated image within
+    1e-6 (f32 sums against fixed point)."""
     _, wd, _ = standin
-    with pytest.raises(NotImplementedError, match="render_accumulate"):
-        _renderer(wd, engine="wavefront")
+    prs = {engine: _renderer(wd, engine=engine) for engine in ("hybrid", "wavefront")}
+    for moved in (True, False):
+        for pr in prs.values():
+            pr.render(moved=moved)
+        wf, hy = prs["wavefront"], prs["hybrid"]
+        assert wf.engine == "wavefront" and wf.spp == hy.spp
+        assert wf.last_stats["segments"] == hy.last_stats["segments"] > 0
+        np.testing.assert_allclose(wf.acc.numpy() / wf.spp, hy.acc.numpy() / hy.spp,
+                                   rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="engine"):
+        _renderer(wd, engine="mega")
 
 
 def test_l14_renders_a_saved_world(standin, tmp_path):
