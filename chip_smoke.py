@@ -17,7 +17,12 @@ Drives the port's paths and checks them:
   version: K2 (version 2, triangle leaves), K5a (version 1, the v1 packet
   walk) or K5b (version 3, the tile-ranged walk); a world of 8,192 spheres
   takes K2's template with sphere leaves (K3); the viewer's wavefront
-  engine reaches the same kernels through ``hit_legacy``.
+  engine reaches the same kernels through ``hit_legacy``. Every shading
+  call of the path fetches its triangle-attribute row through K6a and its
+  strip-atlas pair rows (material and environment) through K6b
+  (``ops.row_gather``);
+- stage l13: ``stages.l13_texture`` (one textured sphere under the
+  environment, the wavefront integrator), whose taps run K6b.
 
 Phases:
 
@@ -37,7 +42,12 @@ Phases:
    surface and exactly axis-parallel rays (which K5a hits and K2 misses),
    bitwise in ``(t, prim)``, then timed in turns in lane order and in
    coherence-sorted order with their mean pops per ray; K3 on the first
-   four kinds of ray sets over the 8,192 spheres, bitwise;
+   four kinds of ray sets over the 8,192 spheres, bitwise; K6a and K6b at
+   ``scripts/profile_gather2.py``'s shapes (231,424 random and sorted
+   indices into f32 [23,425 x 32] and bf16 [1,122,305 x 256]), on the
+   stand-in's four gathered tables with one headline shading call's
+   indices, and with wrapping and out-of-range indices (fill rows),
+   bitwise, timed beside ``torch.index_select``;
 4. renders small images on the card and on the CPU (cover scene,
    persistent modular and mega, two mega card renders bitwise equal;
    stand-in mesh + a sphere, hybrid) and holds each pair to the agreement
@@ -47,12 +57,18 @@ Phases:
    depth-32 stand-in render through ``stages.l14_mesh`` under packet
    versions 2, 1 and 3, each after a warm-up, checking that the version's
    kernel launches equal the traversal calls the integrator counts (slabs
-   plus pool passes) and no other kernel runs, that the image is finite
+   plus pool passes) and no other kernel runs, that K6a and K6b launch as
+   often as the frame's attribute blocks and environment taps imply
+   (``expected_gathers``), that the image is finite
    with a sane mean (``outputs/chip_smoke_l14_standin*.png``), and that
    versions 1 and 3 give version 2's segments and linear image bit for
    bit; the viewer cell (640x360, 8 spp, depth 10) through
    ``ProgressiveRenderer(engine='wavefront')`` under each version, held to
-   the hybrid engine's frame by ``render_agreement``; the 1280x720, 64
+   the hybrid engine's frame by ``render_agreement``; stage l13 on the
+   stand-in's texture set and EXR at the viewer cell's shape
+   (``outputs/chip_smoke_l13.png``), its K6b launches checked the same
+   way, and at 64x36 on the card and the CPU, held to
+   ``render_agreement``; the 1280x720, 64
    spp, depth-32 cover scene (``outputs/chip_smoke_10_final.png``),
    checking one K1 launch per ``hit`` call; and the same frame through the
    mega engine after a warm-up (``outputs/chip_smoke_10_final_mega.png``),
@@ -67,9 +83,9 @@ environment, all made from a seed.
 
 ``python3 chip_smoke.py --profile-mesh [--packet-version 1|2|3]`` runs only
 the kernel build and ``mesh_profile``: where the stand-in frame's time goes
-under that packet version (frame times, the profiler's device busy time and
-the traversal kernel's share, peak memory, synchronised per-layer host
-times), printed as one JSON line.
+under that packet version (frame times, the profiler's device busy time,
+the traversal kernel's and the row gathers' device time and share, peak
+memory, synchronised per-layer host times), printed as one JSON line.
 
 Any failed phase raises, so the script exits non-zero. The last lines are
 the ``nvidia-smi`` name and power limit, a JSON line of the kernels, and
@@ -79,7 +95,9 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -629,8 +647,6 @@ def _standin_assets(directory, seed, tex_size, env_size):
     of ``tex_size``² and an equirect HDR ``<dir>/standin_env.exr`` of
     ``env_size`` (w, h): a sky gradient over a dark ground with a sun of
     radiance ~40. Returns ``(texture base path, exr path)``."""
-    import os
-
     import numpy as np
     from PIL import Image
 
@@ -805,8 +821,48 @@ PACKET_ENTRIES = {   # kernels-line name and TPU kernel of each packet kernel
 
 def zero_launches():
     from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
+    from learn_path_tracing_tpu_torch.ops import row_gather as rg
 
     pt.traverse.launches.update(dict.fromkeys(pt.traverse.launches, 0))
+    rg.gather.launches.update(dict.fromkeys(rg.gather.launches, 0))
+
+
+@contextlib.contextmanager
+def shading_calls():
+    """Counts the calls that launch the row gathers on the mesh path while
+    the block runs: attribute blocks (``_attrs_block``, on at least one
+    lane) and environment taps (``environment_color`` on at least one lane,
+    off the sky-gradient closed form)."""
+    import learn_path_tracing_tpu_torch.scene.legacy_world as lw
+
+    counts = {"attrs": 0, "env": 0}
+    attrs, env = lw._attrs_block, lw.environment_color
+
+    def attrs_counted(world, point, *args):
+        counts["attrs"] += point.shape[0] > 0
+        return attrs(world, point, *args)
+
+    def env_counted(world, rd, mask=None):
+        counts["env"] += world.env_gradient_h is None and rd.shape[0] > 0
+        return env(world, rd, mask=mask)
+
+    lw._attrs_block, lw.environment_color = attrs_counted, env_counted
+    try:
+        yield counts
+    finally:
+        lw._attrs_block, lw.environment_color = attrs, env
+
+
+def expected_gathers(wd, counts) -> dict:
+    """Row-gather launches the shading ``counts`` imply on world ``wd``: an
+    attribute block gathers the triangle-attribute row (K6a, mesh worlds),
+    the atlas info row (K6a, multi-texture atlases only: one texture's row
+    is broadcast) and the material pair row (K6b); an environment tap its
+    info row (K6a, likewise) and its pair row (K6b)."""
+    per_attrs = bool(wd.meshes) + (wd.atlas.info.shape[0] > 1)
+    per_env = int(wd.envs.info.shape[0] > 1)
+    return {"k6a": counts["attrs"] * per_attrs + counts["env"] * per_env,
+            "k6b": counts["attrs"] + counts["env"]}
 
 
 def check_packet(wd, tables, stack, leaf_kind, device, seed):
@@ -906,8 +962,6 @@ def check_packet(wd, tables, stack, leaf_kind, device, seed):
 def check_mesh_gpu_vs_cpu(device, directory):
     """render_hybrid of a small mesh + sphere world on the card and on the
     CPU, held to ``render_agreement``."""
-    import os
-
     from learn_path_tracing_tpu_torch.integrator.hybrid import render_hybrid
     from learn_path_tracing_tpu_torch.utils.checks import render_agreement
 
@@ -956,16 +1010,18 @@ def mesh_headline(world, device, directory):
     """The stand-in at 640x360, 64 spp, depth 32 through stages.l14_mesh
     under packet versions 2, 1 and 3, each after a warm-up, with the counts
     set to 0 just before each frame: the version's kernel is launched once
-    per traversal call (slabs plus pool passes) and no other, and versions
-    1 and 3 give version 2's segments and linear image bit for bit.
-    Returns ``{kernel: launches}``."""
-    import os
-
+    per traversal call (slabs plus pool passes) and no other, the row
+    gathers (K6a, K6b) as often as the frame's attribute blocks and
+    environment taps imply (``expected_gathers``), and versions 1 and 3
+    give version 2's segments and linear image bit for bit. Returns
+    ``{kernel: launches}``, the row gathers' from each frame (equal in
+    all three)."""
     import numpy as np
     import torch
 
     from learn_path_tracing_tpu_torch.integrator.hybrid import render_hybrid
     from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
+    from learn_path_tracing_tpu_torch.ops import row_gather as rg
     from learn_path_tracing_tpu_torch.stages import l14_mesh
 
     from PIL import Image
@@ -991,12 +1047,15 @@ def mesh_headline(world, device, directory):
         _log(f"[mesh headline v{v}] warm-up (spp {MESH_CHUNK}) {time.time() - t0:.2f} s")
 
         zero_launches()
-        frame, rep = l14_mesh.main([
-            "--world", path, "--width", str(MESH_RES[0]), "--height", str(MESH_RES[1]),
-            "--spp", str(MESH_SPP), "--limit", str(MESH_DEPTH), "--device", device,
-            "--packet-version", str(v),
-            "--out", f"outputs/chip_smoke_l14_standin{'' if v == 2 else f'_v{v}'}.png"])
+        with shading_calls() as shading:
+            frame, rep = l14_mesh.main([
+                "--world", path, "--width", str(MESH_RES[0]), "--height", str(MESH_RES[1]),
+                "--spp", str(MESH_SPP), "--limit", str(MESH_DEPTH), "--device", device,
+                "--packet-version", str(v),
+                "--out", f"outputs/chip_smoke_l14_standin{'' if v == 2 else f'_v{v}'}.png"])
         launches = dict(pt.traverse.launches)
+        gathers = dict(rg.gather.launches)
+        expected = expected_gathers(world.device(device), shading)
         calls = rep["n_chunks"] + rep["passes"]
         arr = frame.cpu().numpy()
         mean = float(arr.mean())
@@ -1005,12 +1064,15 @@ def mesh_headline(world, device, directory):
              f"{rep['mrays']:.3f} Mrays/s, primary hit fraction "
              f"{rep['primary_hit_fraction']:.4f}, slabs {rep['n_chunks']} (chunk_spp "
              f"{rep['chunk_spp']}), pool {rep['pool_w']} lanes, cap {rep['cap']}, "
-             f"passes_by_width {rep['passes_by_width']}, launches {launches}, frame mean "
-             f"{mean:.5f}, load warnings {len(rep['load_warnings'])}, sky-gradient "
-             f"fallback {rep['env_gradient']}")
+             f"passes_by_width {rep['passes_by_width']}, launches {launches}, row gathers "
+             f"{gathers} for {shading['attrs']} attribute blocks and {shading['env']} "
+             f"environment taps, frame mean {mean:.5f}, load warnings "
+             f"{len(rep['load_warnings'])}, sky-gradient fallback {rep['env_gradient']}")
         if launches.pop(kernel) != calls or any(launches.values()):
             raise AssertionError(f"{kernel} launches != traversal calls {calls}, or "
                                  f"another kernel ran: {pt.traverse.launches}")
+        if gathers != expected or not all(gathers.values()):
+            raise AssertionError(f"row-gather launches {gathers}, expected {expected}")
         if rep["load_warnings"] or rep["env_gradient"]:
             raise AssertionError(f"the stand-in's textures or EXR fell back: "
                                  f"{rep['load_warnings']}, sky gradient {rep['env_gradient']}")
@@ -1026,6 +1088,9 @@ def mesh_headline(world, device, directory):
             if not same:
                 raise AssertionError(f"the version-{v} frame differs from version 2's")
         out[kernel] = calls
+        for k, n in gathers.items():
+            if out.setdefault(k, n) != n:
+                raise AssertionError(f"{k} launches differ between versions: {n} vs {out[k]}")
     return out
 
 
@@ -1033,37 +1098,244 @@ def viewer_wavefront(world, device):
     """The viewer cell (640x360, 8 spp, depth 10): a ProgressiveRenderer
     frame of the hybrid engine, then one of ``engine='wavefront'`` under
     each packet version (``hit_legacy`` per bounce pass, so K2, K5a or K5b),
-    each held to the hybrid frame by ``render_agreement``."""
+    each held to the hybrid frame by ``render_agreement``, with the row
+    gathers launched as its shading calls imply."""
     import torch
 
     from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
+    from learn_path_tracing_tpu_torch.ops import row_gather as rg
     from learn_path_tracing_tpu_torch.utils.checks import render_agreement
     from learn_path_tracing_tpu_torch.viewer.progressive import ProgressiveRenderer
 
     def frame(engine, v):
-        pr = ProgressiveRenderer(world.device(device, packet_version=v), l14_camera(VIEWER_RES),
-                                 VIEWER_RES, spp_per_frame=VIEWER_SPP, limit=VIEWER_DEPTH,
+        wd = world.device(device, packet_version=v)
+        pr = ProgressiveRenderer(wd, l14_camera(VIEWER_RES), VIEWER_RES,
+                                 spp_per_frame=VIEWER_SPP, limit=VIEWER_DEPTH,
                                  camera_model="jitter", engine=engine)
         zero_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pr.render(moved=True)
+        with shading_calls() as shading:
+            pr.render(moved=True)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         img = (pr.acc / pr.spp).reshape(VIEWER_RES[0], VIEWER_RES[1], 3).cpu().numpy()
-        return img, pr.last_stats["segments"], seconds, dict(pt.traverse.launches)
+        gathers = dict(rg.gather.launches)
+        if gathers != expected_gathers(wd, shading) or not all(gathers.values()):
+            raise AssertionError(f"row-gather launches {gathers} for {shading}")
+        return img, pr.last_stats["segments"], seconds, dict(pt.traverse.launches), gathers
 
     ref = frame("hybrid", 2)
     _log(f"[viewer] hybrid v2 {VIEWER_RES[0]}x{VIEWER_RES[1]} spp {VIEWER_SPP} depth "
-         f"{VIEWER_DEPTH}: {ref[2]:.3f} s, {ref[1]} segments, launches {ref[3]}")
+         f"{VIEWER_DEPTH}: {ref[2]:.3f} s, {ref[1]} segments, launches {ref[3]}, row "
+         f"gathers {ref[4]}")
     for v in (2, 1, 3):
         kernel = pt.KERNELS["tri", v]
-        img, segs, seconds, launches = frame("wavefront", v)
+        img, segs, seconds, launches, gathers = frame("wavefront", v)
         rep = render_agreement(img, ref[0], segs, ref[1])
         _log(f"[viewer] wavefront v{v}: {seconds:.3f} s, {segs} segments, launches "
-             f"{launches}; against the hybrid frame: {rep}")
+             f"{launches}, row gathers {gathers}; against the hybrid frame: {rep}")
         if not rep["ok"] or not launches.pop(kernel) or any(launches.values()):
             raise AssertionError(f"the wavefront frame (v{v}) fails: {rep}, {launches}")
+
+
+# ------------------------------------------- the row gathers (K6a, K6b) --
+
+# scripts/profile_gather2.py's shapes: 226 blocks of 1,024 indices into the
+# Yoimiya frame's triangle-attribute table and its strip-packed material atlas
+GATHER_N = 231424
+GATHER_TRI = (23425, 32)          # f32, 128-byte rows: K6a
+GATHER_ATLAS = (1122305, 256)     # bf16, 512-byte rows (575 MB): K6b
+GATHER_ENTRIES = {   # kernels-line name and TPU kernel of each row gather
+    "k6a": ("row_gather_narrow", "scripts/profile_gather2.py:64"),
+    "k6b": ("row_gather_wide", "scripts/profile_gather2.py:99"),
+}
+
+
+def standin_gather_sets(wd, device):
+    """The stand-in world's four gathered tables, each with the indices of
+    one shading call of the l14 headline (``{name: (table, idx)}``): the
+    first triangle-attribute, material pair-row and environment pair-row
+    gathers of a one-slab ``render_hybrid`` (the survivor batch's
+    attribute block and phase A's escape tap over the whole slab), and the
+    atlas info table with the texture ids of the attribute call's lanes
+    (what a multi-texture world gathers; the stand-in's one texture row is
+    broadcast instead)."""
+    import learn_path_tracing_tpu_torch.io.texture as tx
+    import learn_path_tracing_tpu_torch.scene.legacy_world as lw
+    from learn_path_tracing_tpu_torch.integrator.hybrid import render_hybrid
+
+    first = {}
+    real = lw.gather
+
+    def record(tab, idx):
+        first.setdefault(tab.data_ptr(), (tab, idx.clone()))
+        return real(tab, idx)
+
+    lw.gather = tx.gather = record
+    try:
+        render_hybrid(wd, l14_camera(MESH_RES).params(device), MESH_RES, spp=MESH_CHUNK,
+                      limit=2, seed=0)
+    finally:
+        lw.gather = tx.gather = real
+    sets = {name: first[tab.data_ptr()] for name, tab in (
+        ("tri_attr", wd.tri_attr), ("material pairs", wd.atlas.table),
+        ("environment pairs", wd.envs.table))}
+    tab, idx = sets["tri_attr"]
+    sets["info"] = (wd.atlas.info, tab[idx.long(), 24].long())
+    return sets
+
+
+def fill_set(tab, device, seed):
+    """Indices into ``tab`` of every kind: in range, wrapping (``[-R, 0)``),
+    past either end, and the int32 extremes."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    rows = tab.shape[0]
+    idx = torch.randint(-3 * rows, 3 * rows, (4096,), generator=g)
+    idx[:4] = torch.tensor([-2**31, 2**31 - 1, -rows - 1, rows])
+    return idx.to(device)
+
+
+def gather_bound(tab, idx) -> dict:
+    """``bound()`` of a row gather: each distinct table row that the
+    indices name read once, each output row written once, the indices read
+    once; no arithmetic."""
+    import torch
+
+    rows = tab.shape[0]
+    r = torch.where(idx < 0, idx + rows, idx)
+    distinct = torch.unique(r[(r >= 0) & (r < rows)]).numel()
+    row_bytes = tab.shape[1] * tab.element_size()
+    return bound((distinct + idx.numel()) * row_bytes + nbytes(idx), 0)
+
+
+def check_row_gather(wd, device):
+    """K6a and K6b against their plain version on the card, bit for bit
+    (bf16 and NaN fill rows compared as bits): at ``profile_gather2.py``'s
+    shapes (random and sorted indices), on the stand-in's four tables
+    with one headline shading call's indices, and on every table with
+    wrapping and out-of-range indices in int32 and int64. Then the kernel,
+    ``torch.index_select`` (the library call, in-range sets) and the plain
+    version are timed in turns. Returns ``{kernel: kernels-line entry
+    (without launches)}`` at the main path's shapes (the stand-in's
+    triangle-attribute and material pair-row calls)."""
+    import torch
+
+    from learn_path_tracing_tpu_torch.ops import row_gather as rg
+
+    g = torch.Generator(device=device).manual_seed(5)
+    tri = torch.randn(GATHER_TRI, generator=g, device=device)
+    atlas = torch.randn(GATHER_ATLAS, generator=g, device=device).to(torch.bfloat16)
+    idx_tri = torch.randint(GATHER_TRI[0], (GATHER_N,), generator=g, device=device,
+                            dtype=torch.int32)
+    idx_atl = torch.randint(GATHER_ATLAS[0], (GATHER_N,), generator=g, device=device,
+                            dtype=torch.int32)
+    sets = {"script tri_attr f32[23425,32]": (tri, idx_tri),
+            "script atlas bf16[1122305,256]": (atlas, idx_atl),
+            "script atlas, sorted indices": (atlas, torch.sort(idx_atl).values)}
+    sets.update({f"stand-in {k}": v for k, v in standin_gather_sets(wd, device).items()})
+
+    def same(tab, idx):
+        got, ref = rg.gather(tab, idx), rg.gather_plain(tab, idx)
+        torch.cuda.synchronize()
+        bits = torch.int16 if tab.dtype == torch.bfloat16 else torch.int32
+        return bool(torch.equal(got.view(bits), ref.view(bits)))
+
+    for i, (name, (tab, idx)) in enumerate(list(sets.items())):
+        exact = same(tab, idx)
+        fills = [same(tab, fill_set(tab, device, i).to(t)) for t in (torch.int32, torch.int64)]
+        _log(f"[{rg.kernel_for(tab)}] {name}: {idx.numel()} rows of "
+             f"{tab.shape[1] * tab.element_size()} B from {tab.shape[0]} ({tab.dtype}, "
+             f"{idx.dtype}), bitwise equal: {exact}; fill set (int32, int64): {fills}")
+        if not exact or not all(fills):
+            raise AssertionError(f"the row gather differs from its plain version on '{name}'")
+
+    out = {}
+    main_sets = {"k6a": "stand-in tri_attr", "k6b": "stand-in material pairs"}
+    for name, (tab, idx) in sets.items():
+        kernel = rg.kernel_for(tab)
+        ms = cuda_ms(lambda: rg.gather(tab, idx))
+        lib_ms = cuda_ms(lambda: torch.index_select(tab, 0, idx))
+        plain_ms = cuda_ms(lambda: rg.gather_plain(tab, idx))
+        b = gather_bound(tab, idx)
+        _log(f"[{kernel} time] {name}: kernel {ms:.4f} ms, index_select {lib_ms:.4f} ms, "
+             f"plain {plain_ms:.4f} ms (median of 20 each), "
+             f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+             f"{idx.numel() / ms / 1e6:.1f} M rows/s")
+        if main_sets[kernel] == name:
+            label, replaces = GATHER_ENTRIES[kernel]
+            out[kernel] = {"name": label, "id": kernel, "route": "cuda",
+                           "source": "learn_path_tracing_tpu_torch/csrc/row_gather.cu",
+                           "replaces": replaces, "max_abs_err": 0.0, "ms": ms,
+                           "plain_ms": plain_ms, **b, "library_ms": lib_ms}
+    return out
+
+
+# --------------------------------------------------------- stage l13 --
+
+def l13_assets(directory):
+    """The stand-in's texture set and EXR (in ``directory``) under the
+    names the l13 scene asks for, ``<directory>/textures/sandyground1_*.png``
+    and ``cayley_interior_2k.exr``, as symbolic links."""
+    tex = os.path.join(directory, "textures")
+    os.makedirs(tex, exist_ok=True)
+    links = {f"sandyground1_{n}.png": f"standin_{n}.png"
+             for n in ("albedo", "roughness", "metallic", "normal")}
+    links["cayley_interior_2k.exr"] = "standin_env.exr"
+    for name, target in links.items():
+        os.symlink(os.path.join(directory, target), os.path.join(tex, name))
+
+
+def l13_phase(device, directory):
+    """Stage l13 (one textured sphere under the environment, the wavefront
+    integrator) on the stand-in's assets: at the viewer cell's shape
+    (640x360, 8 spp, depth 10) on the card with the counts set to 0 just
+    before, checking that the row gathers ran as its shading calls imply
+    and that both assets loaded; then at 64x36 on the card and on the CPU,
+    held to ``render_agreement``. Returns the card frame's report."""
+    import numpy as np
+
+    from learn_path_tracing_tpu_torch.ops import row_gather as rg
+    from learn_path_tracing_tpu_torch.ops import sphere_scan as ss
+    from learn_path_tracing_tpu_torch.stages import l13_texture
+    from learn_path_tracing_tpu_torch.utils.checks import render_agreement
+
+    l13_assets(directory)
+    common = ["--assets", directory, "--spp", str(VIEWER_SPP), "--limit", str(VIEWER_DEPTH)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")             # the PBR set and the EXR must load
+        zero_launches()
+        ss.intersect_spheres_scan.launches = 0
+        with shading_calls() as shading:
+            _, rep = l13_texture.main(common + [
+                "--width", str(VIEWER_RES[0]), "--height", str(VIEWER_RES[1]),
+                "--device", device, "--out", "outputs/chip_smoke_l13.png"])
+        gathers, scans = dict(rg.gather.launches), ss.intersect_spheres_scan.launches
+        small = {dev: l13_texture.main(common + [
+            "--width", str(SMALL_RES[0]), "--height", str(SMALL_RES[1]), "--device", dev,
+            "--out", f"outputs/chip_smoke_l13_small_{dev}.png"])[1] for dev in (device, "cpu")}
+    lin = rep["linear"].cpu().numpy()
+    mean = float(lin.mean())
+    expected = expected_gathers(rep["world"], shading)
+    agree = render_agreement(small[device]["linear"].cpu().numpy(), small["cpu"]["linear"].numpy(),
+                             small[device]["segments"], small["cpu"]["segments"])
+    _log(f"[l13] {VIEWER_RES[0]}x{VIEWER_RES[1]} spp {VIEWER_SPP} depth {VIEWER_DEPTH}: "
+         f"{rep['seconds']:.3f} s, {rep['segments']} segments, {rep['mrays']:.3f} Mrays/s, "
+         f"row gathers {gathers} for {shading['attrs']} attribute blocks and "
+         f"{shading['env']} environment taps, sphere-scan launches {scans}, image mean "
+         f"{mean:.5f}, sky-gradient fallback {rep['env_gradient']}; {SMALL_RES[0]}x"
+         f"{SMALL_RES[1]} card vs CPU: segments {small[device]['segments']} vs "
+         f"{small['cpu']['segments']}, {agree}")
+    if rep["env_gradient"] or gathers != expected or not gathers["k6b"]:
+        raise AssertionError(f"l13: sky gradient {rep['env_gradient']}, row gathers "
+                             f"{gathers}, expected {expected}")
+    if not np.isfinite(lin).all() or not 0.02 < mean < 10.0:
+        raise AssertionError(f"l13 image is not sane: mean {mean}")
+    if not agree["ok"]:
+        raise AssertionError(f"the l13 card render disagrees with the CPU render: {agree}")
+    return rep
 
 
 def _timed(table, name, fn):
@@ -1083,20 +1355,21 @@ def _timed(table, name, fn):
     return wrapper
 
 
-# device kernel of each packet version, as the profiler names it
+# device kernel of each packet version and of each row gather, as the
+# profiler names them
 TRAVERSAL_KERNEL_NAMES = {2: "packet_traverse_kernel", 1: "packet_walk_v1_kernel",
                           3: "packet_walk_v3_kernel"}
+GATHER_KERNEL_NAMES = {"k6a": "row_gather_narrow_kernel", "k6b": "row_gather_wide_kernel"}
 
 
 def mesh_profile(device, directory, frames=3, packet_version=2):
     """Where the stand-in frame's time goes (``--profile-mesh``): ``frames``
     unprofiled frames of the l14 headline's renderer on the reloaded world
     under ``packet_version``, one under ``torch.profiler`` (device busy
-    time, device events, the traversal kernel's share, peak memory), and
-    one with each layer wrapped in synchronised timers (inclusive host ms;
-    the synchronisation inflates that frame). Returns the summary dict."""
-    import os
-
+    time, device events, the traversal kernel's and the row gathers'
+    launches and shares, peak memory), and one with each layer wrapped in
+    synchronised timers (inclusive host ms; the synchronisation inflates
+    that frame). Returns the summary dict."""
     import torch
 
     import learn_path_tracing_tpu_torch.integrator.hybrid as hybrid
@@ -1137,6 +1410,9 @@ def mesh_profile(device, directory, frames=3, packet_version=2):
     busy_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
     trav = [e for e in dev_events if TRAVERSAL_KERNEL_NAMES[packet_version] in e.name]
     trav_ms = sum(e.time_range.elapsed_us() for e in trav) / 1e3
+    gathers = {k: [e for e in dev_events if name in e.name]
+               for k, name in GATHER_KERNEL_NAMES.items()}
+    gather_ms = {k: sum(e.time_range.elapsed_us() for e in ev) / 1e3 for k, ev in gathers.items()}
 
     layers = {}
     patches = [(lw, "trace_shade_compact"), (lw, "trace_legacy"), (lw, "packet_traverse"),
@@ -1162,6 +1438,10 @@ def mesh_profile(device, directory, frames=3, packet_version=2):
            1.0 - busy_ms / (med * 1e3) if dev_events else None,
            "traversal_launches": len(trav), "traversal_device_ms": trav_ms,
            "traversal_share_of_busy": trav_ms / busy_ms if busy_ms else None,
+           **{f"{k}_launches": len(ev) for k, ev in gathers.items()},
+           **{f"{k}_device_ms": v for k, v in gather_ms.items()},
+           **{f"{k}_share_of_busy": v / busy_ms if busy_ms else None
+              for k, v in gather_ms.items()},
            "peak_mem_gib": peak / 2**30, "synchronised_frame_s": sync_wall,
            "layers_ms_calls": {k: [round(v[0], 3), v[1]] for k, v in
                                sorted(layers.items(), key=lambda kv: -kv[1][0])},
@@ -1178,11 +1458,12 @@ def build_kernels():
     from concurrent.futures import ThreadPoolExecutor
 
     from learn_path_tracing_tpu_torch.ops import (bounce_megakernel, build, packet_traverse,
-                                                  sphere_scan)
+                                                  row_gather, sphere_scan)
 
     loaders = {"sphere_scan": sphere_scan.load_kernel,
                "packet_traverse": packet_traverse.load_kernel,
-               "bounce_megakernel": bounce_megakernel.load_kernel}
+               "bounce_megakernel": bounce_megakernel.load_kernel,
+               "row_gather": row_gather.load_kernel}
     t0 = time.time()
     with ThreadPoolExecutor(len(loaders)) as pool:
         for fut in [pool.submit(fn) for fn in loaders.values()]:
@@ -1236,6 +1517,7 @@ def main(argv=None) -> int:
              f"{tri.packet[2].shape[0]} run rows, stack {tri.stack}; built in "
              f"{time.time() - t0:.2f} s")
         tri_kernels = check_packet(mesh_wd, tri.packet, tri.stack, "tri", device, seed=7)
+        gather_kernels = check_row_gather(mesh_wd, device)
 
         t0 = time.time()
         sph_wd = _build_quiet(sphere_world(), device=device)
@@ -1247,14 +1529,17 @@ def main(argv=None) -> int:
 
         check_mesh_gpu_vs_cpu(device, directory)
         for kernel, launches in mesh_headline(mesh_world, device, directory).items():
-            tri_kernels[kernel]["launches"] = launches
+            (gather_kernels if kernel in gather_kernels else tri_kernels)[kernel]["launches"] = \
+                launches
         viewer_wavefront(mesh_world, device)
+        l13_phase(device, directory)
     k1["launches"], modular = headline(device)
     k4["launches"] = mega_headline(device, modular)
 
     print(card)
     print(json.dumps({"kernels": [k1, tri_kernels["k2"], k3, k4, tri_kernels["k5a"],
-                                  tri_kernels["k5b"]]}))
+                                  tri_kernels["k5b"], gather_kernels["k6a"],
+                                  gather_kernels["k6b"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

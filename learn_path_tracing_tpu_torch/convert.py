@@ -13,6 +13,7 @@ import torch
 
 from .camera.camera import CameraParams
 from .core.types import Materials
+from .io.texture import StripAtlas
 from .ops.packet_traverse import stack_cap
 from .ops.sphere_scan import pack_spheres
 from .scene.legacy_world import LegacyWorldData, MeshDeviceData, SphereDeviceData
@@ -58,34 +59,30 @@ def camera_from_numpy(position, yaw, pitch, roll, fov, focal_length, aperture,
     )
 
 
-def _unstrip(atlas, channels: int) -> np.ndarray:
-    """The classic ``f32[W, H, C]`` atlas back from the JAX package's
-    strip-packed one (``table [R, 2*T*C]``: row ``base + y*spr + x//(T-1)``
-    holds texel ``x`` of rect row ``y`` at column ``(x % (T-1)) * C``)."""
-    table = np.asarray(atlas.table, np.float32)
-    low, high = np.asarray(atlas.info_low), np.asarray(atlas.info_high)
-    base, spr = np.asarray(atlas.base), np.asarray(atlas.spr)
-    stride = table.shape[1] // (2 * channels) - 1
-    out = np.zeros((int(high[:, 0].max()), int(high[:, 1].max()), channels), np.float32)
-    flat = table.reshape(-1)
-    for i in range(low.shape[0]):
-        w, h = high[i] - low[i]
-        xs, ys = np.arange(w), np.arange(h)
-        rows = base[i] + ys[None, :] * spr[i] + (xs // stride)[:, None]      # [w,h]
-        col = ((xs % stride) * channels)[:, None, None] + np.arange(channels)
-        out[low[i, 0]:high[i, 0], low[i, 1]:high[i, 1]] = \
-            flat[rows[..., None] * table.shape[1] + col]
-    return out
+def _table(x, device):
+    """A JAX table as a torch tensor with the same bits: numpy carries
+    bfloat16 as its own ``bfloat16`` type, read here as 16-bit words."""
+    a = np.ascontiguousarray(np.asarray(x))
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.tensor(a, device=device)
+
+
+def _strip_atlas(atlas, device) -> StripAtlas:
+    """The port's ``StripAtlas`` from the JAX package's, leaf for leaf."""
+    return StripAtlas(table=_table(atlas.table, device),
+                      **{k: torch.as_tensor(np.array(getattr(atlas, k), np.int32), device=device)
+                         for k in ("info_low", "info_high", "base", "spr", "info")})
 
 
 def legacy_world_from_numpy(world, device=None, packet_version: int = 2) -> LegacyWorldData:
     """A ``LegacyWorldData`` from the JAX package's ``LegacyWorldData`` with
     every leaf a numpy array (e.g. ``jax.tree_util.tree_map(np.asarray,
     wd)``); fields are read by name. The traversal tables, triangle
-    attributes and sphere arrays are taken as they are; the strip-packed
-    atlases are unpacked to the classic ones (the material atlas stays
-    bfloat16, exactly). ``packet_version`` picks the mesh traversal kernel
-    (the JAX package reads it from ``LPT_PACKET_VERSION`` instead)."""
+    attributes, sphere arrays and strip-packed atlases are taken as they are
+    (the bfloat16 material table bit for bit). ``packet_version`` picks the
+    mesh traversal kernel (the JAX package reads it from
+    ``LPT_PACKET_VERSION`` instead)."""
     def t(x, dtype=np.float32):
         return torch.as_tensor(np.array(x, dtype), device=device)
 
@@ -117,12 +114,8 @@ def legacy_world_from_numpy(world, device=None, packet_version: int = 2) -> Lega
             packet=packet, treelets=treelets, stack=stack)
     return LegacyWorldData(
         meshes=tuple(meshes), spheres=spheres,
-        atlas=t(_unstrip(world.atlas, 8)).to(torch.bfloat16),
-        atlas_low=t(world.atlas.info_low, np.int32),
-        atlas_high=t(world.atlas.info_high, np.int32),
-        envs=t(_unstrip(world.envs, 3)),
-        env_low=t(world.envs.info_low, np.int32),
-        env_high=t(world.envs.info_high, np.int32),
+        atlas=_strip_atlas(world.atlas, device),
+        envs=_strip_atlas(world.envs, device),
         env_id=int(np.asarray(world.env_id)),
         tri_attr=None if world.tri_attr is None else t(world.tri_attr),
         env_gradient_h=world.env_gradient_h,

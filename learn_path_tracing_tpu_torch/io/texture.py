@@ -12,14 +12,12 @@ Counterpart of ``learn_path_tracing_tpu.io.texture``:
   roughness, metallic); equirect EXR/PNG environments into ``f32[W, H, 3]``.
   Missing files fall back to a neutral material or the sky gradient, with
   a warning.
-- ``sample_bilinear``: the classic 4-texel bilinear tap with per-rect
-  wrap-around, on the ``[W, H, C]`` atlas.
-
-The JAX package's strip-packed atlas (``pack_strips`` /
-``sample_bilinear_strips``) exists for TPU row gathers and is not carried
-over: the port samples the classic atlas, whose taps equal the strip
-sampler's to float rounding (the JAX package's own test shows the two
-agree).
+- ``sample_bilinear`` / ``sample_nearest``: the classic 4-texel bilinear
+  and the nearest tap with per-rect wrap-around, on the ``[W, H, C]`` atlas.
+- ``StripAtlas`` / ``pack_strips`` / ``sample_bilinear_strips``: the
+  strip-packed atlas the mesh path samples, byte for byte the JAX
+  package's table, and its tap: one info-row gather and one pair-row
+  gather per lane, both through ``ops.row_gather.gather`` (K6a, K6b).
 """
 
 from __future__ import annotations
@@ -28,9 +26,12 @@ import os
 import struct
 import warnings
 import zlib
+from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from ..ops.row_gather import gather
 
 
 # ---------------------------------------------------------------- packing --
@@ -269,3 +270,148 @@ def sample_bilinear(img, info_low, info_high, tex_id, u, v):
             + lt[:, None] * _gather2d(img, lw, tw)
             + rb[:, None] * _gather2d(img, rw, bw)
             + rt[:, None] * _gather2d(img, rw, tw))
+
+
+def sample_nearest(img, info_low, info_high, tex_id, u, v):
+    """Nearest atlas tap with per-rect wrap-around on the classic
+    ``[W, H, C]`` atlas → ``f32[N, C]``."""
+    tex_id = tex_id.to(torch.int64)
+    low = info_low[tex_id].to(torch.int64)
+    high = info_high[tex_id].to(torch.int64)
+    wpix = high[:, 0] - low[:, 0]
+    hpix = high[:, 1] - low[:, 1]
+    x = (u * wpix.to(torch.float32)).to(torch.int32).to(torch.int64)   # trunc
+    y = (v * hpix.to(torch.float32)).to(torch.int32).to(torch.int64)
+    return _gather2d(img, low[:, 0] + torch.remainder(x, wpix),
+                     low[:, 1] + torch.remainder(y, hpix))
+
+
+# ------------------------------------------------- strip-packed atlas taps --
+#
+# Strip packing stores runs of T horizontally adjacent texels per table row,
+# consecutive strips overlapping by one texel (stride T-1), with each
+# texture rect's u-wrap baked in cyclically, so the two texels (l, l+1) of a
+# bilinear footprint always lie in one strip. Each table row also carries
+# the strip of the next texel row (the v-wrap baked in), so a whole bilinear
+# tap is ONE random row gather (the pair row), plus one gather of the
+# texture's 16-byte info row.
+
+
+@dataclass(frozen=True)
+class StripAtlas:
+    """Strip-packed atlas plus per-texture rects and strip indexing (the JAX
+    package's ``StripAtlas``, field for field)."""
+
+    table: torch.Tensor      # [R, 2*T*C] pair rows (bf16 material / f32 env)
+    info_low: torch.Tensor   # i32[K, 2] rect corners in the virtual atlas
+    info_high: torch.Tensor  # i32[K, 2]
+    base: torch.Tensor       # i32[K] first table row of each rect
+    spr: torch.Tensor        # i32[K] strips per texel row of each rect
+    info: torch.Tensor       # i32[K, 4] (w, h, base, spr): the tap's info row
+
+
+def pack_strips(atlas_np, info_low, info_high, texels: int, dtype=None) -> StripAtlas:
+    """Strip-pack ``atlas_np [W, H, C]`` per texture rect (on the CPU;
+    ``dtype``: the table's torch type, float32 when None).
+
+    Row layout is texel-major: ``row[j*C:(j+1)*C]`` is texel ``x0+j`` (mod
+    the rect width). Rect rows are y-major: row index ``base + y*spr +
+    strip``. Columns ``[0, T*C)`` hold texel row ``y``, columns ``[T*C,
+    2*T*C)`` texel row ``(y+1) mod h``. The table is the JAX package's
+    byte for byte."""
+    low = np.asarray(info_low)
+    high = np.asarray(info_high)
+    c = atlas_np.shape[2]
+    stride = texels - 1
+    k = low.shape[0]
+    base = np.zeros((k,), np.int32)
+    spr = np.zeros((k,), np.int32)
+    total = 0
+    for i in range(k):
+        w = int(high[i, 0] - low[i, 0])
+        h = int(high[i, 1] - low[i, 1])
+        base[i] = total
+        spr[i] = -(-w // stride)
+        total += h * int(spr[i])
+    table = np.zeros((max(total, 1), 2 * texels * c), np.float32)
+    for i in range(k):
+        x0, y0 = int(low[i, 0]), int(low[i, 1])
+        w = int(high[i, 0] - x0)
+        h = int(high[i, 1] - y0)
+        rect = atlas_np[x0:x0 + w, y0:y0 + h]               # [w, h, C]
+        s = int(spr[i])
+        xs = (np.arange(s)[:, None] * stride + np.arange(texels)[None]) % w
+        # [s, texels, h, C] -> rows [h * s, texels * C], y-major; the pair
+        # half is texel row y+1 mod h (written in place, no concatenation)
+        block = rect[xs].transpose(2, 0, 1, 3).reshape(h, s, texels * c)
+        rows = table[base[i]:base[i] + h * s].reshape(h, s, 2 * texels * c)
+        rows[..., :texels * c] = block
+        rows[..., texels * c:] = np.roll(block, -1, axis=0)
+    info = np.stack([high[:, 0] - low[:, 0], high[:, 1] - low[:, 1], base, spr],
+                    axis=1).astype(np.int32)
+
+    def i32(a):
+        return torch.tensor(np.asarray(a, np.int32))
+
+    # a torch-owned copy (16-byte aligned for the row gathers)
+    return StripAtlas(table=torch.from_numpy(table).to(dtype or torch.float32, copy=True),
+                      info_low=i32(low), info_high=i32(high), base=i32(base),
+                      spr=i32(spr), info=i32(info))
+
+
+def _imod_f32(a, m):
+    """``mod(a, m)`` of int32 values through f32 arithmetic, as the JAX
+    package computes it (exact while ``|a|, m < 2**24``; a rect extent below
+    1 counts as 1)."""
+    af = a.to(torch.float32)
+    mf = torch.clamp_min(m.to(torch.float32), 1.0)
+    q = torch.floor(af / mf)
+    return (af - q * mf).to(torch.int32)
+
+
+def sample_bilinear_strips(atlas: StripAtlas, tex_id, u, v, channels: int):
+    """Bilinear tap over a strip-packed atlas → ``f32[N, channels]``: the
+    texels and weights of ``sample_bilinear`` (same rect wrap-around),
+    fetched as one info-row and one pair-row gather (``ops.row_gather``).
+
+    ``tex_id`` follows the row gathers' rule, as JAX's ``jnp.take`` does: an
+    id in ``[-K, 0)`` wraps, any other id past the last rect taps a fill
+    row and gives NaN, except on a single-texture atlas, where every lane
+    reads rect 0 (the info row is broadcast, not gathered)."""
+    c = channels
+    texels = atlas.table.shape[1] // (2 * c)
+    stride = texels - 1
+    n = u.shape[0]
+    if atlas.info.shape[0] == 1:
+        info = atlas.info[0].expand(n, atlas.info.shape[1])
+    else:
+        info = gather(atlas.info, tex_id)
+    wpix, hpix, base, spr = info.unbind(1)
+    uu = u * wpix.to(torch.float32) - 0.5
+    vv = v * hpix.to(torch.float32) - 0.5
+    l = uu.to(torch.int32)   # trunc toward zero, as ti.cast does
+    b = vv.to(torch.int32)
+    wl = ((l + 1).to(torch.float32) - uu)[:, None]
+    wb = ((b + 1).to(torch.float32) - vv)[:, None]
+    lm = _imod_f32(l, wpix)
+    sx = torch.div(lm, stride, rounding_mode="floor")
+    off = lm - sx * stride
+    by = _imod_f32(b, hpix)
+    tc = texels * c
+    row = (base.to(torch.int64) + by.to(torch.int64) * spr.to(torch.int64)
+           + sx.to(torch.int64))
+    pair_row = gather(atlas.table, row)                     # [N, 2*T*C]
+    # The JAX package blends the whole strip (wb * row_b + (1 - wb) * row_t,
+    # elementwise) and then selects the texel pair at ``off`` as a one-hot
+    # sum over the ``stride`` static slices. Here the pair is indexed
+    # directly and only its 2*C columns are blended. Equal bit for bit on
+    # finite tables: the blend is elementwise, so the selected columns hold
+    # the same values; the one-hot sum starts from +0 and adds the selected
+    # value and 0 * x = ±0 for every other slot, and adding ±0 leaves a
+    # value unchanged except that a -0 becomes +0, which ``+ 0.0`` repeats.
+    # On a fill (NaN) row both forms give NaN.
+    cols = off.to(torch.int64)[:, None] * c + torch.arange(2 * c, device=u.device)
+    pair_b = torch.gather(pair_row[:, :tc], 1, cols).to(torch.float32)
+    pair_t = torch.gather(pair_row[:, tc:], 1, cols).to(torch.float32)
+    pair = (wb * pair_b + (1.0 - wb) * pair_t) + 0.0       # [N, 2*C]
+    return wl * pair[:, :c] + (1.0 - wl) * pair[:, c:]

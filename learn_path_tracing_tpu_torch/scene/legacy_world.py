@@ -34,9 +34,14 @@ permutations, the tie rule is order-free), so renders do not depend on the
 version except on rays with a direction component of exactly 0, which the
 v1 slab form hits and the others miss.
 
-Differences from the JAX package, none of which changes a result: the
-material atlas is the classic ``[W, H, 8]`` one (bfloat16, as the JAX
-package stores its strip-packed twin) sampled by ``sample_bilinear``;
+The material atlas (bfloat16, 16 texels a strip) and the environments
+(f32, 42 texels a strip) are the JAX package's strip-packed ``StripAtlas``
+tables, tapped by ``sample_bilinear_strips``; the triangle-attribute row
+and the atlas rows are fetched by the row-gather kernels (K6a, K6b) with
+``jnp.take``'s wrap and fill rule, so a texture id past the last rect of a
+multi-texture atlas gives a NaN tap there as it does in JAX.
+
+Differences from the JAX package, none of which changes a result:
 attribute shading runs on exactly the hit rows instead of static prefix
 buckets (``_attrs_switch``'s ``_r256`` widths exist for XLA's static
 shapes); the fused single-mesh hit path (``_hit_legacy_fused``) is the
@@ -60,11 +65,13 @@ from ..accel.wide import collapse
 from ..core.types import Hits, Materials, Rays
 from ..io.obj import MeshData
 from ..io.texture import (
+    StripAtlas,
     TextureManager,
     build_environment_atlas,
     build_texture_atlas,
     make_info_arrays,
-    sample_bilinear,
+    pack_strips,
+    sample_bilinear_strips,
 )
 from ..ops.packet_traverse import (
     VERSIONS,
@@ -75,6 +82,7 @@ from ..ops.packet_traverse import (
     stack_cap,
     treelet_boxes,
 )
+from ..ops.row_gather import gather
 from ..ops.sphere_scan import intersect_spheres_scan, pack_spheres
 from . import serialize
 
@@ -137,12 +145,8 @@ class SphereDeviceData:
 class LegacyWorldData:
     meshes: tuple                 # tuple[MeshDeviceData, ...]
     spheres: SphereDeviceData | None
-    atlas: torch.Tensor           # bf16[W, H, 8] material atlas
-    atlas_low: torch.Tensor       # i32[K, 2] texture rects
-    atlas_high: torch.Tensor
-    envs: torch.Tensor            # f32[W, H, 3] equirect environments
-    env_low: torch.Tensor
-    env_high: torch.Tensor
+    atlas: StripAtlas             # material atlas, strip-packed bf16 (8 channels)
+    envs: StripAtlas              # equirect environments, strip-packed f32 (3 ch)
     env_id: int
     # every mesh's triangle attributes, one row per triangle: v0 v1 v2 (9),
     # n0 n1 n2 (9), uv0 uv1 uv2 (6), tex (1, f32), pad → 32
@@ -162,7 +166,7 @@ class LegacyWorldData:
 
     @property
     def device(self) -> torch.device:
-        return self.atlas.device
+        return self.atlas.table.device
 
     def to(self, device) -> "LegacyWorldData":
         return _map_tensors(lambda a: a.to(device), self)
@@ -351,9 +355,9 @@ class LegacyWorld:
             spheres=spheres,
             # bfloat16 like the JAX package's material atlas (texture
             # sources are 8-bit); the blend runs in f32
-            atlas=_t(atlas_np).to(torch.bfloat16),
-            atlas_low=_t(tex_low), atlas_high=_t(tex_high),
-            envs=_t(env_np), env_low=_t(env_low), env_high=_t(env_high),
+            atlas=pack_strips(atlas_np, tex_low, tex_high, texels=16,
+                              dtype=torch.bfloat16),
+            envs=pack_strips(env_np, env_low, env_high, texels=42),
             env_id=int(self.environment or 0),
             tri_attr=_tri_attr_table(tuple(meshes)),
             env_gradient_h=_active_gradient_h(self.environments,
@@ -554,7 +558,7 @@ def _attrs_block(world: LegacyWorldData, point, pidx, src_best, hit_mask):
             if k:
                 gidx = torch.where(src_best == 1 + k, gidx + off, gidx)
             off += mesh.tex.shape[0]
-        ct = world.tri_attr[torch.where(is_mesh, gidx, 0)].T       # [32, M]
+        ct = gather(world.tri_attr, torch.where(is_mesh, gidx, 0)).T   # [32, M]
         p1x, p1y, p1z = ct[0], ct[1], ct[2]
         p2x, p2y, p2z = ct[3], ct[4], ct[5]
         p3x, p3y, p3z = ct[6], ct[7], ct[8]
@@ -593,10 +597,8 @@ def _attrs_block(world: LegacyWorldData, point, pidx, src_best, hit_mask):
         v_tap = torch.where(is_mesh, sv, v_tap)
         tex_tap = torch.where(is_mesh, torch.clamp_min(m_tex, 0), tex_tap)
 
-    # --- the single material tap (ids past the last rect read the last) ---
-    tex_tap = torch.clamp_max(tex_tap, world.atlas_low.shape[0] - 1)
-    tap = sample_bilinear(world.atlas, world.atlas_low, world.atlas_high,
-                          tex_tap, u_tap, v_tap)
+    # --- the single material tap (strip-packed: one pair-row gather) ---
+    tap = sample_bilinear_strips(world.atlas, tex_tap, u_tap, v_tap, channels=8)
     albedo = torch.where(hit_mask[:, None], tap[:, 0:3], 0.0)
     roughness = torch.where(hit_mask, tap[:, 6], 0.0)
     metallic = torch.where(hit_mask, tap[:, 7], 0.0)
@@ -807,4 +809,4 @@ def environment_color(world: LegacyWorldData, rd, mask=None):
         u = torch.where(mask, u, 0.5)
         v = torch.where(mask, v, 0.5)
     ids = torch.full(u.shape, world.env_id, dtype=torch.int64, device=u.device)
-    return sample_bilinear(world.envs, world.env_low, world.env_high, ids, u, v)
+    return sample_bilinear_strips(world.envs, ids, u, v, channels=3)

@@ -1,7 +1,7 @@
 """Render configuration (the reference's module-level constants, as data).
 
 Counterpart of ``learn_path_tracing_tpu.utils.config`` for the modern stages
-1-10 and the legacy stages 14-15: resolution / spp / propagate_limit / seed
+1-10 and the legacy stages 13-15: resolution / spp / propagate_limit / seed
 plus the integrator options and the torch device. The port reads no
 environment variables, so what the JAX package takes from them is data
 here: ``packet_version`` is its ``LPT_PACKET_VERSION``
@@ -51,7 +51,7 @@ class RenderConfig:
 
 
 # Stage presets (file:line cites in stages/*.py of the JAX package). Keys:
-# modern stages 1-10, legacy stages "l14"/"l15" (l11-l13 are not ported).
+# modern stages 1-10, legacy stages "l13".."l15" (l11, l12 are not ported).
 # The legacy presets keep packet_version 2, the JAX package's default
 # LPT_PACKET_VERSION; l14's --packet-version picks 1 or 3 (its
 # LPT_PACKET_BLOCK has no counterpart here: packets are a warp or a block).
@@ -66,6 +66,7 @@ STAGE_CONFIGS = {
     8: RenderConfig(spp=8192),
     9: RenderConfig(spp=8192),
     10: RenderConfig(spp=8192),
+    "l13": RenderConfig(spp=128, bsdf="legacy"),
     "l14": RenderConfig(width=1500, height=1000, spp=32, bsdf="legacy",
                         scene="legacy"),
     "l15": RenderConfig(width=1500, height=1000, spp=32, bsdf="legacy",

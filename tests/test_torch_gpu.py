@@ -5,8 +5,9 @@ the JAX package, so it runs on a machine that has only PyTorch:
     python -m pytest --noconftest tests/test_torch_gpu.py -m gpu -q
 
 Tolerances: the sphere-scan kernel, the packet-traversal kernels (K2
-triangle leaves, K3 sphere leaves) and the bounce megakernel (K4) equal
-their plain twins bit for bit (the same IEEE-rounded operations in the same
+triangle leaves, K3 sphere leaves), the bounce megakernel (K4) and the row
+gathers (K6a, K6b: fill rows and bf16 compared as bits) equal their plain
+twins bit for bit (the same IEEE-rounded operations in the same
 order, and an order-free tie rule); a GPU render, persistent (modular or
 mega) or hybrid, equals a rerun bit for bit (fixed-point accumulation); a
 GPU render agrees with the CPU render within
@@ -29,6 +30,7 @@ from learn_path_tracing_tpu_torch.io.obj import MeshData
 from learn_path_tracing_tpu_torch.models import random_scene, stage10_camera
 from learn_path_tracing_tpu_torch.ops import bounce_megakernel as tmk
 from learn_path_tracing_tpu_torch.ops import packet_traverse as tpt
+from learn_path_tracing_tpu_torch.ops import row_gather as trg
 from learn_path_tracing_tpu_torch.ops import sphere_scan as tss
 from learn_path_tracing_tpu_torch.scene.legacy_world import LegacyWorld
 from learn_path_tracing_tpu_torch.utils.checks import render_agreement
@@ -243,3 +245,45 @@ def test_gpu_mega_is_deterministic_and_matches_cpu(cuda):
                                           spp=4, limit=8, engine="mega")
     rep = render_agreement(runs[0][0].cpu().numpy(), cpu_img.numpy(), runs[0][1], cpu_segs)
     assert rep["ok"], rep
+
+
+# widths (in elements) through every K6a vector count and K6b's one- and
+# two-step rows: f32 4..32 (16..128 B), 36 (144 B), 252 (1,008 B, the
+# environment pair row), bf16 8 and 256 (the material pair row), i32 4
+# (the strip atlas's info row)
+@pytest.mark.parametrize("dtype,width", [
+    (torch.float32, 4), (torch.float32, 12), (torch.float32, 20), (torch.float32, 28),
+    (torch.float32, 32), (torch.float32, 36), (torch.float32, 252),
+    (torch.bfloat16, 8), (torch.bfloat16, 256), (torch.int32, 4), (torch.int32, 64)])
+@pytest.mark.parametrize("index", [torch.int32, torch.int64])
+def test_row_gather_kernels_match_plain_bitwise(cuda, dtype, width, index):
+    """K6a/K6b against ``gather_plain`` bit for bit, on in-range, wrapping
+    and out-of-range indices (fill rows), at counts off the warp groups."""
+    r = np.random.default_rng(width)
+    rows = 1000
+    if dtype == torch.int32:
+        tab = torch.tensor(r.integers(-2**31, 2**31, (rows, width)).astype(np.int32))
+    else:
+        tab = torch.tensor(r.normal(size=(rows, width)).astype(np.float32)).to(dtype)
+    tab = tab.to(cuda)
+    for n in (1, 7, 1001, 20000):
+        idx = r.integers(-rows, rows, n)
+        idx[::5] = r.integers(rows, 3 * rows, len(idx[::5]))
+        idx[1::9] = -rows - 1 - r.integers(0, 100, len(idx[1::9]))
+        idx = torch.tensor(idx).to(index).to(cuda)
+        kernel = trg.kernel_for(tab)
+        before = trg.gather.launches[kernel]
+        got = trg.gather(tab, idx)
+        assert trg.gather.launches[kernel] == before + 1
+        ref = trg.gather_plain(tab, idx)
+        torch.cuda.synchronize()
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(got.view(bits), ref.view(bits))
+    assert trg.gather(tab, idx[:0]).shape == (0, width)
+
+
+def test_row_gather_kernel_rejects_misaligned(cuda):
+    tab = torch.zeros((9, 16), device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        trg.gather(tab.view(-1)[1:129].view(8, 16), torch.zeros(4, dtype=torch.int64,
+                                                                  device=cuda))

@@ -14,11 +14,13 @@ Tolerances, with their reasons:
   the shading normal to 1e-3. XLA contracts multiply-adds in the
   barycentrics (the divisions by ``d·n`` amplify them), sphere UVs come
   from asin/atan2, which differ by ulps between XLA and PyTorch, the tap
-  multiplies a UV difference by the texture's gradient, the JAX tap blends
-  in another order (the strip sampler, against the port's classic one),
-  and the sphere normal-map frame divides by the distance from the pole
-  axis (measured: uv within 3.6e-5, sphere normals within 3.6e-4, mesh
-  normals equal).
+  multiplies a UV difference by the texture's gradient, and the sphere
+  normal-map frame divides by the distance from the pole axis (measured:
+  uv within 3.6e-5, sphere normals within 3.6e-4, mesh normals equal).
+  Shading alone from the same traced hits (``shade_from_trace``; both
+  sides tap the same strip-packed atlas): mesh hits bit for bit, sphere
+  hits to 1e-6 (1e-5 for the normal); a texture id past the last rect
+  gives NaN materials on a multi-texture atlas on both sides.
 - Environment lookups to 1e-5 relative; ``scatter_legacy`` to 2e-5
   absolute (the ``sampling.py`` tolerances: asin/atan2/sin/cos differ by
   ulps between XLA and PyTorch).
@@ -170,6 +172,13 @@ def _same(a, b):
                                                  equal_nan=True)
 
 
+def _bits(x):
+    """The raw bytes of a tensor (bfloat16 read as 16-bit words)."""
+    if x.dtype == torch.bfloat16:
+        x = x.view(torch.int16)
+    return x.contiguous().numpy().tobytes()
+
+
 # ---------------------------------------------------------- host-side data --
 
 def test_texture_manager_packing_matches_jax():
@@ -275,9 +284,13 @@ def test_world_tables_match_jax_and_convert(tmp_path, kind, kw):
         assert wd.env_id == int(jwd.env_id) and wd.env_gradient_h == jwd.env_gradient_h
     for a, b in zip(cwd.meshes + (cwd.spheres,), twd.meshes + (twd.spheres,)):
         assert a.stack == b.stack
-    for k in ("atlas", "atlas_low", "atlas_high", "envs", "env_low", "env_high"):
-        assert torch.equal(getattr(cwd, k), getattr(twd, k)), k
-    assert twd.atlas.dtype == torch.bfloat16
+    for k in ("atlas", "envs"):
+        for f in ("table", "info_low", "info_high", "base", "spr", "info"):
+            mine, conv = getattr(getattr(twd, k), f), getattr(getattr(cwd, k), f)
+            ref = np.asarray(getattr(getattr(jwd, k), f))
+            assert _bits(mine) == _bits(conv) == ref.tobytes(), (k, f)
+            assert mine.dtype == conv.dtype and tuple(mine.shape) == ref.shape, (k, f)
+    assert twd.atlas.table.dtype == torch.bfloat16 and twd.envs.table.dtype == torch.float32
 
 
 # ------------------------------------------------------------------- hits --
@@ -313,6 +326,74 @@ def test_hit_legacy_matches_jax(tmp_path, monkeypatch, kind):
     _hits_agree(th, jh)
     if kind == "mesh":        # (the sphere scan of 'ibl' ignores alive, as in JAX)
         assert not th.hit.numpy()[~alive].any()
+
+
+def _shade_both(jwd, twd, n, seed):
+    """``shade_from_trace`` on both sides from the port's own traced
+    ``(t, prim, src)``, so only the shading is compared."""
+    ro, rd, alive = _rays_at(n, seed)
+    trays = _t_rays(ro, rd, alive)
+    t, p, s = tlw.trace_legacy(twd, trays)
+    th = tlw.shade_from_trace(twd, trays, t, p, s)
+    jh = jlw.shade_from_trace(jwd, _j_rays(ro, rd, alive), *(jnp.asarray(x.numpy())
+                                                             for x in (t, p, s)))
+    return th, jh
+
+
+def test_shade_from_trace_matches_jax(tmp_path):
+    """The IBL quad + sphere world (``tests/test_self_goldens.py:67``, with a
+    PBR texture set): the triangle-attribute row gather and the strip tap
+    of every hit against JAX's. Mesh hits bit for bit (the same tap, the
+    same barycentrics); sphere hits to 1e-6 in uv and material and 1e-5 in
+    the normal, whose asin/atan2 UVs and normal-map frame differ by ulps
+    between XLA and PyTorch (measured: 2.4e-7 and 1.2e-6)."""
+    _, jwd, _, twd = _build_both(tmp_path, "ibl")
+    th, jh = _shade_both(jwd, twd, 1024, 21)
+    hit = th.hit.numpy()
+    assert np.array_equal(hit, np.asarray(jh.hit)) and 200 < hit.sum() < 1000
+    assert (th.obj.numpy() == np.asarray(jh.obj)).all()
+    mesh = hit & (np.abs(th.point.numpy()[:, 1]) < 1e-6)             # the quad at y = 0
+    sphere = hit & ~mesh
+    assert mesh.sum() > 100 and sphere.sum() > 100
+    fields = [(k, getattr(th, k).numpy(), np.asarray(getattr(jh, k)))
+              for k in ("point", "uv", "normal")]
+    fields += [(k, getattr(th.material, k).numpy(), np.asarray(getattr(jh.material, k)))
+               for k in ("albedo", "roughness", "metallic")]
+    for k, mine, ref in fields:
+        assert mine[mesh].tobytes() == ref[mesh].tobytes(), k
+        np.testing.assert_allclose(mine[sphere], ref[sphere], rtol=0,
+                                   atol=1e-5 if k == "normal" else 1e-6, err_msg=k)
+        assert k == "point" or float(mine[hit].std()) > 1e-3, k
+
+
+@pytest.mark.parametrize("rects", [2, 1])
+def test_out_of_range_texture_id_shades_as_jax(tmp_path, rects):
+    """A mesh whose faces name texture 5: on a 2-rect atlas its hits tap a
+    fill row and get NaN materials on both sides (the port clamped the id
+    to the last rect before); on a 1-rect atlas every id reads rect 0."""
+    worlds = []
+    for lw, m in ((jlw, jobj), (tlw, obj)):
+        w = lw.LegacyWorld(environment_size=(128, 64))
+        w.add_mesh(_quad(m, tex=5))
+        w.add_sphere((0.0, 1.0, 0.0), 0.8, transparency=0, texture_id=0)
+        w.textures.add(_texture_set(str(tmp_path)), 0)
+        if rects == 2:
+            w.textures.add("missing", 1, size=(8, 8))
+        w.set_environment(0)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            worlds.append(w.build())
+    jwd, twd = worlds
+    th, jh = _shade_both(jwd, twd, 1024, 23)
+    quad = (th.obj.numpy() >= 0) & (th.t.numpy() > 0) & th.hit.numpy()
+    quad &= np.abs(th.point.numpy()[:, 1]) < 1e-5                    # on the plane y = 0
+    sphere = th.hit.numpy() & ~quad
+    assert quad.sum() > 50 and sphere.sum() > 50
+    mine, ref = th.material.albedo.numpy(), np.asarray(jh.material.albedo)
+    assert np.isnan(mine[quad]).all() == np.isnan(ref[quad]).all() == (rects == 2)
+    assert np.isfinite(mine[sphere]).all() and np.isfinite(ref[sphere]).all()
+    np.testing.assert_allclose(mine[th.hit.numpy()], ref[th.hit.numpy()], rtol=0,
+                               atol=1e-4, equal_nan=True)
 
 
 def test_trace_shade_compact_matches_jax(tmp_path, monkeypatch):
