@@ -32,10 +32,17 @@ Phases:
    and spill lines;
 3. holds each kernel against its plain PyTorch twin on the card, at the
    paths' shapes, timed with CUDA events (median of 20 runs), with the
-   bound of its work: K1 on the cover scene's wavefronts, bitwise; K4 one
-   pass from three states of the 1280x720, 64 spp headline (primary,
-   after 10 passes, under 1 % live), its integer rows, deposits and live
-   count bitwise and any differing float row named, counted and bounded;
+   bound of its work: K1 on the cover scene's wavefronts and on their
+   first 7,168, 1,024 and 256 rays, bitwise, then timed at each of those
+   pass widths;
+   ``hit(backend='bvh')`` (the cover scene's sphere BVH through K3) on the
+   same four wavefronts against ``hit(backend='auto')``, counting the rays
+   that differ (none may); K4 one pass over its lane list from three states
+   of the 1280x720, 64 spp headline (primary, after 10 passes, under 1 %
+   live), in place on a copy, against the twin's all-lanes pass: its
+   integer rows, deposits, live count and next list bitwise and any
+   differing float row named, counted and bounded; each state's pass timed
+   with its own bound;
    K2, K5a and K5b on the stand-in mesh's 1,843,200-ray primary slab
    (640x360, 8 samples), its first-bounce survivors, random rays with
    random ``t_init`` and half the lanes inactive, rays starting on the
@@ -70,10 +77,18 @@ Phases:
    way, and at 64x36 on the card and the CPU, held to
    ``render_agreement``; the 1280x720, 64
    spp, depth-32 cover scene (``outputs/chip_smoke_10_final.png``),
-   checking one K1 launch per ``hit`` call; and the same frame through the
+   checking one K1 launch per ``hit`` call; and the same frame
+   through the
    mega engine after a warm-up (``outputs/chip_smoke_10_final_mega.png``),
    checking one K4 launch per pass and agreement with the modular frame,
-   then two more frames and a profiled one (device busy time, K4's share).
+   then two more frames and a profiled one (device busy time, K4's share);
+6. the kernels' own device times from ``torch.profiler``: K1 at each pass
+   width with every slice count (and K1's device ms in the modular frame:
+   its passes at each width times its time there), K3 and K1 under
+   ``hit()`` on the primary rays, and K4's pass from each of its three
+   states. They come last because a profiler session can slow the
+   process's later launches, which every CUDA-event time and timed frame
+   above would show.
 
 The stand-in world (``standin_world``) takes the place of the reference's
 Yoimiya character, whose assets are not in the repository: one closed mesh
@@ -89,8 +104,11 @@ memory, synchronised per-layer host times), printed as one JSON line.
 
 Any failed phase raises, so the script exits non-zero. The last lines are
 the ``nvidia-smi`` name and power limit, a JSON line of the kernels, and
-``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
-prints no result.
+``{"ok": true, "device": {...}}``. Every kernel's ``ms`` in the kernels
+line is CUDA events around one wrapper call (the host's issue time
+included); K1 and K4 also give ``device_ms``, the kernel's own duration
+from ``torch.profiler``. Without a CUDA device it exits 1 and prints no
+result.
 """
 
 from __future__ import annotations
@@ -131,14 +149,19 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters=20, warmup=3):
-    """Median milliseconds of ``fn()`` on the card, from CUDA events."""
+def cuda_ms(fn, iters=20, warmup=3, setup=None):
+    """Median milliseconds of ``fn()`` on the card, from CUDA events;
+    ``setup()``, when given, runs before each call, outside the events."""
     import torch
 
     for _ in range(warmup):
+        if setup is not None:
+            setup()
         fn()
     times = []
     for _ in range(iters):
+        if setup is not None:
+            setup()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -147,6 +170,38 @@ def cuda_ms(fn, iters=20, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def kernel_ms(fn, name, iters=20, warmup=3, setup=None):
+    """Median device milliseconds of the kernel whose name contains
+    ``name``, launched once by each ``fn()``, from ``torch.profiler``'s
+    device events (``setup()`` runs before each call; a session that lost
+    more than half of them is run again). Unlike ``cuda_ms``
+    it leaves out the host's time to issue the call, which exceeds a small
+    kernel's own. A profiler session can leave the process's later
+    launches slower, which a host-bound frame or a CUDA-event time would
+    show, so ``main`` takes every such time before the first session."""
+    import torch
+
+    for _ in range(warmup):
+        if setup is not None:
+            setup()
+        fn()
+    times = []
+    for _ in range(3):      # the profiler can drop some of a session's events
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if setup is not None:
+                    setup()
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+        if len(times) >= iters // 2:
+            return statistics.median(times)
+    raise AssertionError(f"the profiler saw {len(times)} launches of {name}, not {iters}")
 
 
 def bitwise_equal(x, y) -> bool:
@@ -228,18 +283,34 @@ def scan_inputs(device):
     return wd, sets
 
 
+# the modular 10_final frame's pass widths: the full pool, then the drains
+K1_WIDTHS = (57344, 7168, 1024, 256)
+
+
 def check_sphere_scan(device):
-    """K1 against its plain twin on the card; returns the kernels-line entry."""
+    """K1 against its plain twin on the card, on the four ray sets and on
+    the first rays of the primary and bounce sets at each drain width; then
+    the call timed by CUDA events at every pass width of the frame
+    (``K1_WIDTHS``). Returns the kernels-line entry (at 57,344 rays) and
+    ``device_times()``, to be called after the timed frames: the kernel's
+    own time at each width from the profiler, with the slice count the
+    wrapper picks and with each other one, as ``{width: ms}`` (it sets the
+    entry's ``device_ms``)."""
     import torch
 
     from learn_path_tracing_tpu_torch.ops import sphere_scan as ss
 
     wd, sets = scan_inputs(device)
+    table, attrs = wd.scan_table, wd.scan_attrs
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    cases = dict(sets)
+    for w in K1_WIDTHS[1:]:
+        for name in ("primary", "bounce1"):
+            cases[f"{name}[:{w}]"] = tuple(x[:w].contiguous() for x in sets[name])
     max_err = 0.0
-    for name, (ro, rd) in sets.items():
-        t, idx, attr = ss.intersect_spheres_scan(ro, rd, wd.scan_table, wd.scan_attrs)
-        t2, idx2, attr2 = ss.intersect_spheres_scan_plain(ro, rd, wd.scan_table,
-                                                          wd.scan_attrs)
+    for name, (ro, rd) in cases.items():
+        t, idx, attr = ss.intersect_spheres_scan(ro, rd, table, attrs)
+        t2, idx2, attr2 = ss.intersect_spheres_scan_plain(ro, rd, table, attrs)
         torch.cuda.synchronize()
         hit_k, hit_p = torch.isfinite(t), torch.isfinite(t2)
         both = hit_k & hit_p
@@ -248,28 +319,115 @@ def check_sphere_scan(device):
         max_err = max(max_err, err)
         same = (bitwise_equal(t, t2) and bitwise_equal(idx, idx2)
                 and bitwise_equal(attr, attr2))
-        _log(f"[k1] {name}: {ro.shape[0]} rays, hit rate "
+        _log(f"[k1] {name}: {ro.shape[0]} rays, slices "
+             f"{ss.team_slices(ro.shape[0], table.shape[0], sms)}, hit rate "
              f"{float(hit_k.float().mean()):.4f}, bitwise equal: {same}, "
              f"max |diff| {err:.3g}, hit/miss mismatches "
              f"{int((hit_k != hit_p).sum())}, idx mismatches {int((idx != idx2).sum())}")
         if not same:
             raise AssertionError(f"sphere-scan kernel differs from its twin on '{name}'")
 
+    ro_all, rd_all = sets["primary"]
+    widths = {w: (ro_all[:w].contiguous(), rd_all[:w].contiguous()) for w in K1_WIDTHS}
+    bounds, entry = {}, None
+    for w, (ro, rd) in widths.items():
+        call_ms = cuda_ms(lambda: ss.intersect_spheres_scan(ro, rd, table, attrs))
+        b = bounds[w] = bound(
+            nbytes(ro, rd, table, attrs, *ss.intersect_spheres_scan(ro, rd, table, attrs)),
+            w * table.shape[0] * SCAN_FLOP_PER_PAIR)
+        _log(f"[k1] time at {w} rays x {table.shape[0]} spheres: the call {call_ms:.4f} ms "
+             f"by CUDA events (median of 20); bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        if w == K1_WIDTHS[0]:
+            plain_ms = cuda_ms(lambda: ss.intersect_spheres_scan_plain(ro, rd, table, attrs))
+            _log(f"[k1] plain twin at {w} rays: {plain_ms:.4f} ms (median of 20)")
+            entry = {"name": "sphere_scan", "id": "k1", "route": "cuda",
+                     "source": "learn_path_tracing_tpu_torch/csrc/sphere_scan.cu",
+                     "replaces": "learn_path_tracing_tpu/ops/sphere_scan.py:49",
+                     "max_abs_err": max_err, "ms": call_ms, "plain_ms": plain_ms, **b,
+                     "library_ms": None}
+
+    def device_times():
+        widths_ms = {}
+        for w, (ro, rd) in widths.items():
+            by_slices = {p: kernel_ms(lambda p=p: ss._launch(ro, rd, table, attrs, ss.T_MIN, p),
+                                      "sphere_scan_kernel")
+                         for p in ss.SLICE_CHOICES}
+            ms = widths_ms[w] = kernel_ms(lambda: ss.intersect_spheres_scan(ro, rd, table, attrs),
+                                          "sphere_scan_kernel")
+            _log(f"[k1 device] {w} rays x {table.shape[0]} spheres: kernel {ms:.4f} ms on the "
+                 f"device with {ss.team_slices(w, table.shape[0], sms)} slices (profiler, median "
+                 f"of 20), by slice count "
+                 f"{', '.join(f'{p}: {t:.4f}' for p, t in by_slices.items())} ms; "
+                 f"{bounds[w]['bound_ms'] / ms:.3f} of the bound")
+        entry["device_ms"] = widths_ms[K1_WIDTHS[0]]
+        return widths_ms
+
+    return entry, device_times
+
+
+def k1_frame_ms(widths_ms, rep) -> float:
+    """K1's device ms in the modular headline frame: its passes at each
+    width (``headline``'s report) times the kernel's time at that width."""
+    ms = 0.0
+    for chunk in rep["chunks"]:
+        ms += chunk["passes_full"] * widths_ms[chunk["pool"]]
+        for w, passes in zip(chunk["drain_widths"], chunk["drain_passes"]):
+            ms += passes * widths_ms[w]
+    return ms
+
+
+def bvh_phase(device):
+    """``hit(backend='bvh')`` on the card (the sphere BVH through K3) over
+    the cover scene's four K1 ray sets, held to ``hit(backend='auto')`` (K1):
+    the rays whose ``t``, sphere or hit flag differ are counted, and must
+    be none. Then both calls are timed on the primary set by CUDA events.
+    Returns ``device_times()``, to be called after the timed frames: their
+    kernels' own times from the profiler."""
+    import torch
+
+    from learn_path_tracing_tpu_torch.core.types import Rays
+    from learn_path_tracing_tpu_torch.models import random_scene
+    from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
+    from learn_path_tracing_tpu_torch.scene.world import hit
+
+    t0 = time.time()
+    wd = random_scene(seed=SCENE_SEED).device(device, use_bvh=True)
+    _log(f"[bvh] cover scene BVH: {wd.bvh[0].shape[0]} wide nodes, {wd.bvh[2].shape[0]} run "
+         f"rows, stack {wd.bvh_stack}; built in {time.time() - t0:.2f} s")
+    _, sets = scan_inputs(device)
+    for name, (ro, rd) in sets.items():
+        n = ro.shape[0]
+        rays = Rays(ro=ro, rd=rd, throughput=torch.ones_like(ro),
+                    alive=torch.ones((n,), dtype=torch.bool, device=device))
+        before = pt.traverse.launches["k3"]
+        a, b = hit(wd, rays, backend="bvh"), hit(wd, rays, backend="auto")
+        torch.cuda.synchronize()
+        differ = ((a.t.view(torch.int32) != b.t.view(torch.int32)) | (a.obj != b.obj)
+                  | (a.hit != b.hit))
+        count = int(differ.sum())
+        _log(f"[bvh] {name}: {n} rays, K3 launches {pt.traverse.launches['k3'] - before}, "
+             f"hit rate {float(a.hit.float().mean()):.4f}, rays differing from "
+             f"hit(backend='auto'): {count}")
+        if count or pt.traverse.launches["k3"] != before + 1:
+            raise AssertionError(f"hit(backend='bvh') differs from the scan on '{name}' "
+                                 f"({count} rays)")
     ro, rd = sets["primary"]
-    ms = cuda_ms(lambda: ss.intersect_spheres_scan(ro, rd, wd.scan_table, wd.scan_attrs))
-    plain_ms = cuda_ms(lambda: ss.intersect_spheres_scan_plain(
-        ro, rd, wd.scan_table, wd.scan_attrs))
-    outs = ss.intersect_spheres_scan(ro, rd, wd.scan_table, wd.scan_attrs)
-    b = bound(nbytes(ro, rd, wd.scan_table, wd.scan_attrs, *outs),
-              ro.shape[0] * wd.scan_table.shape[0] * SCAN_FLOP_PER_PAIR)
-    _log(f"[k1] time at {ro.shape[0]} rays x {wd.scan_table.shape[0]} spheres: "
-         f"kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms (median of 20), bound "
-         f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
-    return {"name": "sphere_scan", "id": "k1", "route": "cuda",
-            "source": "learn_path_tracing_tpu_torch/csrc/sphere_scan.cu",
-            "replaces": "learn_path_tracing_tpu/ops/sphere_scan.py:49",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **b,
-            "library_ms": None}
+    rays = Rays(ro=ro, rd=rd, throughput=torch.ones_like(ro),
+                alive=torch.ones((ro.shape[0],), dtype=torch.bool, device=device))
+    ms = {backend: cuda_ms(lambda backend=backend: hit(wd, rays, backend=backend))
+          for backend in ("bvh", "auto")}
+    _log(f"[bvh] hit() on {ro.shape[0]} primary rays: backend 'bvh' {ms['bvh']:.4f} ms, "
+         f"'auto' {ms['auto']:.4f} ms (CUDA events, median of 20, hit records included)")
+
+    def device_times():
+        dev_ms = {backend: kernel_ms(lambda backend=backend: hit(wd, rays, backend=backend),
+                                     name)
+                  for backend, name in (("bvh", "packet_traverse_kernel"),
+                                        ("auto", "sphere_scan_kernel"))}
+        _log(f"[bvh device] the kernels of hit() on {ro.shape[0]} primary rays: K3 "
+             f"{dev_ms['bvh']:.4f} ms, K1 {dev_ms['auto']:.4f} ms (profiler, median of 20)")
+
+    return device_times
 
 
 def check_gpu_vs_cpu(device):
@@ -352,24 +510,42 @@ def mega_states(wd, cp, scalf, device):
     for _ in range(10):
         stf, sti, _ = bounce_pass_plain(stf, sti, wd, scalf, 0, RES, SPP, limit=DEPTH)
     states["pass10"] = (stf, sti)
+    stf, sti = stf.clone(), sti.clone()
+    lanes = mk.LaneList.of_state(stf, sti)
     passes, live = 10, n
     while live >= MEGA_LATE * n:
-        stf, sti, live_t = mega_pass(stf, sti, wd, scalf, 0, RES, SPP, limit=DEPTH)
-        live, passes = int(live_t), passes + 1
+        mega_pass(stf, sti, wd, scalf, 0, RES, SPP, lanes, limit=DEPTH)
+        live, passes = lanes.advance(), passes + 1
     if live == 0:
         raise AssertionError("the render ended before a late state was reached")
     states[f"late (pass {passes})"] = (stf, sti)
     return states
 
 
+# bytes a pass moves per listed lane: reads ro, rd, throughput, alive, k,
+# bounce and its list entry (52 B); writes 16 + 8 state rows and its next
+# list entry (100 B); and per escaped lane a 3 x int64 deposit read and
+# written (48 B)
+K4_LANE_BYTES, K4_DEPOSIT_BYTES = 152, 48
+
+
 def check_bounce_megakernel(device):
     """K4 against its plain twin on the card, one pass from each of
-    ``mega_states``; returns the kernels-line entry (without ``launches``).
-    Every row must be equal bit for bit, as measured on the H100: the
-    integer rows (k, bounce, nearest sphere), the alive row, the live count,
-    the fixed-point deposits and the float rows. A float row that differs is
-    named with its count of differing lanes and its max |diff| before the
-    check fails."""
+    ``mega_states``: the kernel over the state's lane list
+    (``LaneList.of_state``), in place on a copy of the state, the twin over
+    every lane. Every row must be equal bit for bit, as measured on the
+    H100: the integer rows (k, bounce, nearest sphere), the alive row, the
+    live count, the fixed-point deposits and the float rows (a float row
+    that differs is named with its count of differing lanes and its max
+    |diff| before the check fails); and the next list must hold the lanes
+    alive after the pass, then those that died in it. Then each state's
+    pass is timed by CUDA events (the state restored before each run,
+    outside the timing) beside the twin's, with its own bound: its live
+    lanes' pair tests and its listed lanes' bytes. Returns the kernels-line
+    entry (the primary state's pass, without ``launches``) and
+    ``device_times()``, to be called after the timed frames: each state's
+    pass timed on the device by the profiler (it sets the entry's
+    ``device_ms``)."""
     import torch
 
     from learn_path_tracing_tpu_torch.integrator.persistent import bounce_pass_plain, mega_pass
@@ -380,56 +556,96 @@ def check_bounce_megakernel(device):
     wd = random_scene(seed=SCENE_SEED).device(device)
     cp = stage10_camera(RES).params(device)
     scalf = mk.pack_camera(cp, RES)
-    max_err = 0.0
+    s = wd.scan_table.shape[0]
+    max_err, entry, timers = 0.0, None, []
     for name, (stf, sti) in mega_states(wd, cp, scalf, device).items():
-        live_in = int((stf[mk.ALIVE] > 0.5).sum())
-        out = {}
-        for kind, fn in (("kernel", mega_pass), ("twin", bounce_pass_plain)):
-            acc = torch.zeros((n, 3), dtype=torch.int64, device=device)
-            out[kind] = fn(stf, sti, wd, scalf, 0, RES, SPP, limit=DEPTH, acc=acc) + (acc,)
+        lanes = mk.LaneList.of_state(stf, sti)
+        accs = [torch.zeros((n, 3), dtype=torch.int64, device=device) for _ in range(2)]
+        ks, ki = stf.clone(), sti.clone()
+        mega_pass(ks, ki, wd, scalf, 0, RES, SPP, lanes, limit=DEPTH, acc=accs[0])
+        kl = lanes.counters[:1].clone()
+        ps, pi, pl = bounce_pass_plain(stf, sti, wd, scalf, 0, RES, SPP, limit=DEPTH,
+                                       acc=accs[1])
         torch.cuda.synchronize()
-        (ks, ki, kl, ka), (ps, pi, pl, pa) = out["kernel"], out["twin"]
+        ka, pa = accs
+        alive_out = ps[mk.ALIVE] > 0.5
+        nxt = lanes.next[:lanes.alive].long()
+        live = int(pl)
         exact = {"k": bitwise_equal(ki[mk.K], pi[mk.K]),
                  "bounce": bitwise_equal(ki[mk.BOUNCE], pi[mk.BOUNCE]),
                  "sphere": bitwise_equal(ki[mk.OBJ], pi[mk.OBJ]),
                  "unused rows": bitwise_equal(ki[3:], pi[3:]) and bitwise_equal(ks[13:], ps[13:]),
                  "alive": bitwise_equal(ks[mk.ALIVE], ps[mk.ALIVE]),
-                 "live count": bitwise_equal(kl, pl), "deposits": bitwise_equal(ka, pa)}
+                 "live count": bitwise_equal(kl, pl), "deposits": bitwise_equal(ka, pa),
+                 "next list": (torch.equal(torch.sort(nxt).values,
+                                           torch.sort(lanes.lanes[:lanes.alive].long()).values)
+                               and bool(alive_out[nxt[:live]].all())
+                               and not bool(alive_out[nxt[live:]].any()))}
         rows = []
         for row, (lo, hi) in MEGA_ROWS.items():
             diff = (ks[lo:hi].view(torch.int32) != ps[lo:hi].view(torch.int32)).any(0)
-            lanes = int(diff.sum())
+            lanes_differ = int(diff.sum())
             err = float((ks[lo:hi] - ps[lo:hi]).abs().max())
             max_err = max(max_err, err)
-            if lanes:
-                rows.append(f"{row}: {lanes} lanes differ, max |diff| {err:.3g}")
-        _log(f"[k4] {name}: {live_in} live lanes in, {int(kl)} out, "
-             f"hit lanes {int((ki[mk.OBJ] >= 0).sum())}, bitwise equal: "
+            if lanes_differ:
+                rows.append(f"{row}: {lanes_differ} lanes differ, max |diff| {err:.3g}")
+        _log(f"[k4] {name}: {lanes.alive} live lanes in, {live} out, {lanes.count} listed, "
+             f"hit lanes {int((pi[mk.OBJ] >= 0).sum())}, bitwise equal: "
              f"{', '.join(f'{k} {v}' for k, v in exact.items())}; float rows "
              f"{'; '.join(rows) if rows else 'all bitwise equal'}")
         if not all(exact.values()) or rows:
             raise AssertionError(f"K4 differs from its twin on '{name}': {exact}; {rows}")
 
-    stf, sti = mk.initial_state(cp, RES, SPP, 0)
-    acc = torch.zeros((n, 3), dtype=torch.int64, device=device)
-    ms = cuda_ms(lambda: mk.bounce_pass(stf, sti, wd, scalf, 0, RES, SPP, limit=DEPTH,
-                                        acc=acc))
-    plain_ms = cuda_ms(lambda: bounce_pass_plain(stf, sti, wd, scalf, 0, RES, SPP,
-                                                 limit=DEPTH, acc=acc))
-    # every lane of the primary state is live: a full scan each, the state
-    # read and written once
-    live = int((stf[mk.ALIVE] > 0.5).sum())
-    b = bound(2 * nbytes(stf, sti) + nbytes(wd.scan_table, wd.scan_attrs, scalf, acc),
-              live * wd.scan_table.shape[0] * SCAN_FLOP_PER_PAIR)
-    _log(f"[k4] time of a pass from the primary state, {n} lanes x "
-         f"{wd.scan_table.shape[0]} spheres: kernel {ms:.4f} ms, plain twin "
-         f"{plain_ms:.4f} ms (median of 20), bound {b['bound_ms']:.4f} ms "
-         f"({b['bound_by']})")
-    return {"name": "bounce_megakernel", "id": "k4", "route": "cuda",
-            "source": "learn_path_tracing_tpu_torch/csrc/bounce_megakernel.cu",
-            "replaces": "learn_path_tracing_tpu/ops/bounce_megakernel.py:167",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **b,
-            "library_ms": None}
+        restore, run = _k4_pass(stf, sti, lanes, wd, scalf)
+        call_ms = cuda_ms(run, setup=restore)
+        plain_ms = cuda_ms(lambda: bounce_pass_plain(stf, sti, wd, scalf, 0, RES, SPP,
+                                                     limit=DEPTH, acc=accs[1]))
+        escaped = int((ps[mk.CONTRIB:mk.CONTRIB + 3] != 0).any(0).sum())
+        b = bound(lanes.count * K4_LANE_BYTES + escaped * K4_DEPOSIT_BYTES
+                  + nbytes(wd.scan_table, wd.scan_attrs, scalf),
+                  lanes.alive * s * SCAN_FLOP_PER_PAIR)
+        label = (f"a pass from the {name} state, {lanes.count} listed lanes ({lanes.alive} "
+                 f"live) x {s} spheres")
+        _log(f"[k4] time of {label}: the call {call_ms:.4f} ms by CUDA events, plain twin "
+             f"(all {n} lanes) {plain_ms:.4f} ms (median of 20 each), bound "
+             f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+        timers.append((label, restore, run, b))
+        if entry is None:
+            entry = {"name": "bounce_megakernel", "id": "k4", "route": "cuda",
+                     "source": "learn_path_tracing_tpu_torch/csrc/bounce_megakernel.cu",
+                     "replaces": "learn_path_tracing_tpu/ops/bounce_megakernel.py:167",
+                     "ms": call_ms, "plain_ms": plain_ms, **b, "library_ms": None}
+    entry["max_abs_err"] = max_err
+
+    def device_times():
+        for label, restore, run, b in timers:
+            ms = kernel_ms(run, "bounce_pass_kernel", setup=restore)
+            entry.setdefault("device_ms", ms)
+            _log(f"[k4 device] {label}: kernel {ms:.4f} ms on the device (profiler, median "
+                 f"of 20), {b['bound_ms'] / ms:.3f} of the bound")
+
+    return entry, device_times
+
+
+def _k4_pass(stf, sti, lanes, wd, scalf):
+    """``(restore, run)`` for timing K4's pass from ``(stf, sti)`` over
+    ``lanes``: ``restore()`` copies the state into a work copy, ``run()``
+    runs the pass on it, depositing into an accumulator of its own."""
+    import torch
+
+    from learn_path_tracing_tpu_torch.ops import bounce_megakernel as mk
+
+    acc = torch.zeros((stf.shape[1], 3), dtype=torch.int64, device=stf.device)
+    work_stf, work_sti = stf.clone(), sti.clone()
+
+    def restore():
+        work_stf.copy_(stf)
+        work_sti.copy_(sti)
+
+    def run():
+        mk.bounce_pass(work_stf, work_sti, wd, scalf, 0, RES, SPP, lanes, limit=DEPTH, acc=acc)
+
+    return restore, run
 
 
 def check_mega_gpu_vs_cpu(device):
@@ -514,9 +730,12 @@ def mega_headline(device, modular):
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         prof_wall = frame()
+    listed = st["listed"]     # the lanes each pass listed (every frame's are the same)
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
-    k4_ms = sum(e.time_range.elapsed_us() for e in dev if "bounce_pass_kernel" in e.name) / 1e3
+    k4 = sorted((e for e in dev if "bounce_pass_kernel" in e.name),
+                key=lambda e: e.time_range.start)
+    k4_ms = sum(e.time_range.elapsed_us() for e in k4) / 1e3
     med = statistics.median(walls)
     _log(f"[mega headline] frames {', '.join(f'{w:.4f}' for w in walls)} s (median "
          f"{med:.4f} s = {segs / med / 1e6:.3f} Mrays/s); profiled frame {prof_wall:.4f} s: "
@@ -524,6 +743,16 @@ def mega_headline(device, modular):
          f"idle {1.0 - busy_ms / (med * 1e3):.4f} of the median frame")
     if not dev:
         raise AssertionError("torch.profiler recorded no device events")
+    if len(k4) != len(listed):
+        raise AssertionError(f"{len(k4)} K4 events for {len(listed)} passes")
+    n = RES[0] * RES[1]
+    cells = []
+    for lo, hi in ((n // 2, n), (n // 10, n // 2), (n // 100, n // 10), (0, n // 100)):
+        sel = [e.time_range.elapsed_us() / 1e3 for e, c in zip(k4, listed) if lo < c <= hi]
+        cells.append(f"({lo}, {hi}]: {len(sel)} passes, {sum(sel):.3f} ms"
+                     + (f" ({sum(sel) / len(sel):.4f} ms each)" if sel else ""))
+    _log(f"[mega headline] K4 device ms of the profiled frame by listed lanes: "
+         f"{'; '.join(cells)}")
     return launches
 
 
@@ -1500,8 +1729,10 @@ def main(argv=None) -> int:
         print(card)
         return 0
 
-    k1 = check_sphere_scan(device)
-    k4 = check_bounce_megakernel(device)
+    # the profiler's device times come last (see kernel_ms)
+    k1, k1_device_times = check_sphere_scan(device)
+    bvh_device_times = bvh_phase(device)
+    k4, k4_device_times = check_bounce_megakernel(device)
     check_gpu_vs_cpu(device)
     check_mega_gpu_vs_cpu(device)
     with tempfile.TemporaryDirectory() as directory:
@@ -1535,6 +1766,12 @@ def main(argv=None) -> int:
         l13_phase(device, directory)
     k1["launches"], modular = headline(device)
     k4["launches"] = mega_headline(device, modular)
+    k1_widths = k1_device_times()
+    _log(f"[k1 frame] K1 device ms in the modular headline frame (passes x kernel ms at "
+         f"each width, {dict((w, round(ms, 4)) for w, ms in k1_widths.items())}): "
+         f"{k1_frame_ms(k1_widths, modular):.3f} ms")
+    bvh_device_times()
+    k4_device_times()
 
     print(card)
     print(json.dumps({"kernels": [k1, tri_kernels["k2"], k3, k4, tri_kernels["k5a"],

@@ -1,10 +1,11 @@
 // Fused persistent bounce pass (the mega engine) for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel learn_path_tracing_tpu/ops/bounce_megakernel.py::
-// _kernel (entry bounce_pass). One thread runs one lane of the persistent
-// integrator's mega schedule through one whole pass, with every
+// _kernel (entry bounce_pass). One thread runs one listed lane of the
+// persistent integrator's mega schedule through one whole pass, with every
 // intermediate in registers:
-//   1. the nearest sphere over the whole table (K1's exact form, below);
+//   1. the nearest sphere over the whole table (K1's exact pair test,
+//      sphere_pair.cuh);
 //   2. the winner's attribute row, its outward normal and the back-face
 //      flip (scene/world.py::hit);
 //   3. the escaped ray's sky radiance times its throughput (the contrib
@@ -14,8 +15,8 @@
 //      bounce, pixel);
 //   5. the work-item advance and the thin-lens primary ray of the next item
 //      (camera/camera.py::thin_lens_rays);
-//   6. the select of the next state, and a count of the lanes alive after
-//      the pass (one atomic add per block).
+//   6. the select of the next state, written in place, and the lane's entry
+//      in the next pass's lane list.
 //
 // State (the JAX package's layout, lane = column, row-major):
 //   stf f32[16,n]: 0-2 ro, 3-5 rd, 6-8 throughput, 9 alive (1/0),
@@ -42,21 +43,37 @@
 // angle-difference form). So the pass computes the modular engine's
 // per-sample values.
 //
-// Design: one thread per lane, 256 threads per block; the grid masks the
-// ragged edge. Each block with a live lane stages the sphere table through
-// shared memory in chunks of kChunk spheres (20 KB), as K1 does, and every
-// live thread walks the chunk (broadcast reads). A block with no live lane
-// skips the scan and copies its lanes' state through. Bound: FP32 ALU work
-// of the scan (spheres x live lanes, ~20 FLOP and one sqrt per pair); the
-// shading is ~300 operations per live lane and the state traffic 96 bytes
-// in and out per lane. Dead lanes inside a block with live ones idle
-// through the scan (warp divergence); the tail of a render is made of such
-// passes. This version is written to be right; compaction and tuning are
-// later work.
+// Bound: FP32 ALU work of the scan (spheres x live lanes, ~20 operations a
+// pair, no FMA under exact rounding); the shading is ~300 operations per
+// live lane, and the state traffic at most 52 bytes in and 100 out per
+// listed lane.
+//
+// Design: a pass runs over a compacted list of lanes, one thread per
+// listed lane, 256 threads per block, in place. A lane that is dead on
+// entry never lives again (alive' = survived || regen, and a dead lane has
+// neither), so the list only shrinks. The pass writes the next list: the
+// lanes alive after it at the front, and at the back, once, the lanes that
+// died in it; so a lane stays listed for one pass after its death, writes
+// the rows the plain version gives a dead lane (contrib 0, sphere -1,
+// bounce 0), and drops out. Every later pass would rewrite those same rows,
+// so the whole state stays the plain version's after every pass. Entries
+// are appended with one atomic add per warp (warp-aggregated); the order
+// within the list is free, since each lane's arithmetic is its own and the
+// deposits are integer adds. Alive lanes first keep the warps of the scan
+// uniform: a warp pays the scan only if a lane of it is alive, and only
+// the one warp at the boundary mixes the two. Each block with a live lane
+// stages the sphere table through shared memory in chunks of kChunk spheres
+// (20 KB) and every live thread walks the chunk (broadcast reads) with
+// sphere_pair.cuh's grouped scan; the sqrt runs only where disc >= 0. K1's
+// warp teams over sphere slices are not used: on the H100 the passes that
+// list under a tenth of the lanes, where they would help, took under 5 % of
+// the K4 time of a mega frame.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "sphere_pair.cuh"
 
 namespace {
 
@@ -207,29 +224,31 @@ __device__ __forceinline__ V3 refract(V3 d, V3 n, float ior) {
 // ---------------------------------------------------------------- kernel --
 
 struct Args {
-  const float* stf_in;
-  const int* sti_in;
-  float* stf_out;
-  int* sti_out;
+  float* stf;           // f32[16,n], updated in place for the listed lanes
+  int* sti;             // i32[8,n], likewise
   const float* table;   // f32[s,8]
   const float* attrs;   // f32[s,16]
   const float* cam;     // f32[16]
   unsigned long long* acc;  // i64[n,3] fixed point, or null
-  int* live;            // i32[1], zeroed before the launch
+  const int* lanes;     // i32[count]: the lanes of this pass
+  int* next;            // i32[alive_in]: the lanes of the next pass
+  int* counters;        // i32[2]: lanes alive after the pass, lanes that died
+                        // in it; zeroed before the launch
+  int count, alive_in;  // listed lanes; those alive on entry
   int n, s, spp, w, h, limit;
   float t_min;
   uint32_t seed;
 };
 
-// Steps 2-6 for one in-range lane, after the scan; returns whether the lane
+// Steps 2-6 for one listed lane, after the scan; returns whether the lane
 // is alive after the pass.
 __device__ __forceinline__ bool shade_and_store(const Args& a, int i, bool alive, V3 ro,
                                                 V3 rd, float t_best, int idx_best) {
   const int n = a.n;
-  V3 thp = {a.stf_in[(kThp + 0) * n + i], a.stf_in[(kThp + 1) * n + i],
-            a.stf_in[(kThp + 2) * n + i]};
-  const int k = a.sti_in[kK * n + i];
-  const int bounce = a.sti_in[kBounce * n + i];
+  V3 thp = {a.stf[(kThp + 0) * n + i], a.stf[(kThp + 1) * n + i],
+            a.stf[(kThp + 2) * n + i]};
+  const int k = a.sti[kK * n + i];
+  const int bounce = a.sti[kBounce * n + i];
   const int spp = a.spp;
   const int groups = n / spp;
   const int g = i / spp;
@@ -344,8 +363,8 @@ __device__ __forceinline__ bool shade_and_store(const Args& a, int i, bool alive
   }
   const bool alive_next = survived || regen;
 
-  // 6. the next state
-  float* so = a.stf_out;
+  // 6. the next state, over the lane's own columns (read above)
+  float* so = a.stf;
   so[(kRo + 0) * n + i] = ro_next.x;
   so[(kRo + 1) * n + i] = ro_next.y;
   so[(kRo + 2) * n + i] = ro_next.z;
@@ -360,7 +379,7 @@ __device__ __forceinline__ bool shade_and_store(const Args& a, int i, bool alive
   so[(kContrib + 1) * n + i] = contrib.y;
   so[(kContrib + 2) * n + i] = contrib.z;
   for (int r = kContrib + 3; r < kStfRows; ++r) so[r * n + i] = 0.f;
-  int* io = a.sti_out;
+  int* io = a.sti;
   io[kK * n + i] = next_k;
   io[kBounce * n + i] = survived ? bounce + 1 : 0;
   io[kObj * n + i] = hit ? idx_best : -1;
@@ -368,27 +387,41 @@ __device__ __forceinline__ bool shade_and_store(const Args& a, int i, bool alive
   return alive_next;
 }
 
+// The slot of this thread's entry among the entries its warp appends to a
+// list whose length is `*counter` (one atomic add per warp); every lane of
+// the warp calls it, and those with `take` false get an unused value.
+__device__ __forceinline__ int warp_append(bool take, int* counter) {
+  const unsigned mask = __ballot_sync(0xffffffffu, take);
+  if (mask == 0u) return 0;
+  const int lane = threadIdx.x & 31;
+  const int leader = __ffs(mask) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(counter, __popc(mask));
+  base = __shfl_sync(0xffffffffu, base, leader);
+  return base + __popc(mask & ((1u << lane) - 1u));
+}
+
 __global__ void __launch_bounds__(kThreads, 2) bounce_pass_kernel(Args a) {
   __shared__ float4 sph[kChunk];  // cx, cy, cz, r2
   __shared__ float flag[kChunk];
 
   const int n = a.n;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool in_range = i < n;
-  const bool alive = in_range && a.stf_in[kAlive * n + i] > 0.5f;
+  const int slot = blockIdx.x * kThreads + threadIdx.x;
+  const bool listed = slot < a.count;
+  const int i = listed ? a.lanes[slot] : 0;
+  const bool alive = listed && a.stf[kAlive * n + i] > 0.5f;
 
   V3 ro = {0.f, 0.f, 0.f}, rd = {0.f, 0.f, 0.f};
-  if (in_range) {
-    ro = {a.stf_in[(kRo + 0) * n + i], a.stf_in[(kRo + 1) * n + i],
-          a.stf_in[(kRo + 2) * n + i]};
-    rd = {a.stf_in[(kRd + 0) * n + i], a.stf_in[(kRd + 1) * n + i],
-          a.stf_in[(kRd + 2) * n + i]};
+  if (listed) {
+    ro = {a.stf[(kRo + 0) * n + i], a.stf[(kRo + 1) * n + i], a.stf[(kRo + 2) * n + i]};
+    rd = {a.stf[(kRd + 0) * n + i], a.stf[(kRd + 1) * n + i], a.stf[(kRd + 2) * n + i]};
   }
 
-  // 1. nearest sphere: K1's arithmetic (csrc/sphere_scan.cu), live lanes only
+  // 1. nearest sphere: K1's pair test (sphere_pair.cuh), live lanes only
   float t_best = INFINITY;
   int idx_best = 0;
   if (__syncthreads_or(alive)) {
+    const lpt::ScanRay r = {ro.x, ro.y, ro.z, rd.x, rd.y, rd.z};
     for (int s0 = 0; s0 < a.s; s0 += kChunk) {
       const int sc = min(kChunk, a.s - s0);
       __syncthreads();  // the previous chunk is no longer read
@@ -399,58 +432,54 @@ __global__ void __launch_bounds__(kThreads, 2) bounce_pass_kernel(Args a) {
       }
       __syncthreads();
       if (alive) {
-        for (int j = 0; j < sc; ++j) {
-          const float4 c = sph[j];
-          const float ocx = sub(ro.x, c.x);
-          const float ocy = sub(ro.y, c.y);
-          const float ocz = sub(ro.z, c.z);
-          const float half_b = -add(add(mul(ocx, rd.x), mul(ocy, rd.y)), mul(ocz, rd.z));
-          const float c0 = sub(add(add(mul(ocx, ocx), mul(ocy, ocy)), mul(ocz, ocz)), c.w);
-          const float disc = sub(mul(half_b, half_b), c0);
-          const float sq = sqrt_rn(disc);
-          const float t_near = sub(half_b, sq);
-          const bool use_far = (t_near < a.t_min) && (flag[j] > 1.5f);
-          const float t = use_far ? add(half_b, sq) : t_near;
-          if (t >= a.t_min && t < t_best) {
-            t_best = t;
-            idx_best = s0 + j;
-          }
-        }
+        lpt::scan_range(r, sph, flag, 0, sc, s0, a.t_min, t_best, idx_best);
       }
     }
   }
   bool alive_next = false;
-  if (in_range) alive_next = shade_and_store(a, i, alive, ro, rd, t_best, idx_best);
+  if (listed) alive_next = shade_and_store(a, i, alive, ro, rd, t_best, idx_best);
 
-  const int count = __syncthreads_count(alive_next);
-  if (threadIdx.x == 0 && count > 0) atomicAdd(a.live, count);
+  // the next list: lanes alive after the pass from the front, lanes that
+  // died in it from the back (once: they are dead on entry next time)
+  const bool died = alive && !alive_next;
+  const int front = warp_append(alive_next, a.counters);
+  const int back = warp_append(died, a.counters + 1);
+  if (alive_next) a.next[front] = i;
+  if (died) a.next[a.alive_in - 1 - back] = i;
 }
 
 }  // namespace
 
-// Plain C entry for ctypes. stf_in/stf_out: f32[16,n]; sti_in/sti_out:
-// i32[8,n]; table: f32[s,8]; attrs: f32[s,16]; cam: f32[16]; acc: i64[n,3]
-// or null; live: i32[1]. All contiguous on the current device, outputs not
-// aliasing inputs. Zeroes `live`, launches on `stream` and returns
-// cudaGetLastError() (0 on success) without synchronising.
-extern "C" int lpt_bounce_pass(const void* stf_in, const void* sti_in, void* stf_out,
-                               void* sti_out, const void* table, const void* attrs,
-                               const void* cam, void* acc, void* live, int n, int s,
+// Plain C entry for ctypes. stf: f32[16,n] and sti: i32[8,n], updated in
+// place for the lanes lanes[0:count] (distinct, alive_in of them alive in
+// stf); table: f32[s,8]; attrs: f32[s,16]; cam: f32[16]; acc: i64[n,3] or
+// null; next: i32[alive_in] or larger, receives the next pass's lanes;
+// counters: i32[2]. All contiguous on the current device. Zeroes
+// `counters`, launches on `stream` and returns cudaGetLastError() (0 on
+// success) without synchronising. After the pass, counters[0] lanes alive
+// after it fill next[0:counters[0]] and counters[1] lanes that died in it
+// fill the rest of next[0:alive_in].
+extern "C" int lpt_bounce_pass(void* stf, void* sti, const void* table, const void* attrs,
+                               const void* cam, void* acc, const void* lanes, int count,
+                               int alive_in, void* next, void* counters, int n, int s,
                                int spp, int w, int h, int limit, float t_min,
                                unsigned int seed, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(live, 0, sizeof(int), st);
+  cudaError_t err = cudaMemsetAsync(counters, 0, 2 * sizeof(int), st);
   if (err != cudaSuccess) return (int)err;
+  if (count <= 0) return (int)cudaGetLastError();
   Args a;
-  a.stf_in = (const float*)stf_in;
-  a.sti_in = (const int*)sti_in;
-  a.stf_out = (float*)stf_out;
-  a.sti_out = (int*)sti_out;
+  a.stf = (float*)stf;
+  a.sti = (int*)sti;
   a.table = (const float*)table;
   a.attrs = (const float*)attrs;
   a.cam = (const float*)cam;
   a.acc = (unsigned long long*)acc;
-  a.live = (int*)live;
+  a.lanes = (const int*)lanes;
+  a.next = (int*)next;
+  a.counters = (int*)counters;
+  a.count = count;
+  a.alive_in = alive_in;
   a.n = n;
   a.s = s;
   a.spp = spp;
@@ -459,7 +488,7 @@ extern "C" int lpt_bounce_pass(const void* stf_in, const void* sti_in, void* stf
   a.limit = limit;
   a.t_min = t_min;
   a.seed = seed;
-  const int blocks = (n + kThreads - 1) / kThreads;
+  const int blocks = (count + kThreads - 1) / kThreads;
   bounce_pass_kernel<<<blocks, kThreads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }

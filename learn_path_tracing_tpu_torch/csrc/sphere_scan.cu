@@ -3,58 +3,73 @@
 // Replaces the TPU kernel learn_path_tracing_tpu/ops/sphere_scan.py::_kernel
 // (entry intersect_spheres_pallas). For each ray it finds the nearest sphere
 // over the whole table in exact f32, then copies that sphere's attribute row.
-//
-// Math, per (ray, sphere), in this order and with every operation rounded on
-// its own (the __f*_rn intrinsics are never contracted into FMAs, and the
-// library is also built with -fmad=false):
-//   oc = ro - c;  half_b = -(oc.rd);  c0 = oc.oc - r2;  disc = half_b^2 - c0
-//   sq = sqrt(disc) (IEEE);  t = half_b - sq, or half_b + sq for a
-//   transparent sphere (flag > 1.5) whose near root is below t_min.
-// A miss or a padding row (r2 = -inf) gives disc < 0 and sq = NaN; every
-// compare with NaN is false, so it never passes t >= t_min. The best hit
-// is replaced only on t < t_best, so the first index wins ties. Misses keep
-// t = +inf and idx = 0; callers mask with isfinite(t). This is the same
-// sequence as the plain PyTorch twin in ops/sphere_scan.py, so the two agree
-// bit for bit.
-//
-// Design: one thread per ray. Each block stages the sphere table through
-// shared memory in chunks of kChunk spheres (20 bytes each: 20 KB), and every
-// thread walks the chunk; all threads of a warp read the same sphere, so the
-// shared-memory reads are broadcasts. The epilogue reads the winner's 16-float
-// attribute row as four 16-byte loads and writes it the same way.
+// The pair arithmetic is sphere_pair.cuh's (shared with K4). Misses keep
+// t = +inf and idx = 0; callers mask with isfinite(t).
 //
 // Bound: FP32 ALU work. On the main path a full pass is 57,344 rays x 512
-// spheres = 29 M ray-sphere pairs at about 20 FLOP and one sqrt each; the
-// bytes moved (rays in, t/idx/attr out, a 16 KB table per block) are
-// trivial. The TPU kernel's [sphere, ray] VMEM tiling and its bf16 one-hot
-// epilogue are not carried over. This version is written to be right;
-// tensor cores, TMA and tuning are later work.
+// spheres = 29 M ray-sphere pairs at about 20 operations each; the bytes
+// moved (rays in, t/idx/attr out, the table) are trivial. Exact rounding
+// rules out FMAs, so every operation takes an issue slot of its own.
+//
+// Design: warp teams over sphere slices. A block holds `teams` groups of
+// 32 rays; each group is scanned by `slices` warps (P, chosen by the
+// wrapper from the ray and sphere counts, ops/sphere_scan.py::team_slices),
+// warp w taking slice w mod P of every shared-memory chunk of the table
+// (contiguous index ranges, scanned in increasing order). All lanes of a
+// warp read the same sphere, so the shared-memory loads are broadcasts and
+// the loop bounds are warp-uniform. Each warp keeps the serial rule's best
+// (t, idx) of its slice; the P partial results are then reduced in shared
+// memory as a tree to the lexicographically least (t, idx). That equals
+// the serial scan's result: only t >= t_min is a candidate, the serial
+// scan keeps the least t, and among equal t the first index, which is the
+// least. A wide pass (57,344 rays) takes few slices and fills the card with
+// ray groups; a drain pass (256 rays) takes 32 slices of 16 spheres, so its
+// few rays still spread over 32 warps each. The sqrt runs only for pairs
+// with disc >= 0 (see sphere_pair.cuh). The epilogue copies the winners'
+// 64-byte attribute rows as 16-byte quarters, one quarter a thread.
+//
+// The TPU kernel's [sphere, ray] VMEM tiling and its bf16 one-hot epilogue
+// are not carried over.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "sphere_pair.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kChunk = 1024;   // spheres staged per shared-memory pass
-constexpr int kTableCols = 8;  // cx, cy, cz, r2, flag, 3 unused
-constexpr int kAttr = 16;      // attribute floats per sphere
+constexpr int kChunk = 1024;       // spheres staged per shared-memory pass
+constexpr int kTableCols = 8;      // cx, cy, cz, r2, flag, 3 unused
+constexpr int kAttrQuarters = 4;   // 16 attribute floats per sphere, as float4
+constexpr int kMinWarps = 8;       // a block has max(kMinWarps, slices) warps
+constexpr int kMaxSlices = 32;
+constexpr int kMaxThreads = 32 * kMaxSlices;
+constexpr int kMaxRays = 32 * kMinWarps;   // rays of a block (slices = 1)
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 sphere_scan_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
                    const float* __restrict__ table,
                    const float4* __restrict__ attrs,
                    float* __restrict__ t_out, int* __restrict__ idx_out,
-                   float4* __restrict__ attr_out, int n, int s, float t_min) {
+                   float4* __restrict__ attr_out, int n, int s, float t_min, int slices) {
   __shared__ float4 sph[kChunk];   // cx, cy, cz, r2
   __shared__ float flag[kChunk];
+  __shared__ float part_t[kMaxThreads];
+  __shared__ int part_i[kMaxThreads];
+  __shared__ int winner[kMaxRays];
 
-  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int team = warp / slices;
+  const int slice = warp - team * slices;
+  const int rays = (blockDim.x >> 5) / slices * 32;   // rays of this block
+  const int ray0 = blockIdx.x * rays;
+  const int i = ray0 + team * 32 + lane;
   const bool active = i < n;
-  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
+  lpt::ScanRay r = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   if (active) {
-    ox = ro[3 * i + 0]; oy = ro[3 * i + 1]; oz = ro[3 * i + 2];
-    dx = rd[3 * i + 0]; dy = rd[3 * i + 1]; dz = rd[3 * i + 2];
+    r = {ro[3 * i + 0], ro[3 * i + 1], ro[3 * i + 2],
+         rd[3 * i + 0], rd[3 * i + 1], rd[3 * i + 2]};
   }
 
   float t_best = INFINITY;
@@ -62,43 +77,51 @@ sphere_scan_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
   for (int s0 = 0; s0 < s; s0 += kChunk) {
     const int sc = min(kChunk, s - s0);
     __syncthreads();  // the previous chunk is no longer read
-    for (int j = threadIdx.x; j < sc; j += kThreads) {
+    for (int j = threadIdx.x; j < sc; j += blockDim.x) {
       const float* row = table + (size_t)(s0 + j) * kTableCols;
       sph[j] = make_float4(row[0], row[1], row[2], row[3]);
       flag[j] = row[4];
     }
     __syncthreads();
+    const int per = (sc + slices - 1) / slices;
+    lpt::scan_range(r, sph, flag, slice * per, min((slice + 1) * per, sc), s0, t_min, t_best,
+                    idx_best);
+  }
 
-    for (int j = 0; j < sc; ++j) {
-      const float4 c = sph[j];
-      const float ocx = __fsub_rn(ox, c.x);
-      const float ocy = __fsub_rn(oy, c.y);
-      const float ocz = __fsub_rn(oz, c.z);
-      const float half_b = -__fadd_rn(
-          __fadd_rn(__fmul_rn(ocx, dx), __fmul_rn(ocy, dy)), __fmul_rn(ocz, dz));
-      const float c0 = __fsub_rn(
-          __fadd_rn(__fadd_rn(__fmul_rn(ocx, ocx), __fmul_rn(ocy, ocy)),
-                    __fmul_rn(ocz, ocz)),
-          c.w);
-      const float disc = __fsub_rn(__fmul_rn(half_b, half_b), c0);
-      const float sq = __fsqrt_rn(disc);
-      const float t_near = __fsub_rn(half_b, sq);
-      const bool use_far = (t_near < t_min) && (flag[j] > 1.5f);
-      const float t = use_far ? __fadd_rn(half_b, sq) : t_near;
-      if (t >= t_min && t < t_best) {
+  // the slices' (t, idx), reduced as a tree to the lexicographic least
+  // (thread k holds slice k / 32 % slices of its team's rays; its partner
+  // at each level is the thread `half` warps on)
+  part_t[threadIdx.x] = t_best;
+  part_i[threadIdx.x] = idx_best;
+  for (int half = slices >> 1; half > 0; half >>= 1) {
+    __syncthreads();  // the previous level's partial results are written
+    if (slice < half) {
+      const float t = part_t[threadIdx.x + half * 32];
+      const int j = part_i[threadIdx.x + half * 32];
+      if (t < t_best || (t == t_best && j < idx_best)) {
         t_best = t;
-        idx_best = s0 + j;
+        idx_best = j;
+        part_t[threadIdx.x] = t;
+        part_i[threadIdx.x] = j;
       }
     }
   }
+  if (slice == 0) {
+    winner[team * 32 + lane] = idx_best;
+    if (active) {
+      t_out[i] = t_best;
+      idx_out[i] = idx_best;
+    }
+  }
+  __syncthreads();
 
-  if (active) {
-    t_out[i] = t_best;
-    idx_out[i] = idx_best;
-    const float4* a = attrs + (size_t)idx_best * (kAttr / 4);
-    float4* o = attr_out + (size_t)i * (kAttr / 4);
-#pragma unroll
-    for (int q = 0; q < kAttr / 4; ++q) o[q] = a[q];
+  // the winners' attribute rows, a 16-byte quarter a thread
+  for (int q = threadIdx.x; q < rays * kAttrQuarters; q += blockDim.x) {
+    const int k = q / kAttrQuarters, part = q % kAttrQuarters;
+    if (ray0 + k < n) {
+      attr_out[(size_t)(ray0 + k) * kAttrQuarters + part] =
+          attrs[(size_t)winner[k] * kAttrQuarters + part];
+    }
   }
 }
 
@@ -106,17 +129,23 @@ sphere_scan_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
 
 // Plain C entry for ctypes. ro, rd: f32[n,3]; table: f32[s,8]; attrs:
 // f32[s,16]; t_out: f32[n]; idx_out: i32[n]; attr_out: f32[n,16]; all
-// contiguous on the current device. Launches on `stream` and returns
-// cudaGetLastError() (0 on success) without synchronising.
+// contiguous on the current device. `slices` (1, 2, 4, 8, 16 or 32) is the
+// number of warps that share each group of 32 rays. Launches on `stream`
+// and returns cudaGetLastError() (0 on success) without synchronising.
 extern "C" int lpt_sphere_scan(const void* ro, const void* rd,
                                const void* table, const void* attrs,
                                void* t_out, void* idx_out, void* attr_out,
-                               int n, int s, float t_min, void* stream) {
-  const int blocks = (n + kThreads - 1) / kThreads;
-  sphere_scan_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+                               int n, int s, float t_min, int slices, void* stream) {
+  if (slices < 1 || slices > kMaxSlices || (slices & (slices - 1)) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int warps = slices > kMinWarps ? slices : kMinWarps;
+  const int rays = warps / slices * 32;
+  const int blocks = (n + rays - 1) / rays;
+  sphere_scan_kernel<<<blocks, 32 * warps, 0, (cudaStream_t)stream>>>(
       (const float*)ro, (const float*)rd, (const float*)table,
       (const float4*)attrs, (float*)t_out, (int*)idx_out, (float4*)attr_out,
-      n, s, t_min);
+      n, s, t_min, slices);
   return (int)cudaGetLastError();
 }
 

@@ -37,9 +37,11 @@ The mega engine (``engine='mega'``) keeps the JAX package's schedule for
 it: the grouped schedule with a pool of ``n`` lanes, no halving and no
 drain. On a card each pass is one fused kernel launch
 (``ops.bounce_megakernel``, K4) that also deposits into the same fixed-point
-accumulator, so its image is order-free too. The kernel's plain version,
-``bounce_pass_plain``, is this module's ``step`` on the kernel's state
-layout, so the two engines share one step.
+accumulator, so its image is order-free too. The passes run over a shrinking
+list of lanes (``LaneList``): the lanes alive, and once more those that just
+died, updated in place; the state stays the all-lanes pass's. The kernel's
+plain version, ``bounce_pass_plain``, is this module's ``step`` on the
+kernel's state layout, so the two engines share one step.
 """
 
 from __future__ import annotations
@@ -297,52 +299,73 @@ def _check_mega(n: int, spp: int, bsdf: str, camera_model: str, scene: str,
 def _render_mega(world_data, cam: CameraParams, resolution, spp: int, limit: int, seed):
     """The mega engine: ``mega_schedule``'s ``W·H`` lanes, lane ``L`` owning
     sample ``L % spp`` of the pixels ``L // spp + k·(W·H/spp)``. While a lane
-    lives, one ``mega_pass`` advances every lane and deposits its escaped
-    radiance into the fixed-point accumulator. Returns ``(acc f32[n,3],
-    segments int, {"passes": int})``."""
+    lives, one ``mega_pass`` over the list of lanes that can still change
+    (``ops.bounce_megakernel.LaneList``) advances them in place and deposits
+    their escaped radiance into the fixed-point accumulator. Returns
+    ``(acc f32[n,3], segments int, {"passes": int, "listed": [int]})``, where
+    ``listed`` holds the lanes each pass visited."""
     w, h = resolution
     n = w * h
     stf, sti = mk.initial_state(cam, resolution, spp, seed)
     scalf = mk.pack_camera(cam, resolution)
     acc = torch.zeros((n, 3), dtype=torch.int64, device=cam.device)
-    live, segments, passes = n, 0, 0
+    lanes = mk.LaneList.of_state(stf, sti)
+    live, segments, listed = lanes.alive, 0, []
     while live > 0:
         segments += live
-        stf, sti, live_t = mega_pass(stf, sti, world_data, scalf, seed, resolution, spp,
-                                     limit=limit, acc=acc)
-        live = int(live_t)
-        passes += 1
-    return (acc.to(torch.float64) / _FIXED_ONE).to(torch.float32), segments, {"passes": passes}
+        listed.append(lanes.count)
+        mega_pass(stf, sti, world_data, scalf, seed, resolution, spp, lanes, limit=limit,
+                  acc=acc)
+        live = lanes.advance()
+    acc_f32 = (acc.to(torch.float64) / _FIXED_ONE).to(torch.float32)
+    return acc_f32, segments, {"passes": len(listed), "listed": listed}
 
 
-def mega_pass(stf, sti, world_data, scalf, seed, resolution, spp: int,
+def mega_pass(stf, sti, world_data, scalf, seed, resolution, spp: int, lanes,
               limit: int = 32, t_min: float = mk.T_MIN, acc=None):
-    """One pass of the mega engine → ``(stf', sti', live)``, on
-    ``ops.bounce_megakernel``'s state layout: kernel K4
-    (``ops.bounce_megakernel.bounce_pass``) for CUDA tensors, its plain
-    version ``bounce_pass_plain`` for CPU tensors, and ``ValueError`` for
-    any other device."""
+    """One pass of the mega engine over the lanes of ``lanes`` (an
+    ``ops.bounce_megakernel.LaneList``), on that module's state layout:
+    kernel K4 (``ops.bounce_megakernel.bounce_pass``) for CUDA tensors, its
+    plain version ``bounce_pass_plain`` for CPU tensors, and ``ValueError``
+    for any other device. The listed lanes are updated in place and the
+    next list and its counts are written into ``lanes``."""
     if stf.device.type == "cpu":
-        mk.check_operands(stf, sti, world_data, scalf, resolution, spp, acc)
-        return bounce_pass_plain(stf, sti, world_data, scalf, seed, resolution, spp,
-                                 limit, t_min, acc)
-    return mk.bounce_pass(stf, sti, world_data, scalf, seed, resolution, spp, limit,
-                          t_min, acc)
+        mk.check_operands(stf, sti, world_data, scalf, resolution, spp, acc, lanes)
+        bounce_pass_plain(stf, sti, world_data, scalf, seed, resolution, spp, limit, t_min,
+                          acc, lanes)
+    else:
+        mk.bounce_pass(stf, sti, world_data, scalf, seed, resolution, spp, lanes, limit,
+                       t_min, acc)
 
 
 def bounce_pass_plain(stf, sti, world_data, scalf, seed, resolution, spp: int,
-                      limit: int = 32, t_min: float = mk.T_MIN, acc=None):
+                      limit: int = 32, t_min: float = mk.T_MIN, acc=None, lanes=None):
     """Kernel K4's plain version, on any device: ``step`` on the kernel's
     state layout and ``mega_schedule``, with the plain sphere scan, the sky,
     ``scatter_modern`` and thin-lens primaries from ``scalf``. So on the CPU
-    it gives the modular engine's samples exactly. Arguments and result as
-    ``ops.bounce_megakernel.bounce_pass``'s."""
+    it gives the modular engine's samples exactly. With ``lanes`` it is
+    ``ops.bounce_megakernel.bounce_pass``: it steps the listed lanes only,
+    in place, and writes the next list in the kernel's order by kind (lanes
+    alive after the pass, then those that died in it; each in lane order
+    here). Without it, the reference form: every lane, into new tensors,
+    returned as ``(stf', sti', live i32[1])``."""
     w, h = resolution
     n = w * h
-    alive = stf[mk.ALIVE] > 0.5
-    rays = Rays(ro=stf[mk.RO:mk.RO + 3].T.contiguous(), rd=stf[mk.RD:mk.RD + 3].T.contiguous(),
-                throughput=stf[mk.THP:mk.THP + 3].T.contiguous(), alive=alive)
+    if lanes is None:
+        lane = torch.arange(n, dtype=torch.int64, device=stf.device)
+        stf_in, sti_in = stf, sti
+    else:
+        lane = lanes.lanes[:lanes.count].to(torch.int64)
+        stf_in, sti_in = stf[:, lane], sti[:, lane]
+    alive = stf_in[mk.ALIVE] > 0.5
+    rays = Rays(ro=stf_in[mk.RO:mk.RO + 3].T.contiguous(),
+                rd=stf_in[mk.RD:mk.RD + 3].T.contiguous(),
+                throughput=stf_in[mk.THP:mk.THP + 3].T.contiguous(), alive=alive)
     frame = mk.unpack_camera(scalf)
+    item_of = item_fn(mega_schedule(n, spp), n, spp, stf.device)
+
+    def items(k):
+        return item_of(k, lane // spp, lane % spp)
 
     def hit(wd, r):
         scan = intersect_spheres_scan_plain(r.ro, r.rd, wd.scan_table, wd.scan_attrs,
@@ -354,21 +377,29 @@ def bounce_pass_plain(stf, sti, world_data, scalf, seed, resolution, spp: int,
         return Rays(ro=ro, rd=rd, throughput=torch.ones_like(ro), alive=alive)
 
     nxt, k, bounce, pixel, contrib, hits = step(
-        world_data, rays, sti[mk.K].to(torch.int64), sti[mk.BOUNCE].to(torch.int64),
-        item_fn(mega_schedule(n, spp), n, spp, stf.device), hit=hit,
-        background=_scene_fns("spheres")[1], scatter=scatter_modern, primary=primary,
-        seed=seed, limit=limit)
+        world_data, rays, sti_in[mk.K].to(torch.int64), sti_in[mk.BOUNCE].to(torch.int64),
+        items, hit=hit, background=_scene_fns("spheres")[1], scatter=scatter_modern,
+        primary=primary, seed=seed, limit=limit)
 
-    stf_out = torch.zeros_like(stf)
+    stf_out = torch.zeros_like(stf_in)
     stf_out[mk.RO:mk.RO + 3] = nxt.ro.T
     stf_out[mk.RD:mk.RD + 3] = nxt.rd.T
     stf_out[mk.THP:mk.THP + 3] = nxt.throughput.T
     stf_out[mk.ALIVE] = nxt.alive.to(torch.float32)
     stf_out[mk.CONTRIB:mk.CONTRIB + 3] = contrib.T
-    sti_out = torch.zeros_like(sti)
+    sti_out = torch.zeros_like(sti_in)
     sti_out[mk.K] = k.to(torch.int32)
     sti_out[mk.BOUNCE] = bounce.to(torch.int32)
     sti_out[mk.OBJ] = torch.where(alive, hits.obj, -1).to(torch.int32)
     if acc is not None:
         acc.index_add_(0, pixel, torch.round(contrib * _FIXED_ONE).to(torch.int64))
-    return stf_out, sti_out, nxt.alive.sum().to(torch.int32).reshape(1)
+    live = nxt.alive.sum().to(torch.int32).reshape(1)
+    if lanes is None:
+        return stf_out, sti_out, live
+    stf[:, lane] = stf_out
+    sti[:, lane] = sti_out
+    died = alive & ~nxt.alive
+    order = torch.cat([lane[nxt.alive], lane[died]]).to(torch.int32)
+    lanes.next[:order.numel()] = order
+    lanes.counters[0] = live[0]
+    lanes.counters[1] = died.sum()

@@ -43,10 +43,16 @@ workaround for the TPU:
 So the pass computes the modular engine's per-sample values, and the kernel
 follows its plain version's operations in order (see the source's header).
 
-Two additions over the JAX kernel: the pass can deposit its contributions
+Three additions over the JAX kernel: the pass can deposit its contributions
 into the render's int64 fixed-point accumulator (``acc``, 2**-32 units,
-order-free), and it returns the count of lanes alive after it (``live``,
-i32[1] on the device), so the render loop reads one integer per pass.
+order-free); it runs over a compacted list of lanes (``LaneList``) and
+updates the state in place, so a render's passes visit only the lanes still
+alive and, once, those that died in the pass before; and it counts the
+lanes alive after it and those that died in it on the device
+(``LaneList.counters``), which the render loop reads once per pass
+(``LaneList.advance``). Since a dead lane never lives again and a pass
+leaves a settled dead lane's rows as they are, the state after every listed
+pass is the all-lanes pass's, bit for bit.
 """
 
 from __future__ import annotations
@@ -108,7 +114,7 @@ def initial_state(cam, resolution, spp: int, seed):
     return stf, torch.zeros((STI_ROWS, n), dtype=torch.int32, device=dev)
 
 
-def check_operands(stf, sti, world_data, scalf, resolution, spp, acc=None):
+def check_operands(stf, sti, world_data, scalf, resolution, spp, acc=None, lanes=None):
     """Raise ``ValueError`` naming the first operand of a pass whose dtype,
     shape or device is not the layout's."""
     w, h = resolution
@@ -124,6 +130,9 @@ def check_operands(stf, sti, world_data, scalf, resolution, spp, acc=None):
                 ("scan_attrs", world_data.scan_attrs, torch.float32, (s, 16))]
     if acc is not None:
         operands.append(("acc", acc, torch.int64, (n, 3)))
+    if lanes is not None:
+        operands += [("lanes", lanes.lanes, torch.int32, (n,)),
+                     ("lanes.next", lanes.next, torch.int32, (n,))]
     for name, x, dtype, shape in operands:
         if x.dtype != dtype or tuple(x.shape) != shape:
             raise ValueError(f"bounce pass: {name} must be {dtype}{list(shape)}, "
@@ -132,53 +141,94 @@ def check_operands(stf, sti, world_data, scalf, resolution, spp, acc=None):
             raise ValueError(f"bounce pass: {name} is on {x.device}, state on {dev}")
 
 
-def bounce_pass(stf, sti, world_data, scalf, seed, resolution, spp: int,
+class LaneList:
+    """The lanes a mega pass visits, on the state's device.
+
+    ``lanes[:count]`` are distinct lanes, the first ``alive`` of them alive
+    on entry and the rest dead lanes whose rows are not yet those of a dead
+    lane (``of_state``). A pass over the list updates only those lanes, in
+    place, and writes the next list into ``next`` and ``counters`` (the
+    lanes alive after the pass, then the lanes that died in it: each lane
+    is listed once more after its death); ``advance`` then reads the two
+    counts (the pass's one host read) and makes that list the current one."""
+
+    def __init__(self, lanes, count: int, alive: int):
+        self.lanes = lanes                       # i32[N]
+        self.count, self.alive = count, alive
+        self.next = torch.empty_like(lanes)      # i32[N], written by a pass
+        self.counters = torch.zeros((2,), dtype=torch.int32, device=lanes.device)
+
+    @classmethod
+    def of_state(cls, stf, sti) -> "LaneList":
+        """The list a pass from ``(stf, sti)`` must visit: the alive lanes,
+        then the dead lanes whose rows a pass would still change (contrib
+        or rows 13-15 not zero, bounce not 0, sphere not -1, rows 3-7 of
+        ``sti`` not zero)."""
+        alive = stf[ALIVE] > 0.5
+        settled = (~alive & (stf[CONTRIB:].view(torch.int32) == 0).all(0)
+                   & (sti[BOUNCE] == 0) & (sti[OBJ] == -1) & (sti[OBJ + 1:] == 0).all(0))
+        first = torch.nonzero(alive).flatten()
+        rest = torch.nonzero(~alive & ~settled).flatten()
+        lanes = torch.zeros((stf.shape[1],), dtype=torch.int32, device=stf.device)
+        lanes[:first.numel()] = first.to(torch.int32)
+        lanes[first.numel():first.numel() + rest.numel()] = rest.to(torch.int32)
+        return cls(lanes, first.numel() + rest.numel(), first.numel())
+
+    def advance(self) -> int:
+        """After a pass over the list: the next list becomes the current one;
+        returns the number of lanes alive after the pass."""
+        live, died = self.counters.tolist()
+        if live + died != self.alive:
+            raise RuntimeError(f"lane list: {live} alive + {died} died after the pass, "
+                               f"but {self.alive} were alive on entry")
+        self.lanes, self.next = self.next, self.lanes
+        self.count, self.alive = self.alive, live
+        return live
+
+
+def bounce_pass(stf, sti, world_data, scalf, seed, resolution, spp: int, lanes: LaneList,
                 limit: int = 32, t_min: float = T_MIN, acc=None):
-    """One fused persistent pass of K4 on CUDA tensors → ``(stf', sti', live)``.
+    """One fused persistent pass of K4 on CUDA tensors, over the lanes of
+    ``lanes`` (a ``LaneList``), in place.
 
     ``world_data`` is a ``SphereWorldData`` on the state's device; ``scalf``
     is ``pack_camera``'s vector; ``seed`` an int (negative seeds wrap to
-    uint32, as in ``core.rng``). When ``acc`` (``i64[N,3]``) is given, the
-    pass adds ``round(contrib · 2**32)`` of its escaped lanes at pixel
-    ``g + k·(N/spp)`` (``k`` before the advance). Each launch counts in
-    ``bounce_pass.launches``. State on any other device raises.
+    uint32, as in ``core.rng``). The pass updates the listed lanes' columns
+    of ``stf``/``sti`` and writes the next list and its counts into
+    ``lanes`` (read them with ``lanes.advance()``). When ``acc``
+    (``i64[N,3]``) is given, it adds ``round(contrib · 2**32)`` of its
+    escaped lanes at pixel ``g + k·(N/spp)`` (``k`` before the advance).
+    Each launch counts in ``bounce_pass.launches``. State on any other
+    device raises.
     """
-    check_operands(stf, sti, world_data, scalf, resolution, spp, acc)
+    check_operands(stf, sti, world_data, scalf, resolution, spp, acc, lanes)
     if stf.device.type != "cuda":
         raise ValueError(f"bounce pass kernel: no kernel for device {stf.device} "
                          "(the plain version is integrator.persistent.bounce_pass_plain)")
-    return _launch(stf, sti, world_data, scalf, seed, resolution, spp, limit, t_min, acc)
-
-
-bounce_pass.launches = 0
-
-
-def _launch(stf, sti, world_data, scalf, seed, resolution, spp, limit, t_min, acc):
     table, attrs = world_data.scan_table, world_data.scan_attrs
     for name, x in (("stf", stf), ("sti", sti), ("scalf", scalf), ("scan_table", table),
-                    ("scan_attrs", attrs), ("acc", acc)):
+                    ("scan_attrs", attrs), ("acc", acc), ("lanes", lanes.lanes)):
         if x is not None and not x.is_contiguous():
             raise ValueError(f"bounce pass kernel: {name} must be contiguous")
     lib = load_kernel()
     w, h = resolution
     n = w * h
     dev = stf.device
-    stf_out = torch.empty_like(stf)
-    sti_out = torch.empty_like(sti)
-    live = torch.empty((1,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.lpt_bounce_pass(
-            stf.data_ptr(), sti.data_ptr(), stf_out.data_ptr(), sti_out.data_ptr(),
-            table.data_ptr(), attrs.data_ptr(), scalf.data_ptr(),
-            acc.data_ptr() if acc is not None else None, live.data_ptr(),
-            n, table.shape[0], spp, w, h, limit, float(t_min),
+            stf.data_ptr(), sti.data_ptr(), table.data_ptr(), attrs.data_ptr(),
+            scalf.data_ptr(), acc.data_ptr() if acc is not None else None,
+            lanes.lanes.data_ptr(), lanes.count, lanes.alive, lanes.next.data_ptr(),
+            lanes.counters.data_ptr(), n, table.shape[0], spp, w, h, limit, float(t_min),
             int(seed) & 0xFFFFFFFF, stream)
     if err != 0:
         msg = lib.lpt_error_string(err).decode()
         raise RuntimeError(f"bounce pass kernel launch failed: {msg} ({err})")
     bounce_pass.launches += 1
-    return stf_out, sti_out, live
+
+
+bounce_pass.launches = 0
 
 
 @functools.cache
@@ -186,7 +236,7 @@ def load_kernel() -> ctypes.CDLL:
     """Build (first use) and load the kernel library with its C signatures."""
     lib = build.load("bounce_megakernel")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.lpt_bounce_pass.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp,
+    lib.lpt_bounce_pass.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, vp, vp,
                                     ci, ci, ci, ci, ci, ci, ctypes.c_float,
                                     ctypes.c_uint32, vp]
     lib.lpt_bounce_pass.restype = ci

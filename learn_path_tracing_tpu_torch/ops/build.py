@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels at first use.
 
-Each kernel source ``csrc/<name>.cu`` has a plain C interface. It is compiled
-by ``nvcc`` for Hopper (``sm_90a``) into a shared library under ``_build/``
-(listed in ``.gitignore``), named with a hash of the source and the flags, and
-loaded with ``ctypes``. A changed source builds a new library; an unchanged
-one is reused. Nothing here runs at import time, so the CPU-only test
-environment can import every module.
+Each kernel source ``csrc/<name>.cu`` has a plain C interface and may include
+the shared headers ``csrc/*.cuh``. It is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into a shared library under ``_build/`` (listed in
+``.gitignore``), named with a hash of the source, the headers and the flags,
+and loaded with ``ctypes``. A changed source or header builds a new library;
+an unchanged one is reused. Nothing here runs at import time, so the CPU-only
+test environment can import every module.
 """
 
 from __future__ import annotations
@@ -45,8 +46,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of its source, the shared headers
+    of ``csrc/`` (``*.cuh``) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
 

@@ -6,7 +6,10 @@ sphere of the whole table in exact f32 (``oc = ro - c`` first), and the
 winner's 16 attribute floats. For a CUDA tensor it launches the hand-written
 kernel of ``csrc/sphere_scan.cu``; for a CPU tensor it runs the plain twin
 ``intersect_spheres_scan_plain``, the same math in PyTorch. There is no
-fallback between the two: a CUDA tensor launches the kernel or raises.
+fallback between the two: a CUDA tensor launches the kernel or raises. The
+kernel splits the table into ``team_slices(N, S, SMs)`` slices scanned by
+warps side by side and reduces their results to the least ``(t, idx)``,
+which is the serial scan's result.
 
 Tables (built once per world by ``pack_spheres``):
 
@@ -34,6 +37,11 @@ N_ATTR = 16
 TABLE_COLS = 8
 _CX, _CY, _CZ, _R2, _FLAG = range(5)
 PLAIN_CHUNK = 128  # spheres per step of the plain twin (bounds its [N, chunk] temporaries)
+# the kernel's warp teams (csrc/sphere_scan.cu): slices per group of 32 rays
+SLICE_CHOICES = (1, 2, 4, 8, 16, 32)
+MAX_SLICES = SLICE_CHOICES[-1]
+WARPS_PER_SM = 32         # warps a team choice aims to put on each SM
+MIN_SLICE = 16            # spheres a slice keeps at least
 
 
 def pack_spheres(centers, radii, transparency):
@@ -65,24 +73,51 @@ def _check(ro, rd, table, attrs):
         raise ValueError("sphere scan: empty sphere table")
 
 
+def team_slices(n: int, s: int, sms: int) -> int:
+    """Sphere slices ``P`` of the kernel's warp teams for ``n`` rays over
+    ``s`` spheres on a card of ``sms`` SMs: the least power of two that puts
+    ``WARPS_PER_SM`` warps on each SM, at most 32 and at most
+    ``s / MIN_SLICE`` (so a slice keeps at least ``MIN_SLICE`` spheres). On
+    the H100's 132 SMs, 57,344 rays over 512 spheres take 4; the drain
+    widths 7,168, 1,024 and 256 take 32."""
+    ray_warps = -(-n // 32)
+    p = 1
+    while (p < MAX_SLICES and ray_warps * p < sms * WARPS_PER_SM
+           and 2 * p * MIN_SLICE <= s):
+        p *= 2
+    return p
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def intersect_spheres_scan(ro, rd, table, attrs, t_min: float = T_MIN):
     """Nearest hit of ``N`` rays over the sphere table → ``(t, idx, attr)``.
 
     CUDA tensors launch the kernel (and count the launch in
-    ``intersect_spheres_scan.launches``); CPU tensors take the plain twin.
+    ``intersect_spheres_scan.launches``) with ``team_slices`` slices for the
+    card's SM count; CPU tensors take the plain twin.
     """
     _check(ro, rd, table, attrs)
     if ro.device.type == "cpu":
         return intersect_spheres_scan_plain(ro, rd, table, attrs, t_min)
     if ro.device.type != "cuda":
         raise ValueError(f"sphere scan: no kernel for device {ro.device}")
-    return _launch(ro, rd, table, attrs, t_min)
+    sms = _sm_count(ro.device.index if ro.device.index is not None
+                    else torch.cuda.current_device())
+    return _launch(ro, rd, table, attrs, t_min, team_slices(ro.shape[0], table.shape[0], sms))
 
 
 intersect_spheres_scan.launches = 0
 
 
-def _launch(ro, rd, table, attrs, t_min):
+def _launch(ro, rd, table, attrs, t_min, slices):
+    """The kernel with ``slices`` sphere slices per group of 32 rays (one of
+    ``SLICE_CHOICES``; the result does not depend on it)."""
+    if slices not in SLICE_CHOICES:
+        raise ValueError(f"sphere scan: slices must be one of {SLICE_CHOICES}, got {slices}")
     for name, x in (("ro", ro), ("rd", rd), ("table", table), ("attrs", attrs)):
         if not x.is_contiguous():
             raise ValueError(f"sphere scan kernel: {name} must be contiguous")
@@ -98,7 +133,7 @@ def _launch(ro, rd, table, attrs, t_min):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.lpt_sphere_scan(ro.data_ptr(), rd.data_ptr(), table.data_ptr(),
                                   attrs.data_ptr(), t.data_ptr(), idx.data_ptr(),
-                                  attr.data_ptr(), n, s, float(t_min), stream)
+                                  attr.data_ptr(), n, s, float(t_min), slices, stream)
     if err != 0:
         msg = lib.lpt_error_string(err).decode()
         raise RuntimeError(f"sphere scan kernel launch failed: {msg} ({err})")
@@ -112,7 +147,8 @@ def load_kernel() -> ctypes.CDLL:
     lib = build.load("sphere_scan")
     vp = ctypes.c_void_p
     lib.lpt_sphere_scan.argtypes = [vp, vp, vp, vp, vp, vp, vp,
-                                    ctypes.c_int, ctypes.c_int, ctypes.c_float, vp]
+                                    ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                    ctypes.c_int, vp]
     lib.lpt_sphere_scan.restype = ctypes.c_int
     lib.lpt_error_string.argtypes = [ctypes.c_int]
     lib.lpt_error_string.restype = ctypes.c_char_p

@@ -5,7 +5,8 @@ Counterpart of ``learn_path_tracing_tpu.scene.world``:
 - ``Sphere`` / ``World``: host-side scene construction;
 - ``SphereWorldData``: the padded structure-of-arrays tables on one device,
   produced by ``World.device(device)``, plus the sphere-scan kernel's packed
-  tables, built once here rather than on every pass;
+  tables, built once here rather than on every pass, and with
+  ``use_bvh=True`` the sphere BVH's traversal tables (kernel K3);
 - ``hit(world_data, rays)``: the wavefront nearest-hit query, with the
   reference's back-face handling (flip the normal, invert the ior).
 """
@@ -17,9 +18,12 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..accel.bvh import build_bvh
+from ..accel.wide import collapse
 from ..bsdf.sampling import sum3
 from ..core.types import Hits, Material, Materials, Rays
 from ..geometry.sphere import intersect_spheres, sphere_normal
+from ..ops.packet_traverse import pack_sphere_packet_tables, stack_cap, traverse
 from ..ops.sphere_scan import intersect_spheres_scan, pack_spheres
 
 _PAD = 128  # sphere tables are padded to a multiple of 128, as in the JAX package
@@ -49,6 +53,10 @@ class SphereWorldData:
     centers: torch.Tensor       # f32[S,3] (padded; radius==0 marks padding)
     radii: torch.Tensor         # f32[S]
     materials: Materials        # fields [S,...]
+    # the sphere BVH's traversal tables (nodes, entries, runs) and their
+    # stack bound, from World.device(use_bvh=True); None without it
+    bvh: tuple | None = None
+    bvh_stack: int = 0
     # sphere-scan kernel tables, derived from the fields above
     scan_table: torch.Tensor = field(init=False, repr=False)   # f32[S,8]
     scan_attrs: torch.Tensor = field(init=False, repr=False)   # f32[S,16]
@@ -72,9 +80,11 @@ class SphereWorldData:
         return self.centers.device
 
     def to(self, device) -> "SphereWorldData":
+        bvh = None if self.bvh is None else tuple(x.to(device) for x in self.bvh)
         return SphereWorldData(centers=self.centers.to(device),
                                radii=self.radii.to(device),
-                               materials=self.materials.to(device))
+                               materials=self.materials.to(device),
+                               bvh=bvh, bvh_stack=self.bvh_stack)
 
 
 class World:
@@ -92,10 +102,17 @@ class World:
     def size(self) -> int:
         return len(self.spheres)
 
-    def device(self, device=None) -> SphereWorldData:
-        """The scene as padded tables on ``device`` (cached per device)."""
+    def device(self, device=None, use_bvh: bool = False) -> SphereWorldData:
+        """The scene as padded tables on ``device`` (cached per device).
+
+        ``use_bvh=True`` also builds the JAX package's SAH sphere BVH (over
+        the unpadded spheres' boxes, ``max_depth=8``, ``max_leaf=4``),
+        collapsed to 8-wide nodes and packed into K3's tables, which
+        ``hit(..., backend='bvh')`` walks. A cached world built without it
+        is rebuilt with it."""
         key = str(torch.device(device or "cpu"))
-        if key not in self._cache:
+        cached = self._cache.get(key)
+        if cached is None or (use_bvh and cached.bvh is None):
             n = len(self.spheres)
             if n == 0:
                 raise ValueError("empty world")
@@ -107,10 +124,21 @@ class World:
                 radii[k] = s.radius
             mats = [s.material for s in self.spheres]
             mats += [Material()] * (padded - n)
+            bvh, stack = None, 0
+            if use_bvh:
+                c, r = centers[:n], radii[:n, None]
+                transparency = np.array([s.material.transparency for s in self.spheres],
+                                        np.float32)
+                tables = pack_sphere_packet_tables(
+                    collapse(build_bvh(c - r, c + r, centroid=c, max_depth=8, max_leaf=4)),
+                    c, radii[:n], transparency)
+                bvh = tuple(torch.as_tensor(x, device=device) for x in tables)
+                stack = stack_cap(tables[1])
             self._cache[key] = SphereWorldData(
                 centers=torch.as_tensor(centers, device=device),
                 radii=torch.as_tensor(radii, device=device),
                 materials=Materials.stack(mats, device=device),
+                bvh=bvh, bvh_stack=stack,
             )
         return self._cache[key]
 
@@ -125,7 +153,13 @@ def hit(world: SphereWorldData, rays: Rays, t_min: float = 1e-4,
       - 'cuda': the kernel; raises for tensors that are not on a card;
       - 'xla': the expanded-quadratic plain formulation
         (``geometry.sphere.intersect_spheres``), the JAX package's CPU default;
-      - 'bvh': not ported yet.
+      - 'bvh': a walk of the sphere BVH of ``World.device(use_bvh=True)``
+        (``ValueError`` on a world built without it):
+        ``ops.packet_traverse.traverse`` with sphere leaves, which launches
+        kernel K3 for CUDA tensors and runs its plain twin for CPU tensors.
+        Its leaf test is the scan's pair test with ``t > t_min`` (the scan
+        takes ``t >= t_min``) and its ties go to the smaller sphere index,
+        as the scan's do, so it finds the scan's hits.
     """
     if backend in ("auto", "cuda"):
         if backend == "cuda" and rays.ro.device.type != "cuda":
@@ -138,7 +172,16 @@ def hit(world: SphereWorldData, rays: Rays, t_min: float = 1e-4,
             world.materials.transparency, t_min=t_min)
         attr = world.scan_attrs[idx.to(torch.int64)]
     elif backend == "bvh":
-        raise NotImplementedError("hit backend 'bvh' comes with the mesh slice")
+        if world.bvh is None:
+            raise ValueError("World.device(use_bvh=True) required for 'bvh'")
+        n = rays.count
+        t, idx, _ = traverse(*world.bvh, rays.ro, rays.rd,
+                             torch.full((n,), float("inf"), dtype=torch.float32,
+                                        device=rays.ro.device),
+                             torch.ones((n,), dtype=torch.bool, device=rays.ro.device),
+                             eps=t_min, leaf_kind="sphere", stack=world.bvh_stack)
+        idx = torch.clamp_min(idx, 0)
+        attr = world.scan_attrs[idx.to(torch.int64)]
     else:
         raise ValueError(f"unknown hit backend: {backend!r}")
     return hit_record(rays, t, idx, attr)

@@ -53,7 +53,9 @@ def parse_args(cfg: RenderConfig, description="", argv=None) -> RenderConfig:
                    help="torch device to render on (default: cuda; the CPU "
                         "only when asked for with --device cpu)")
     p.add_argument("--hit-backend", type=str, default=cfg.hit_backend,
-                   choices=["auto", "cuda", "xla"])
+                   choices=["auto", "cuda", "xla", "bvh"],
+                   help="scene.world.hit backend; 'bvh' builds the sphere BVH and "
+                        "walks it (kernel K3 on the card)")
     a = p.parse_args(argv)
     require_device(a.device)
     return cfg.with_(width=a.width, height=a.height, spp=a.spp, out=a.out,
@@ -106,7 +108,7 @@ def run_path_traced(world, camera, cfg: RenderConfig, out_name, post=True):
     res = (cfg.width, cfg.height)
     dev = cfg.device
     require_device(dev)
-    wd = world.device(dev)
+    wd = world.device(dev, use_bvh=cfg.hit_backend == "bvh")
     cp = camera.params(dev)
 
     n_pix = cfg.width * cfg.height

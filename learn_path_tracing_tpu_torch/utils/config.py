@@ -30,7 +30,7 @@ class RenderConfig:
     bsdf: str = "modern"          # diffuse | modern | legacy
     scene: str = "spheres"        # spheres | legacy
     camera_model: str = "thinlens"
-    hit_backend: str = "auto"     # auto | cuda | xla
+    hit_backend: str = "auto"     # auto | cuda | xla | bvh
     out: str | None = None        # output path override (stages/CLI)
     device: str = "cuda"          # torch device the render runs on
     packet_version: int = 2       # mesh traversal kernel (LPT_PACKET_VERSION)

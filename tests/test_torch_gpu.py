@@ -4,10 +4,12 @@ the JAX package, so it runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest tests/test_torch_gpu.py -m gpu -q
 
-Tolerances: the sphere-scan kernel, the packet-traversal kernels (K2
-triangle leaves, K3 sphere leaves), the bounce megakernel (K4) and the row
-gathers (K6a, K6b: fill rows and bf16 compared as bits) equal their plain
-twins bit for bit (the same IEEE-rounded operations in the same
+Tolerances: the sphere-scan kernel (K1, at the frame's pass widths and
+every slice count, ties included), the packet-traversal kernels (K2
+triangle leaves, K3 sphere leaves; ``hit(backend='bvh')`` through K3 equals
+K1's hits), the bounce megakernel (K4, all lanes and a late sparse lane
+list) and the row gathers (K6a, K6b: fill rows and bf16 compared as bits)
+equal their plain twins bit for bit (the same IEEE-rounded operations in the same
 order, and an order-free tie rule); a GPU render, persistent (modular or
 mega) or hybrid, equals a rerun bit for bit (fixed-point accumulation); a
 GPU render agrees with the CPU render within
@@ -75,6 +77,58 @@ def test_kernel_matches_twin_bitwise(cuda, n, s):
     torch.cuda.synchronize()
     assert torch.equal(t.view(torch.int32), t2.view(torch.int32))
     assert torch.equal(idx, idx2) and torch.equal(attr, attr2)
+
+
+def _tied(seed, n, s, device):
+    """``_setup`` with every third sphere of the first half duplicated in the
+    second half, so that rays meet exact ties across slices."""
+    ro, rd, table, attrs = _setup(seed, n, s, device)
+    dup = torch.arange(0, s // 2, 3, device=device)
+    table[dup + s // 2] = table[dup]
+    return ro, rd, table, attrs
+
+
+def _same_scan(got, want):
+    return (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+            and torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]))
+
+
+# the frame's pass widths (57,344 full, drains 7,168 / 1,024 / 256) and
+# counts off the 32-ray groups; sphere counts of one shared-memory chunk,
+# of two (1,152), and ones the slice counts do not divide (300, 1,000)
+@pytest.mark.parametrize("n", [1, 255, 257, 7168, 57344])
+@pytest.mark.parametrize("s", [128, 300, 512, 1000, 1152])
+def test_scan_kernel_at_pass_widths_matches_twin_bitwise(cuda, n, s):
+    args = _tied(n * 7 + s, n, s, cuda)
+    got = tss.intersect_spheres_scan(*args)
+    assert _same_scan(got, tss.intersect_spheres_scan_plain(*args))
+
+
+@pytest.mark.parametrize("slices", tss.SLICE_CHOICES)
+@pytest.mark.parametrize("s", [300, 1152])
+def test_scan_kernel_every_slice_count_matches_twin_bitwise(cuda, slices, s):
+    args = _tied(slices + s, 1000, s, cuda)
+    got = tss._launch(*args, tss.T_MIN, slices)
+    assert _same_scan(got, tss.intersect_spheres_scan_plain(*args))
+
+
+def test_hit_bvh_on_the_card_is_the_scan(cuda):
+    """``hit(backend='bvh')`` walks the sphere BVH through K3 on the card and
+    gives K1's hits bit for bit (primary rays of the cover scene)."""
+    from learn_path_tracing_tpu_torch.camera.camera import generate_rays_for_pixels
+    from learn_path_tracing_tpu_torch.scene.world import hit
+
+    res = (96, 54)
+    wd = random_scene(seed=20230328).device(cuda, use_bvh=True)
+    pixel = torch.arange(res[0] * res[1], device=cuda)
+    rays = generate_rays_for_pixels(stage10_camera(res).params(cuda), res, pixel, 0, 0)
+    before = tpt.traverse.launches["k3"]
+    a, b = hit(wd, rays, backend="bvh"), hit(wd, rays, backend="auto")
+    assert tpt.traverse.launches["k3"] == before + 1
+    torch.cuda.synchronize()
+    assert bool(a.hit.any()) and torch.equal(a.obj, b.obj)
+    assert torch.equal(a.t.view(torch.int32), b.t.view(torch.int32))
+    assert torch.equal(a.normal.view(torch.int32), b.normal.view(torch.int32))
 
 
 def test_kernel_rejects_non_contiguous(cuda):
@@ -222,14 +276,55 @@ def test_bounce_megakernel_matches_twin_bitwise(cuda, passes):
         stf, sti, _ = bounce_pass_plain(stf, sti, wd, scalf, 0, res, spp, limit=8)
     accs = [torch.zeros((res[0] * res[1], 3), dtype=torch.int64, device=cuda) for _ in range(2)]
     before = tmk.bounce_pass.launches
-    k_stf, k_sti, k_live = mega_pass(stf, sti, wd, scalf, 0, res, spp, limit=8, acc=accs[0])
+    k_stf, k_sti = stf.clone(), sti.clone()
+    lanes = tmk.LaneList.of_state(k_stf, k_sti)
+    mega_pass(k_stf, k_sti, wd, scalf, 0, res, spp, lanes, limit=8, acc=accs[0])
     assert tmk.bounce_pass.launches == before + 1
     p_stf, p_sti, p_live = bounce_pass_plain(stf, sti, wd, scalf, 0, res, spp, limit=8,
                                              acc=accs[1])
     torch.cuda.synchronize()
     assert torch.equal(k_stf.view(torch.int32), p_stf.view(torch.int32))
-    assert torch.equal(k_sti, p_sti) and torch.equal(k_live, p_live)
+    assert torch.equal(k_sti, p_sti) and lanes.advance() == int(p_live)
     assert torch.equal(accs[0], accs[1])
+
+
+def test_bounce_megakernel_late_sparse_list_matches_twin_bitwise(cuda):
+    """K4 from a late state (under a tenth of the lanes alive) over its
+    sparse lane list, in place, for two passes: every row, the deposits and
+    the live counts equal the plain all-lanes pass's, and the next list
+    holds the lanes alive after the pass first, then those that died in
+    it."""
+    res, spp, limit = (48, 27), 4, 8
+    n = res[0] * res[1]
+    wd = random_scene(seed=20230328).device(cuda)
+    cp = stage10_camera(res).params(cuda)
+    scalf = tmk.pack_camera(cp, res)
+    stf, sti = tmk.initial_state(cp, res, spp, 0)
+    live = n
+    while live >= n // 10:
+        stf, sti, live_t = bounce_pass_plain(stf, sti, wd, scalf, 0, res, spp, limit=limit)
+        live = int(live_t)
+    assert live > 0
+    lanes = tmk.LaneList.of_state(stf, sti)
+    k_stf, k_sti = stf.clone(), sti.clone()
+    for _ in range(2):
+        accs = [torch.zeros((n, 3), dtype=torch.int64, device=cuda) for _ in range(2)]
+        alive_in = set(lanes.lanes[:lanes.alive].tolist())
+        before = tmk.bounce_pass.launches
+        mega_pass(k_stf, k_sti, wd, scalf, 0, res, spp, lanes, limit=limit, acc=accs[0])
+        assert tmk.bounce_pass.launches == before + 1
+        stf, sti, p_live = bounce_pass_plain(stf, sti, wd, scalf, 0, res, spp, limit=limit,
+                                             acc=accs[1])
+        torch.cuda.synchronize()
+        assert torch.equal(k_stf.view(torch.int32), stf.view(torch.int32))
+        assert torch.equal(k_sti, sti) and torch.equal(accs[0], accs[1])
+        live = lanes.advance()
+        assert live == int(p_live)
+        listed = lanes.lanes[:lanes.count].tolist()
+        assert set(listed) == alive_in and len(listed) == len(alive_in)
+        alive_after = stf[tmk.ALIVE] > 0.5
+        assert bool(alive_after[lanes.lanes[:live].long()].all())
+        assert not bool(alive_after[lanes.lanes[live:lanes.count].long()].any())
 
 
 def test_gpu_mega_is_deterministic_and_matches_cpu(cuda):

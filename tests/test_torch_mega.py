@@ -11,8 +11,9 @@ Tolerances, with their reasons:
   quadratic move a few discrete events.
 - ``pack_camera`` against JAX's: within 4 ulps of the largest magnitude
   (the same f32 operations; XLA contracts multiply-adds).
-- One ``mega_pass`` against JAX's ``bounce_pass(interpret=True)`` from the
-  same state, a primary one and one after three passes: the integer rows
+- One ``mega_pass`` (over the state's lane list, in place) against JAX's
+  ``bounce_pass(interpret=True)`` from the same state, a primary one and
+  one after three passes: the integer rows
   (k, bounce) and the alive row equal on every lane (measured: 0 lanes
   differ), the contributions within 1e-6 (they depend only on the input
   ray; measured 6e-8). Positions within 1e-2 of ``max(|ro|, 1)`` on every
@@ -26,6 +27,10 @@ Tolerances, with their reasons:
 - The port's mega engine against its modular engine: segments equal and
   the image bit for bit. Both run the one ``step``, on two lane layouts,
   and both deposit into the order-free int64 fixed-point accumulator.
+- Passes over the shrinking lane list (``LaneList``, in place) against the
+  all-lanes passes: every state row, live count and deposit bit for bit
+  after every pass. Each lane's arithmetic is its own, the deposits are
+  integer adds, and a settled dead lane's rows are a fixed point of a pass.
 - The port's mega engine against JAX's mega and modular engines:
   ``render_agreement`` (segments within 0.5 %, mean difference at most 1 %
   of the mean, 80 % of pixels within 1e-4).
@@ -46,7 +51,8 @@ from learn_path_tracing_tpu_torch.bsdf.sampling import sum3
 from learn_path_tracing_tpu_torch.camera.camera import generate_rays_for_pixels
 from learn_path_tracing_tpu_torch.core.types import Rays
 from learn_path_tracing_tpu_torch.integrator import persistent as tper
-from learn_path_tracing_tpu_torch.integrator.persistent import mega_pass, render_persistent
+from learn_path_tracing_tpu_torch.integrator.persistent import (bounce_pass_plain, mega_pass,
+                                                                render_persistent)
 from learn_path_tracing_tpu_torch.models import random_scene, stage10_camera
 from learn_path_tracing_tpu_torch.ops import bounce_megakernel as mk
 from learn_path_tracing_tpu_torch.ops.sphere_scan import intersect_spheres_scan_plain
@@ -130,9 +136,22 @@ def _state_after(port_world, passes):
     wd, cp = port_world
     scalf = mk.pack_camera(cp, RES)
     stf, sti = mk.initial_state(cp, RES, SPP, 0)
+    lanes = mk.LaneList.of_state(stf, sti)
     for _ in range(passes):
-        stf, sti, _ = mega_pass(stf, sti, wd, scalf, 0, RES, SPP, limit=LIMIT)
+        mega_pass(stf, sti, wd, scalf, 0, RES, SPP, lanes, limit=LIMIT)
+        lanes.advance()
     return stf, sti
+
+
+def _pass_from(port_world, stf, sti, acc=None):
+    """One ``mega_pass`` from ``(stf, sti)`` on a copy, over the state's
+    lane list → ``(stf', sti', live)``."""
+    wd, cp = port_world
+    stf2, sti2 = stf.clone(), sti.clone()
+    lanes = mk.LaneList.of_state(stf2, sti2)
+    mega_pass(stf2, sti2, wd, mk.pack_camera(cp, RES), 0, RES, SPP, lanes, limit=LIMIT,
+              acc=acc)
+    return stf2, sti2, lanes.advance()
 
 
 def _share_within(diff, tol):
@@ -141,10 +160,8 @@ def _share_within(diff, tol):
 
 @pytest.mark.parametrize("passes", [0, 3], ids=["primary", "mid"])
 def test_bounce_pass_matches_jax(port_world, jax_world, passes):
-    wd, cp = port_world
     stf, sti = _state_after(port_world, passes)
-    stf2, sti2, live = mega_pass(stf, sti, wd, mk.pack_camera(cp, RES), 0, RES, SPP,
-                                 limit=LIMIT)
+    stf2, sti2, live = _pass_from(port_world, stf, sti)
 
     jwd, jcp = jax_world
     table, attrs = jmk.pack_scene(jwd)
@@ -159,7 +176,7 @@ def test_bounce_pass_matches_jax(port_world, jax_world, passes):
 
     np.testing.assert_array_equal(p_sti[mk.K:mk.BOUNCE + 1], o_sti[:2])
     np.testing.assert_array_equal(p_stf[mk.ALIVE], o_stf[jmk._ALIVE])
-    assert int(live) == int((o_stf[jmk._ALIVE] > 0.5).sum())
+    assert live == int((o_stf[jmk._ALIVE] > 0.5).sum())
     np.testing.assert_allclose(p_stf[mk.CONTRIB:mk.CONTRIB + 3],
                                o_stf[jmk._CONTRIB:jmk._CONTRIB + 3], rtol=0, atol=1e-6)
     assert not p_stf[13:].any() and not o_stf[13:].any()
@@ -204,7 +221,7 @@ def test_mega_pass_count(port_world):
     wd, cp = port_world
     _, segs, st = render_persistent(wd, cp, RES, spp=SPP, limit=1, engine="mega",
                                     stats=True)
-    assert st == {"passes": SPP} and segs == N * SPP
+    assert st == {"passes": SPP, "listed": [N] * SPP} and segs == N * SPP
 
 
 @pytest.mark.parametrize("kw,match", [
@@ -225,12 +242,10 @@ def test_bounce_pass_deposits_and_counts(port_world):
     """The deposit adds round(contrib * 2**32) at pixel g + k*(n/spp) of
     the input k, the live count is the alive row's, and a CPU pass launches
     no kernel."""
-    wd, cp = port_world
     stf, sti = _state_after(port_world, 2)
     acc = torch.zeros((N, 3), dtype=torch.int64)
     before = mk.bounce_pass.launches
-    stf2, sti2, live = mega_pass(stf, sti, wd, mk.pack_camera(cp, RES), 0, RES, SPP,
-                                 limit=LIMIT, acc=acc)
+    stf2, sti2, live = _pass_from(port_world, stf, sti, acc)
     assert mk.bounce_pass.launches == before
     lane = torch.arange(N)
     pixel = lane // SPP + sti[mk.K].long() * (N // SPP)
@@ -240,7 +255,7 @@ def test_bounce_pass_deposits_and_counts(port_world):
     want = torch.zeros((N, 3), dtype=torch.int64)
     want.index_add_(0, pixel[escaped], torch.round(contrib[escaped] * 2.0 ** 32).long())
     assert torch.equal(acc, want)
-    assert live.dtype == torch.int32 and int(live) == int(stf2[mk.ALIVE].sum())
+    assert live == int(stf2[mk.ALIVE].sum())
     # dead lanes keep their counter and hit nothing
     dead = stf[mk.ALIVE] == 0
     assert torch.equal(sti2[mk.K][dead], sti[mk.K][dead])
@@ -252,14 +267,18 @@ def test_bounce_pass_checks_its_operands(port_world, pass_fn):
     wd, cp = port_world
     stf, sti = mk.initial_state(cp, RES, SPP, 0)
     scalf = mk.pack_camera(cp, RES)
+    lanes = mk.LaneList.of_state(stf, sti)
     with pytest.raises(ValueError, match="sti"):
-        pass_fn(stf, sti.to(torch.int64), wd, scalf, 0, RES, SPP)
+        pass_fn(stf, sti.to(torch.int64), wd, scalf, 0, RES, SPP, lanes)
     with pytest.raises(ValueError, match="stf"):
-        pass_fn(stf[:, :-SPP], sti, wd, scalf, 0, RES, SPP)
+        pass_fn(stf[:, :-SPP], sti, wd, scalf, 0, RES, SPP, lanes)
     with pytest.raises(ValueError, match="acc"):
-        pass_fn(stf, sti, wd, scalf, 0, RES, SPP, acc=torch.zeros((N, 3)))
+        pass_fn(stf, sti, wd, scalf, 0, RES, SPP, lanes, acc=torch.zeros((N, 3)))
     with pytest.raises(ValueError, match="spp"):
-        pass_fn(stf, sti, wd, scalf, 0, RES, 7)
+        pass_fn(stf, sti, wd, scalf, 0, RES, 7, lanes)
+    with pytest.raises(ValueError, match="lanes"):
+        pass_fn(stf, sti, wd, scalf, 0, RES, SPP, mk.LaneList.of_state(stf[:, :SPP],
+                                                                       sti[:, :SPP]))
 
 
 def test_kernel_takes_no_cpu_state(port_world):
@@ -269,7 +288,8 @@ def test_kernel_takes_no_cpu_state(port_world):
     stf, sti = mk.initial_state(cp, RES, SPP, 0)
     before = mk.bounce_pass.launches
     with pytest.raises(ValueError, match="no kernel for device cpu"):
-        mk.bounce_pass(stf, sti, wd, mk.pack_camera(cp, RES), 0, RES, SPP)
+        mk.bounce_pass(stf, sti, wd, mk.pack_camera(cp, RES), 0, RES, SPP,
+                       mk.LaneList.of_state(stf, sti))
     assert mk.bounce_pass.launches == before
 
 
@@ -321,3 +341,62 @@ def test_hit_record_of_the_plain_scan_is_the_cpu_hit(port_world):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
     for name in ("albedo", "roughness", "metallic", "ior", "transparency", "absorptivity"):
         assert torch.equal(getattr(a.material, name), getattr(b.material, name)), name
+
+
+def test_lane_list_passes_equal_the_all_lanes_passes(port_world):
+    """K4's list contract, through its plain version: a whole render run
+    over the shrinking lane list, in place, gives the all-lanes pass's state
+    after every pass (every row, bit for bit), the same live counts and the
+    same deposits. The list holds the lanes alive on entry first, then, for
+    one pass, those that died in the pass before; at the end the only lanes
+    a pass would still change are those that died in the last one."""
+    wd, cp = port_world
+    scalf = mk.pack_camera(cp, RES)
+    stf, sti = mk.initial_state(cp, RES, SPP, 0)
+    l_stf, l_sti = stf.clone(), sti.clone()
+    accs = [torch.zeros((N, 3), dtype=torch.int64) for _ in range(2)]
+    lanes = mk.LaneList.of_state(l_stf, l_sti)
+    assert (lanes.count, lanes.alive) == (N, N)
+    counts, live, passes = [], N, 0
+    while live > 0:
+        alive_in = stf[mk.ALIVE] > 0.5
+        listed = lanes.lanes[:lanes.count].long()
+        assert torch.equal(torch.sort(listed[:lanes.alive]).values,
+                           torch.nonzero(alive_in).flatten())
+        assert not bool(alive_in[listed[lanes.alive:]].any())
+        stf, sti, want = bounce_pass_plain(stf, sti, wd, scalf, 0, RES, SPP, limit=LIMIT,
+                                           acc=accs[0])
+        mega_pass(l_stf, l_sti, wd, scalf, 0, RES, SPP, lanes, limit=LIMIT, acc=accs[1])
+        assert torch.equal(l_stf.view(torch.int32), stf.view(torch.int32)), passes
+        assert torch.equal(l_sti, sti), passes
+        counts.append(lanes.count)
+        live = lanes.advance()
+        assert live == int(want), passes
+        passes += 1
+    assert torch.equal(accs[0], accs[1])
+    assert counts == sorted(counts, reverse=True) and counts[-1] < N
+    end = mk.LaneList.of_state(l_stf, l_sti)
+    assert (end.count, end.alive) == (lanes.count, 0) and end.count > 0
+    assert torch.equal(torch.sort(end.lanes[:end.count]).values,
+                       torch.sort(lanes.lanes[:lanes.count]).values)
+
+
+def test_lane_list_needs_the_pass_after_death(port_world):
+    """Dropping the lanes that just died from the list (listing only the
+    alive ones) leaves their contributions and spheres in the state, so the
+    state differs from the all-lanes pass's: the one pass after death is
+    what keeps the contract."""
+    wd, cp = port_world
+    scalf = mk.pack_camera(cp, RES)
+    stf, sti = mk.initial_state(cp, RES, SPP, 0)
+    lanes = mk.LaneList.of_state(stf, sti)
+    while not lanes.count > lanes.alive > 0:      # the first pass after deaths
+        stf, sti, _ = bounce_pass_plain(stf, sti, wd, scalf, 0, RES, SPP, limit=LIMIT)
+        lanes = mk.LaneList.of_state(stf, sti)
+    alive_only = mk.LaneList(lanes.lanes, lanes.alive, lanes.alive)
+    want = bounce_pass_plain(stf, sti, wd, scalf, 0, RES, SPP, limit=LIMIT)
+    full, short = (stf.clone(), sti.clone()), (stf.clone(), sti.clone())
+    mega_pass(*full, wd, scalf, 0, RES, SPP, lanes, limit=LIMIT)
+    mega_pass(*short, wd, scalf, 0, RES, SPP, alive_only, limit=LIMIT)
+    assert torch.equal(full[0], want[0]) and torch.equal(full[1], want[1])
+    assert not (torch.equal(short[0], want[0]) and torch.equal(short[1], want[1]))

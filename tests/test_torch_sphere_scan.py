@@ -15,6 +15,10 @@ Tolerances, with their reasons:
   FMAs and its f32 sqrt is not correctly rounded, and near-grazing pairs
   amplify that through the cancellation in ``half_b² - c0`` (measured up to
   1.6e-4 relative).
+- The kernel's split of the table over warp teams (``_sliced_scan``, on the
+  plain twin) against the serial scan: bit for bit, ties included; the
+  lexicographic least of the slices' ``(t, idx)`` is the serial rule's
+  winner.
 - ``world.hit`` against the JAX package's Pallas path: as above for
   ``t``/``obj``/materials; the point to 1e-3 absolute, which that ``t``
   difference moves it by, and the normal to 1e-2, that over the smallest
@@ -215,7 +219,9 @@ def test_backend_errors():
                 throughput=torch.ones((8, 3)), alive=torch.ones(8, dtype=torch.bool))
     with pytest.raises(ValueError, match="CUDA"):
         tworld.hit(twd, rays, backend="cuda")
-    with pytest.raises(NotImplementedError):
+    # a world built without its BVH names the build that has it (the JAX
+    # package's message)
+    with pytest.raises(ValueError, match=r"use_bvh=True"):
         tworld.hit(twd, rays, backend="bvh")
     with pytest.raises(ValueError, match="f32"):
         tss.intersect_spheres_scan(rays.ro.double(), rays.rd, twd.scan_table,
@@ -223,3 +229,70 @@ def test_backend_errors():
     launches = tss.intersect_spheres_scan.launches
     tworld.hit(twd, rays)          # CPU tensors take the twin: no launch
     assert tss.intersect_spheres_scan.launches == launches
+
+
+def _sliced_scan(ro, rd, table, attrs, slices, chunk=1024):
+    """The kernel's scan by warp teams, on the plain twin: each chunk of
+    ``chunk`` spheres cut into ``slices`` contiguous index ranges, slice
+    ``p`` the union of its ranges over the chunks, each slice scanned on its
+    own (a miss is ``(inf, 0)``), and the slices' ``(t, idx)`` reduced to
+    the lexicographic least."""
+    s = table.shape[0]
+    parts = [[] for _ in range(slices)]
+    for s0 in range(0, s, chunk):
+        sc = min(chunk, s - s0)
+        per = -(-sc // slices)
+        for p in range(slices):
+            parts[p].extend(range(s0 + p * per, s0 + min((p + 1) * per, sc)))
+    n = ro.shape[0]
+    t_best = torch.full((n,), float("inf"))
+    idx_best = torch.zeros((n,), dtype=torch.int32)
+    for part in parts:
+        if not part:
+            continue
+        sel = torch.as_tensor(part)
+        t, local, _ = tss.intersect_spheres_scan_plain(ro, rd, table[sel], attrs[sel])
+        idx = torch.where(torch.isfinite(t), sel[local.long()].to(torch.int32), 0)
+        better = (t < t_best) | ((t == t_best) & (idx < idx_best))
+        t_best = torch.where(better, t, t_best)
+        idx_best = torch.where(better, idx, idx_best)
+    return t_best, idx_best, attrs[idx_best.long()]
+
+
+@pytest.mark.parametrize("slices", [1, 2, 4, 8, 32])
+@pytest.mark.parametrize("s", [300, 1152])     # one shared-memory chunk, and two
+def test_slice_reduction_is_the_serial_scan(slices, s):
+    """The kernel's split of the table over warp teams and its
+    lexicographic reduction give the serial scan's ``(t, idx, attr)`` bit
+    for bit, exact ties between duplicate spheres in other slices
+    included."""
+    ro, rd, centers, radii, transparency, attrs = random_setup(10 + s, n=600, s=s)
+    dup = np.arange(0, s // 2, 3)
+    centers[dup + s // 2] = centers[dup]           # exact duplicates, later indices
+    radii[dup + s // 2] = radii[dup]
+    transparency[dup + s // 2] = transparency[dup]
+    ro, rd, attrs = map(torch.as_tensor, (ro, rd, attrs))
+    table = tss.pack_spheres(*map(torch.as_tensor, (centers, radii, transparency)))
+    want = tss.intersect_spheres_scan_plain(ro, rd, table, attrs)
+    got = _sliced_scan(ro, rd, table, attrs, slices)
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    # the ties are real: winners with a duplicate that the ray hits at the same t
+    tied = torch.isin(want[1], torch.as_tensor(dup, dtype=torch.int32)) & torch.isfinite(want[0])
+    assert int(tied.sum()) > 10
+
+
+def test_team_slices_per_width():
+    """The slices the wrapper gives each pass width of the 10_final frame
+    over its 512 spheres on an H100 (132 SMs), the bounds of the choice, and
+    how it follows the SM count; the launcher takes only the listed counts."""
+    H100_SMS = 132
+    assert [tss.team_slices(n, 512, H100_SMS) for n in (57344, 7168, 1024, 256)] == \
+        [4, 32, 32, 32]
+    assert tss.team_slices(1, 1, H100_SMS) == 1 and tss.team_slices(256, 128, H100_SMS) == 8
+    assert tss.team_slices(10 ** 6, 512, H100_SMS) == 1
+    assert tss.team_slices(57344, 512, 2 * H100_SMS) == 8
+    assert tss.team_slices(57344, 512, 28) == 1
+    with pytest.raises(ValueError, match="slices"):
+        tss._launch(torch.zeros((1, 3)), torch.ones((1, 3)), torch.zeros((1, 8)),
+                    torch.zeros((1, 16)), tss.T_MIN, 3)

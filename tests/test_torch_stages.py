@@ -40,6 +40,18 @@ def test_stage10_writes_png(tmp_path):
     assert len(rep["chunks"]) == 1 and rep["chunks"][0]["pool"] == 24 * 16
 
 
+def test_stage10_hit_backend_bvh_renders_the_scan_image(tmp_path):
+    """``--hit-backend bvh`` builds the world with its sphere BVH and walks
+    it; the frame is the scan's bit for bit (the walk finds the scan's
+    hits)."""
+    args = ["--width", "16", "--height", "9", "--spp", "2", "--limit", "4",
+            "--device", "cpu"]
+    img, rep = s10_final.main(args + ["--hit-backend", "bvh", "--out", str(tmp_path / "b.png")])
+    ref, ref_rep = s10_final.main(args + ["--out", str(tmp_path / "a.png")])
+    assert rep["segments"] == ref_rep["segments"]
+    assert torch.equal(rep["linear"].view(torch.int32), ref_rep["linear"].view(torch.int32))
+
+
 def test_chunk_seeds_follow_the_jax_schedule(monkeypatch):
     """Each spp chunk renders with the seed cfg.seed + first sample."""
     seeds = []
