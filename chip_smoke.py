@@ -85,10 +85,11 @@ Phases:
 6. the kernels' own device times from ``torch.profiler``: K1 at each pass
    width with every slice count (and K1's device ms in the modular frame:
    its passes at each width times its time there), K3 and K1 under
-   ``hit()`` on the primary rays, and K4's pass from each of its three
-   states. They come last because a profiler session can slow the
-   process's later launches, which every CUDA-event time and timed frame
-   above would show.
+   ``hit()`` on the primary rays at every pass width, K4's pass from each
+   of its three states, and K2, K3, K5a and K5b on
+   every ray set in lane and sorted order with their pops per ray. They
+   come last because a profiler run can slow the process's later
+   launches, which every CUDA-event time and timed frame above would show.
 
 The stand-in world (``standin_world``) takes the place of the reference's
 Yoimiya character, whose assets are not in the repository: one closed mesh
@@ -99,15 +100,20 @@ environment, all made from a seed.
 ``python3 chip_smoke.py --profile-mesh [--packet-version 1|2|3]`` runs only
 the kernel build and ``mesh_profile``: where the stand-in frame's time goes
 under that packet version (frame times, the profiler's device busy time,
-the traversal kernel's and the row gathers' device time and share, peak
+the traversal kernel's and the row gathers' device time and share, the
+traversal kernel's device time by the lanes its launches listed, peak
 memory, synchronised per-layer host times), printed as one JSON line.
+``python3 chip_smoke.py --packet-times`` runs only the build and
+``packet_times``: the packet kernels against their twins and their device
+times on every ray set.
 
 Any failed phase raises, so the script exits non-zero. The last lines are
 the ``nvidia-smi`` name and power limit, a JSON line of the kernels, and
 ``{"ok": true, "device": {...}}``. Every kernel's ``ms`` in the kernels
 line is CUDA events around one wrapper call (the host's issue time
-included); K1 and K4 also give ``device_ms``, the kernel's own duration
-from ``torch.profiler``. Without a CUDA device it exits 1 and prints no
+included, and for the packet kernels the read-back of their error word,
+one host round trip); K1, K4 and the packet kernels (K2, K3, K5a, K5b) also
+give ``device_ms``, the kernel's own duration from ``torch.profiler``. Without a CUDA device it exits 1 and prints no
 result.
 """
 
@@ -382,7 +388,8 @@ def bvh_phase(device):
     the rays whose ``t``, sphere or hit flag differ are counted, and must
     be none. Then both calls are timed on the primary set by CUDA events.
     Returns ``device_times()``, to be called after the timed frames: their
-    kernels' own times from the profiler."""
+    kernels' own times from the profiler on the first rays of the primary
+    set at each pass width of the modular frame (``K1_WIDTHS``)."""
     import torch
 
     from learn_path_tracing_tpu_torch.core.types import Rays
@@ -420,12 +427,15 @@ def bvh_phase(device):
          f"'auto' {ms['auto']:.4f} ms (CUDA events, median of 20, hit records included)")
 
     def device_times():
-        dev_ms = {backend: kernel_ms(lambda backend=backend: hit(wd, rays, backend=backend),
-                                     name)
-                  for backend, name in (("bvh", "packet_traverse_kernel"),
-                                        ("auto", "sphere_scan_kernel"))}
-        _log(f"[bvh device] the kernels of hit() on {ro.shape[0]} primary rays: K3 "
-             f"{dev_ms['bvh']:.4f} ms, K1 {dev_ms['auto']:.4f} ms (profiler, median of 20)")
+        for w in K1_WIDTHS:
+            part = Rays(ro=ro[:w].contiguous(), rd=rd[:w].contiguous(),
+                        throughput=rays.throughput[:w], alive=rays.alive[:w])
+            dev_ms = {backend: kernel_ms(lambda backend=backend: hit(wd, part, backend=backend),
+                                         name)
+                      for backend, name in (("bvh", "packet_traverse_kernel"),
+                                            ("auto", "sphere_scan_kernel"))}
+            _log(f"[bvh device] the kernels of hit() on {w} primary rays: K3 "
+                 f"{dev_ms['bvh']:.4f} ms, K1 {dev_ms['auto']:.4f} ms (profiler, median of 20)")
 
     return device_times
 
@@ -1100,8 +1110,12 @@ def check_packet(wd, tables, stack, leaf_kind, device, seed):
     form), K3 for spheres, bit for bit in ``(t, prim)`` on every set (and
     in the pops for K2/K3, whose pops are per ray like the twin's). Then
     each kernel is timed in turns in lane order and in coherence-sorted
-    order on every set. Returns ``{kernel: kernels-line entry (without
-    launches)}``."""
+    order on every set by CUDA events (the wrapper's read-back of the
+    kernel's error word, one host round trip, included). Returns ``{kernel:
+    kernels-line entry (without launches)}`` and ``device_times()``, to be
+    called after the timed frames: every kernel's own time on every set and
+    order from the profiler, beside its pops per ray (it sets each entry's
+    ``device_ms``, the primary slab in lane order)."""
     import torch
 
     from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
@@ -1147,11 +1161,12 @@ def check_packet(wd, tables, stack, leaf_kind, device, seed):
     # times in turns, lane order and coherence-sorted (the sort outside the timing)
     treelets = tuple(torch.as_tensor(x, device=device) for x in
                      pt.treelet_boxes(tables[0].cpu().numpy(), tables[1].cpu().numpy()))
-    ms = {}
+    ms, ordered = {}, {}
     for name, rays in sets.items():
         order = torch.argsort(pt._coherence_key(tables[0], rays[0], rays[1], treelets),
                               stable=True)
-        for kind, args in (("lane", rays), ("sorted", tuple(x[order] for x in rays))):
+        ordered[name] = (("lane", rays), ("sorted", tuple(x[order] for x in rays)))
+        for kind, args in ordered[name]:
             cells = []
             for v in versions:
                 ms[name, kind, v] = cuda_ms(lambda v=v, args=args: pt.traverse(
@@ -1185,7 +1200,28 @@ def check_packet(wd, tables, stack, leaf_kind, device, seed):
                         "replaces": replaces, "max_abs_err": max_err[v],
                         "ms": ms["primary", "lane", v], "plain_ms": plain_ms, **b,
                         "library_ms": None}
-    return out
+
+    def device_times():
+        for name, orders in ordered.items():
+            for kind, args in orders:
+                cells = []
+                for v in versions:
+                    dev_ms = kernel_ms(lambda v=v, args=args: pt.traverse(
+                        *tables, *args, leaf_kind=leaf_kind, stack=stack, version=v),
+                        TRAVERSAL_KERNEL_NAMES[v])
+                    pops = float(pt.traverse(*tables, *args, leaf_kind=leaf_kind, stack=stack,
+                                             version=v)[2].float().mean())
+                    cells.append(f"{kern[v]} {dev_ms:.4f} ms ({pops:.2f} pops/ray)")
+                    if (name, kind) == ("primary", "lane"):
+                        out[kern[v]]["device_ms"] = dev_ms
+                _log(f"[{leaf_kind} device] {name}, {args[0].shape[0]} rays, {kind} order: "
+                     f"{', '.join(cells)} (profiler, median of 20)")
+        for k, e in out.items():
+            _log(f"[{k} device] {n} primary rays in lane order: {e['device_ms']:.4f} ms on "
+                 f"the device against {e['ms']:.4f} ms by CUDA events, "
+                 f"{e['bound_ms'] / e['device_ms']:.3f} of the bound")
+
+    return out, device_times
 
 
 def check_mesh_gpu_vs_cpu(device, directory):
@@ -1591,12 +1627,34 @@ TRAVERSAL_KERNEL_NAMES = {2: "packet_traverse_kernel", 1: "packet_walk_v1_kernel
 GATHER_KERNEL_NAMES = {"k6a": "row_gather_narrow_kernel", "k6b": "row_gather_wide_kernel"}
 
 
+@contextlib.contextmanager
+def traversal_widths():
+    """Lists the ray count of every ``ops.packet_traverse.traverse`` call
+    made on the mesh path while the block runs, in order."""
+    from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
+
+    widths, real = [], pt.traverse
+
+    def counted(nodes, entries, runs, ro, *args, **kw):
+        widths.append(ro.shape[0])
+        return real(nodes, entries, runs, ro, *args, **kw)
+
+    counted.launches = real.launches
+    pt.traverse = counted
+    try:
+        yield widths
+    finally:
+        pt.traverse = real
+
+
 def mesh_profile(device, directory, frames=3, packet_version=2):
     """Where the stand-in frame's time goes (``--profile-mesh``): ``frames``
     unprofiled frames of the l14 headline's renderer on the reloaded world
     under ``packet_version``, one under ``torch.profiler`` (device busy
     time, device events, the traversal kernel's and the row gathers'
-    launches and shares, peak memory), and one with each layer wrapped in
+    launches and shares, peak memory; ``traversal_by_width``: the traversal
+    kernel's ``[lanes listed, launches, device ms]``, the slabs first, then
+    each pool width), and one with each layer wrapped in
     synchronised timers (inclusive host ms; the synchronisation inflates
     that frame). Returns the summary dict."""
     import torch
@@ -1630,15 +1688,33 @@ def mesh_profile(device, directory, frames=3, packet_version=2):
     walls = [frame() for _ in range(frames)]
     segs = pr.last_stats["segments"]
     torch.cuda.reset_peak_memory_stats()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with traversal_widths() as widths, \
+            torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                               torch.profiler.ProfilerActivity.CUDA]) as prof:
         prof_wall = frame()
     peak = torch.cuda.max_memory_allocated()
     dev_events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
-    trav = [e for e in dev_events if TRAVERSAL_KERNEL_NAMES[packet_version] in e.name]
+    trav = sorted((e for e in dev_events if TRAVERSAL_KERNEL_NAMES[packet_version] in e.name),
+                  key=lambda e: e.time_range.start)
     trav_ms = sum(e.time_range.elapsed_us() for e in trav) / 1e3
+    # the kernel's device ms by the lanes its launches listed: the slabs
+    # first, then the pool passes at each pool width
+    st = pr.last_stats
+    expected = {}
+    for w, count in ((MESH_RES[0] * MESH_RES[1] * st["chunk_spp"], st["n_chunks"]),
+                     *st["passes_by_width"]):
+        expected[w] = expected.get(w, 0) + count
+    by_width = {}
+    if len(trav) == len(widths):       # else the profiler dropped events
+        for w, e in zip(widths, trav):
+            row = by_width.setdefault(w, [0, 0.0])
+            row[0] += 1
+            row[1] += e.time_range.elapsed_us() / 1e3
+        if {w: c for w, (c, _) in by_width.items()} != {w: c for w, c in expected.items() if c}:
+            raise AssertionError(f"traversal launches by width {by_width}, the integrator "
+                                 f"counted {expected}")
     gathers = {k: [e for e in dev_events if name in e.name]
                for k, name in GATHER_KERNEL_NAMES.items()}
     gather_ms = {k: sum(e.time_range.elapsed_us() for e in ev) / 1e3 for k, ev in gathers.items()}
@@ -1666,6 +1742,8 @@ def mesh_profile(device, directory, frames=3, packet_version=2):
            "device_events": len(dev_events), "idle_share_vs_median_frame":
            1.0 - busy_ms / (med * 1e3) if dev_events else None,
            "traversal_launches": len(trav), "traversal_device_ms": trav_ms,
+           "traversal_by_width": [[w, c, ms] for w, (c, ms) in
+                                  sorted(by_width.items(), reverse=True)],
            "traversal_share_of_busy": trav_ms / busy_ms if busy_ms else None,
            **{f"{k}_launches": len(ev) for k, ev in gathers.items()},
            **{f"{k}_device_ms": v for k, v in gather_ms.items()},
@@ -1679,6 +1757,27 @@ def mesh_profile(device, directory, frames=3, packet_version=2):
     if not dev_events:
         raise AssertionError("torch.profiler recorded no device events")
     return out
+
+
+def packet_times(device, directory):
+    """``--packet-times``: the packet kernels alone. K2, K5a and K5b on the
+    stand-in mesh's five ray sets and K3 on the sphere world's four, each
+    against the twin (``check_packet``), then ``hit(backend='bvh')`` against
+    the scan on the cover scene (``bvh_phase``), then every kernel's device
+    time on every set and order and K3's beside K1's at the modular frame's
+    pass widths. It uses only what every tree of the port since the sphere
+    BVH has, so one copy of this script can time two trees in one call."""
+    world = standin_world(directory)
+    mesh_wd = world.build(device=device)
+    tri = mesh_wd.meshes[0]
+    _, tri_device_times = check_packet(mesh_wd, tri.packet, tri.stack, "tri", device, seed=7)
+    sph_wd = _build_quiet(sphere_world(), device=device)
+    sph = sph_wd.spheres
+    _, sph_device_times = check_packet(sph_wd, sph.packet, sph.stack, "sphere", device, seed=8)
+    bvh_device_times = bvh_phase(device)
+    tri_device_times()
+    sph_device_times()
+    bvh_device_times()
 
 
 def build_kernels():
@@ -1712,6 +1811,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     ap.add_argument("--profile-mesh", action="store_true",
                     help="only profile the stand-in mesh frame (see mesh_profile)")
+    ap.add_argument("--packet-times", action="store_true",
+                    help="only check and time the packet kernels (see packet_times)")
     ap.add_argument("--packet-version", type=int, choices=(1, 2, 3), default=2,
                     help="the mesh traversal kernel of --profile-mesh (2: K2, 1: K5a, 3: K5b)")
     args = ap.parse_args(argv)
@@ -1723,9 +1824,12 @@ def main(argv=None) -> int:
          f"python {sys.version.split()[0]}, devices {torch.cuda.device_count()}")
     device = "cuda"
     build_kernels()
-    if args.profile_mesh:
+    if args.profile_mesh or args.packet_times:
         with tempfile.TemporaryDirectory() as directory:
-            mesh_profile(device, directory, packet_version=args.packet_version)
+            if args.profile_mesh:
+                mesh_profile(device, directory, packet_version=args.packet_version)
+            else:
+                packet_times(device, directory)
         print(card)
         return 0
 
@@ -1747,7 +1851,8 @@ def main(argv=None) -> int:
         _log(f"[stand-in] {tri.tex.shape[0]} triangles, {tri.packet[0].shape[0]} wide nodes, "
              f"{tri.packet[2].shape[0]} run rows, stack {tri.stack}; built in "
              f"{time.time() - t0:.2f} s")
-        tri_kernels = check_packet(mesh_wd, tri.packet, tri.stack, "tri", device, seed=7)
+        tri_kernels, tri_device_times = check_packet(mesh_wd, tri.packet, tri.stack, "tri",
+                                                     device, seed=7)
         gather_kernels = check_row_gather(mesh_wd, device)
 
         t0 = time.time()
@@ -1755,7 +1860,9 @@ def main(argv=None) -> int:
         sph = sph_wd.spheres
         _log(f"[sphere world] {N_SPHERES} spheres, {sph.packet[0].shape[0]} wide nodes, "
              f"stack {sph.stack}; built in {time.time() - t0:.2f} s")
-        k3 = check_packet(sph_wd, sph.packet, sph.stack, "sphere", device, seed=8)["k3"]
+        sph_kernels, sph_device_times = check_packet(sph_wd, sph.packet, sph.stack, "sphere",
+                                                     device, seed=8)
+        k3 = sph_kernels["k3"]
         k3["launches"] = sphere_path(sph_wd, device)
 
         check_mesh_gpu_vs_cpu(device, directory)
@@ -1772,6 +1879,8 @@ def main(argv=None) -> int:
          f"{k1_frame_ms(k1_widths, modular):.3f} ms")
     bvh_device_times()
     k4_device_times()
+    tri_device_times()
+    sph_device_times()
 
     print(card)
     print(json.dumps({"kernels": [k1, tri_kernels["k2"], k3, k4, tri_kernels["k5a"],

@@ -13,14 +13,35 @@
 //
 // K2/K3 design: the TPU walks ONE stack per 1024-ray packet on its scalar
 // core and tests every node against all lanes of the packet. Here every
-// thread walks its own ray with a private stack in local memory (the
-// reference's per-thread walk): pop an entry, drop it if its entry distance
-// is no longer < t_best + eps, slab-test the node's 8 children, test the
-// entered leaf children at once nearest first, and push the entered node
-// children so that the nearest pops first. Leaves never touch the stack, so
-// it holds at most 1 + 7*depth entries; the wrapper passes that bound
-// (stack_cap) and the kernel reports an overflow, or reaching the max_iters
-// pop backstop, in *err instead of truncating.
+// thread walks its own ray with a private stack (the reference's per-thread
+// walk): pop an entry, drop it if its entry distance is no longer
+// < t_best + eps, slab-test the node's 8 children, test the entered leaf
+// children at once nearest first, and push the entered node children so
+// that the nearest pops first. Leaves never touch the stack, so it holds at
+// most 1 + 7*depth entries; the wrapper passes that bound (stack_cap) and
+// the kernel reports an overflow, or reaching the max_iters pop backstop,
+// in *err instead of truncating.
+// What bounds it on the H100 is instruction rate under divergence, not
+// bytes: the tables (a few MB) stay in the 50 MB L2 and mostly in L1, and a
+// warp runs as long as its slowest ray, through the leaf code whenever one
+// of its 32 rays has a leaf. So the design spends as few instructions a pop
+// as exact rounding allows: a node row arrives as twelve 16-byte loads (the
+// tables are component-major, so four children's values of one component
+// lie side by side) and the 8 entries as two; the NaN-propagating min/max
+// of the slab test are single min.NaN/max.NaN instructions; a sphere run
+// row is read as 16-byte loads, four slots at a time, and the root is taken
+// only where the discriminant admits one. The triangle leaf keeps its
+// scalar loads: the 16-byte form needs 98 registers and loses on the
+// coherent primary slab what it gains on incoherent rays. The stack stays
+// in local memory (interleaved by lane, so a warp's entry is one 128-byte
+// line, resident in L1): a shared-memory stack of stack_cap entries a
+// thread caps the SM at a third of its threads and measured no faster.
+// Tried and dropped, with the times in PERF.md: eight lanes walking one ray
+// together (a lane a child, a lane a leaf slot, the stack in shared
+// memory). It cuts the divergence to 4 rays a warp and beat the old walk on
+// incoherent rays by a third, but runs over twice the instructions a pop
+// (ballots, shuffles and the ranking replace work that 32 rays shared) and
+// took 2.5 times as long on the coherent slabs.
 //
 // K5a design (v1): the TPU's packet becomes a warp's: 32 rays share one
 // stack in shared memory whose entries are (code, packet entry distance,
@@ -34,23 +55,34 @@
 // ray's result can depend on its packet mates). Each node pop replaces one
 // entry by at most 8, so the stack bound stays 1 + 7*depth.
 //
-// K5b design (v3): v3's 8 lane tiles of 128 become the 8 warps of a
-// 256-thread block, one packet per block. Every entry carries the range of
-// warps [lo, hi) that entered it and, for exactness, each warp's lane mask
-// (48 bytes; a few KB of shared memory for the whole stack). Warps outside
-// the range skip the pop's slab and leaf work, which is v3's saving. Leaves
-// are tested inline at their parent's pop, nearest first, as in v3; child
-// ranges come from per-warp ballots merged by warp 0, which also pushes.
-// Three __syncthreads a live pop keep the block's stack consistent; a pop no
-// lane still wants costs one __syncthreads_or. The slab form is the hoisted
-// lo*inv - ro*inv of v2/v3.
+// K5b design (v3): v3 splits its packet into 8 lane tiles and lets a tile
+// skip every node that none of its lanes entered. On this card a tile is a
+// warp, and the ranging is taken to its end: every warp keeps a stack of
+// its own (shared memory, stack_cap entries of code, key, lane mask) and
+// walks only what its own lanes entered, with __syncwarp and no block-wide
+// barrier. What is v3's stays: the hoisted slab form lo*inv - ro*inv (so its
+// function is K2's), and leaves tested inline at their parent's pop, nearest
+// first, never pushed. A node row is read as 16-byte loads; lane c keeps
+// child c's entry, mask and key, and ranks it with 8 shuffles.
+// What bounds it is the packet's node union (every lane of a warp steps
+// through every node any of them entered) and, on incoherent rays, leaf
+// tests by a few lanes of a warp. Tried and dropped, with the times in
+// PERF.md: one packet of 8 warps a block with a stack replicated per warp,
+// entries carrying the range of warps that entered, one __syncthreads a
+// shared pop, and entries that at most 1, 2, 4 or 8 warps entered detached
+// onto those warps' private stacks (drained after each shared pop, or put
+// off until the shared stack was empty). Every step towards less sharing
+// was faster: a shared pop costs all 8 warps a barrier and a merge and
+// saves none of them a slab test, so the walk with nothing shared is the
+// one kept. Packets of 2 or 4 warps for narrow launches went with it.
 //
 // Not carried over from the TPU kernels, being scheduling devices and not
-// parts of the function: the scalar-core sorting network (here a warp
-// ranks the 8 children), the int keys with 3 dropped mantissa bits (here
-// exact float bits, ties to the lower slot), the SMEM trash slots for
+// parts of the function: the scalar-core sorting network (here a thread or
+// a warp ranks the 8 children), the int keys with 3 dropped mantissa bits
+// (here exact float bits, ties to the lower slot), the SMEM trash slots for
 // invalid pushes, the block-max t_cap prune (each lane checks its own
-// t_best) and v3's 1/rd VMEM cache (1/rd lives in registers).
+// t_best), v3's 1/rd VMEM cache (1/rd lives in registers) and v3's shared
+// stack over 8 tiles (above).
 //
 // Arithmetic: every operation is an explicitly rounded __f*_rn intrinsic
 // (and the library is built with -fmad=false), in the order of the plain
@@ -62,23 +94,17 @@
 //   tri    t = (d - ro.n)/(rd.n), w1 = (ro.g1 + t*(rd.g1)) + c1, w2 alike,
 //          w3 = (1 - w1) - w2, hit if t > eps and all w > 0;
 //   sphere oc = ro - c, hb = oc.rd, disc = hb*hb - (oc.oc - r2),
-//          t = -hb - sqrt(max(disc, 0)), or -hb + sqrt(..) for flag 2 when
-//          the near root is < eps; hit if disc >= 0 and t > eps.
+//          t = -hb - sqrt(disc), or -hb + sqrt(disc) for flag 2 when the
+//          near root is < eps; hit if disc >= 0 and t > eps.
 // Tie rule: a candidate wins on strictly smaller t, or equal t and a
 // smaller prim id, so the result is the least (t, prim) over all tested
 // primitives whatever the visiting order. The packet kernels visit nodes in
 // another order than the twin and test a superset of what each ray's own
-// walk tests (a lane in an entry's mask re-checks the packet's entry
+// walk tests (a lane in an entry's mask re-checks the warp's entry
 // distance, not its own); what they add lies beyond the eps-relaxed boxes
 // the ray's own walk culled, so the least (t, prim) is the same.
-//
-// Bound: latency of dependent loads (node row, then the run rows it names)
-// and divergence; the tables of a 23k-triangle mesh are a few MB and stay
-// resident in the 50 MB L2, read through the read-only path (__ldg). The
-// packet kernels trade K2's divergence for a packet's node union and, in
-// K5b, block-wide barriers per pop. These versions are written to be right;
-// treelet restart, shared-memory staging and occupancy tuning are later
-// work.
+// iters: K2/K3 count each ray's pops, bit for bit the twin's; K5a and K5b
+// give every ray its warp's pops.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -88,7 +114,7 @@ namespace {
 constexpr int kThreads = 128;     // K2/K3: one ray per thread
 constexpr int kWidth = 8;
 constexpr int kRowF = 128;        // floats per table row
-constexpr int kMaxStack = 256;    // stack entries (ops MAX_STACK)
+constexpr int kMaxStack = 256;    // K2/K3/K5a: stack entries (ops MAX_STACK)
 constexpr int kPad = -(1 << 30);  // empty child slot
 constexpr int kEnc = 64;          // run-length field of a leaf code
 constexpr int kPrimCol = 96;      // prim ids of a run row
@@ -99,15 +125,21 @@ constexpr unsigned kFullMask = 0xffffffffu;
 constexpr unsigned kNoKey = 0xffffffffu;   // above the bits of any finite key
 constexpr int kWarpsV1 = 4;                // K5a: packets (warps) per block
 constexpr int kThreadsV1 = 32 * kWarpsV1;
-constexpr int kWarpsV3 = 8;                // K5b: warps (v3's tiles) per packet
+constexpr int kWarpsV3 = 4;                // K5b: packets (warps) per block
 constexpr int kThreadsV3 = 32 * kWarpsV3;
 
+// NaN-propagating min and max (torch.minimum / torch.maximum): one
+// instruction each on sm_80 and later.
 __device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 __device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 __device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0,
@@ -135,25 +167,50 @@ __device__ __forceinline__ void load_ray(const float* __restrict__ ro,
   }
 }
 
-// Slab interval [t0, t1] of child c of a node row: kDirect (v1)
-// (lo - ro)*inv, else lo*inv - ro*inv.
-template <int kDirect>
-__device__ __forceinline__ void slab(const float* __restrict__ box, int c,
-                                     const float o[3], const float inv[3],
-                                     const float roinv[3], float& t0,
-                                     float& t1) {
+// v1's slab interval [t0, t1] of child c of a node row: (lo - ro)*inv.
+__device__ __forceinline__ void slab_direct(const float* __restrict__ box, int c,
+                                            const float o[3], const float inv[3],
+                                            float& t0, float& t1) {
   t0 = -INFINITY;
   t1 = INFINITY;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    const float lo = __ldg(box + k * kWidth + c);
-    const float hi = __ldg(box + (3 + k) * kWidth + c);
-    const float ta = kDirect ? __fmul_rn(__fsub_rn(lo, o[k]), inv[k])
-                             : __fsub_rn(__fmul_rn(lo, inv[k]), roinv[k]);
-    const float tc = kDirect ? __fmul_rn(__fsub_rn(hi, o[k]), inv[k])
-                             : __fsub_rn(__fmul_rn(hi, inv[k]), roinv[k]);
+    const float ta = __fmul_rn(__fsub_rn(__ldg(box + k * kWidth + c), o[k]), inv[k]);
+    const float tc =
+        __fmul_rn(__fsub_rn(__ldg(box + (3 + k) * kWidth + c), o[k]), inv[k]);
     t0 = nan_max(t0, nan_min(ta, tc));
     t1 = nan_min(t1, nan_max(ta, tc));
+  }
+}
+
+// The hoisted slab interval lo*inv - ro*inv from a child's box.
+__device__ __forceinline__ void slab_hoisted(const float lo[3], const float hi[3],
+                                             const float inv[3],
+                                             const float roinv[3], float& t0,
+                                             float& t1) {
+  t0 = -INFINITY;
+  t1 = INFINITY;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float ta = __fsub_rn(__fmul_rn(lo[k], inv[k]), roinv[k]);
+    const float tc = __fsub_rn(__fmul_rn(hi[k], inv[k]), roinv[k]);
+    t0 = nan_max(t0, nan_min(ta, tc));
+    t1 = nan_min(t1, nan_max(ta, tc));
+  }
+}
+
+// Component k (lo.x .. hi.z) of children 4*half .. 4*half + 3 of a node row,
+// read as 16-byte vectors: b[k][q].
+__device__ __forceinline__ void load_half_boxes(const float* __restrict__ node_row,
+                                                int half, float b[6][4]) {
+  const float4* __restrict__ box = reinterpret_cast<const float4*>(node_row);
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const float4 v = __ldg(box + 2 * k + half);
+    b[k][0] = v.x;
+    b[k][1] = v.y;
+    b[k][2] = v.z;
+    b[k][3] = v.w;
   }
 }
 
@@ -162,51 +219,77 @@ __device__ __forceinline__ bool enters(float t0, float t1, float eps,
   return t1 > __fsub_rn(t0, eps) && t1 > 0.f && t0 < reach;
 }
 
-// Test slots [0, nslots) of one run row; fold hits into (tb, pb).
-template <int kSphere>
-__device__ __forceinline__ void test_run(const float* __restrict__ row,
-                                         int nslots, const float o[3],
-                                         const float d[3], float eps,
-                                         float& tb, int& pb) {
+__device__ __forceinline__ void fold_hit(float t, int pid, float& tb, int& pb) {
+  if (t < tb || (t == tb && pid < pb)) {
+    tb = t;
+    pb = pid;
+  }
+}
+
+// Triangle slots [0, nslots) of one run row; folds hits into (tb, pb).
+__device__ __forceinline__ void test_tri_run(const float* __restrict__ row,
+                                             int nslots, const float o[3],
+                                             const float d[3], float eps,
+                                             float& tb, int& pb) {
   for (int j = 0; j < nslots; ++j) {
-    float t;
-    bool ok;
-    if (kSphere) {
-      const float ocx = __fsub_rn(o[0], __ldg(row + 0 * kWidth + j));
-      const float ocy = __fsub_rn(o[1], __ldg(row + 1 * kWidth + j));
-      const float ocz = __fsub_rn(o[2], __ldg(row + 2 * kWidth + j));
-      const float r2 = __ldg(row + 3 * kWidth + j);
-      const float flag = __ldg(row + 4 * kWidth + j);
-      const float hb = dot3(ocx, ocy, ocz, d[0], d[1], d[2]);
-      const float cterm = __fsub_rn(dot3(ocx, ocy, ocz, ocx, ocy, ocz), r2);
-      const float disc = __fsub_rn(__fmul_rn(hb, hb), cterm);
-      const float sq = __fsqrt_rn(disc > 0.f ? disc : 0.f);
-      const float t_near = __fsub_rn(-hb, sq);
-      t = (t_near < eps && flag > 1.5f) ? __fadd_rn(-hb, sq) : t_near;
-      ok = disc >= 0.f && t > eps;
-    } else {
-      float c[12];
+    float c[12];
 #pragma unroll
-      for (int k = 0; k < 12; ++k) c[k] = __ldg(row + k * kWidth + j);
-      const float denom = dot3(d[0], d[1], d[2], c[0], c[1], c[2]);
-      const float ron = dot3(o[0], o[1], o[2], c[0], c[1], c[2]);
-      t = __fdiv_rn(__fsub_rn(c[3], ron), denom);
-      const float w1 = __fadd_rn(
-          __fadd_rn(dot3(o[0], o[1], o[2], c[4], c[5], c[6]),
-                    __fmul_rn(t, dot3(d[0], d[1], d[2], c[4], c[5], c[6]))),
-          c[7]);
-      const float w2 = __fadd_rn(
-          __fadd_rn(dot3(o[0], o[1], o[2], c[8], c[9], c[10]),
-                    __fmul_rn(t, dot3(d[0], d[1], d[2], c[8], c[9], c[10]))),
-          c[11]);
-      const float w3 = __fsub_rn(__fsub_rn(1.f, w1), w2);
-      ok = t > eps && w1 > 0.f && w2 > 0.f && w3 > 0.f;
+    for (int k = 0; k < 12; ++k) c[k] = __ldg(row + k * kWidth + j);
+    const float denom = dot3(d[0], d[1], d[2], c[0], c[1], c[2]);
+    const float ron = dot3(o[0], o[1], o[2], c[0], c[1], c[2]);
+    const float t = __fdiv_rn(__fsub_rn(c[3], ron), denom);
+    const float w1 = __fadd_rn(
+        __fadd_rn(dot3(o[0], o[1], o[2], c[4], c[5], c[6]),
+                  __fmul_rn(t, dot3(d[0], d[1], d[2], c[4], c[5], c[6]))),
+        c[7]);
+    const float w2 = __fadd_rn(
+        __fadd_rn(dot3(o[0], o[1], o[2], c[8], c[9], c[10]),
+                  __fmul_rn(t, dot3(d[0], d[1], d[2], c[8], c[9], c[10]))),
+        c[11]);
+    const float w3 = __fsub_rn(__fsub_rn(1.f, w1), w2);
+    if (t > eps && w1 > 0.f && w2 > 0.f && w3 > 0.f)
+      fold_hit(t, (int)__ldg(row + kPrimCol + j), tb, pb);
+  }
+}
+
+// Sphere slots [0, nslots) of one run row, four slots to a 16-byte load of
+// each component; the root only where the discriminant admits one (a
+// negative or NaN discriminant is no hit whatever the root). Folds hits
+// into (tb, pb).
+__device__ __forceinline__ void test_sphere_run(const float* __restrict__ row,
+                                                int nslots, const float o[3],
+                                                const float d[3], float eps,
+                                                float& tb, int& pb) {
+  const float4* __restrict__ row4 = reinterpret_cast<const float4*>(row);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (4 * h >= nslots) break;
+    float c[5][4];   // cx, cy, cz, r2, flag of slots 4*h .. 4*h + 3
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      const float4 v = __ldg(row4 + 2 * k + h);
+      c[k][0] = v.x;
+      c[k][1] = v.y;
+      c[k][2] = v.z;
+      c[k][3] = v.w;
     }
-    if (ok) {
-      const int pid = (int)__ldg(row + kPrimCol + j);
-      if (t < tb || (t == tb && pid < pb)) {
-        tb = t;
-        pb = pid;
+    const float4 pv = __ldg(row4 + kPrimCol / 4 + h);
+    const float prim[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (4 * h + q >= nslots) break;
+      const float ocx = __fsub_rn(o[0], c[0][q]);
+      const float ocy = __fsub_rn(o[1], c[1][q]);
+      const float ocz = __fsub_rn(o[2], c[2][q]);
+      const float hb = dot3(ocx, ocy, ocz, d[0], d[1], d[2]);
+      const float cterm = __fsub_rn(dot3(ocx, ocy, ocz, ocx, ocy, ocz), c[3][q]);
+      const float disc = __fsub_rn(__fmul_rn(hb, hb), cterm);
+      if (disc >= 0.f) {
+        const float sq = __fsqrt_rn(disc);
+        const float t_near = __fsub_rn(-hb, sq);
+        const float t =
+            (t_near < eps && c[4][q] > 1.5f) ? __fadd_rn(-hb, sq) : t_near;
+        if (t > eps) fold_hit(t, (int)prim[q], tb, pb);
       }
     }
   }
@@ -221,11 +304,14 @@ __device__ __forceinline__ void test_leaf(const float* __restrict__ runs,
                                           float& tb, int& pb) {
   const int v = -(code + 1);
   const int row = v / kEnc, count = v % kEnc;
-  test_run<kSphere>(runs + (size_t)row * kRowF, min(count, kWidth), o, d, eps,
-                    tb, pb);
-  if (count > kWidth)
-    test_run<kSphere>(runs + (size_t)(row + 1) * kRowF, count - kWidth, o, d,
-                      eps, tb, pb);
+  const float* __restrict__ first = runs + (size_t)row * kRowF;
+  if (kSphere) {
+    test_sphere_run(first, min(count, kWidth), o, d, eps, tb, pb);
+    if (count > kWidth) test_sphere_run(first + kRowF, count - kWidth, o, d, eps, tb, pb);
+  } else {
+    test_tri_run(first, min(count, kWidth), o, d, eps, tb, pb);
+    if (count > kWidth) test_tri_run(first + kRowF, count - kWidth, o, d, eps, tb, pb);
+  }
 }
 
 // ------------------------------------------------ K2/K3: a ray per thread --
@@ -250,37 +336,47 @@ packet_traverse_kernel(const float* __restrict__ nodes,
   if (active[i]) {
     float o[3], d[3], inv[3], roinv[3];
     load_ray(ro, rd, i, o, d, inv, roinv);
-    int s_code[kMaxStack];
-    float s_t[kMaxStack];
+    int2 stack[kMaxStack];        // (code, bits of the entry distance)
     int sp = 0;
-    s_code[0] = 0;   // root
-    s_t[0] = 0.f;
+    stack[0] = make_int2(0, 0);   // root, entry distance +0
     while (sp >= 0) {
       if (iters >= max_iters) {
         atomicOr(err, kErrIters);
         break;
       }
       ++iters;
-      const int code = s_code[sp];
-      const float t_pop = s_t[sp];
+      const int2 e = stack[sp];
       --sp;
-      if (!(t_pop < __fadd_rn(tb, eps))) continue;   // stale entry
+      if (!(__int_as_float(e.y) < __fadd_rn(tb, eps))) continue;   // stale entry
 
-      const float* __restrict__ box = nodes + (size_t)code * kRowF;
-      const int* __restrict__ kid = entries + (size_t)code * kRowF;
+      const float* __restrict__ node_row = nodes + (size_t)e.x * kRowF;
+      const int4* __restrict__ kid =
+          reinterpret_cast<const int4*>(entries + (size_t)e.x * kRowF);
       float key[kWidth];
       int ent[kWidth];
       unsigned leaves = 0, inner = 0;
       const float reach = __fadd_rn(tb, eps);
 #pragma unroll
-      for (int c = 0; c < kWidth; ++c) {
-        ent[c] = __ldg(kid + c);
-        float t0, t1;
-        slab<0>(box, c, o, inv, roinv, t0, t1);
-        key[c] = nan_max(t0, 0.f);
-        if (enters(t0, t1, eps, reach) && ent[c] != kPad) {
-          if (ent[c] < 0) leaves |= 1u << c;
-          else inner |= 1u << c;
+      for (int half = 0; half < 2; ++half) {
+        const int4 e4 = __ldg(kid + half);
+        ent[4 * half + 0] = e4.x;
+        ent[4 * half + 1] = e4.y;
+        ent[4 * half + 2] = e4.z;
+        ent[4 * half + 3] = e4.w;
+        float b[6][4];
+        load_half_boxes(node_row, half, b);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int c = 4 * half + q;
+          const float lo[3] = {b[0][q], b[1][q], b[2][q]};
+          const float hi[3] = {b[3][q], b[4][q], b[5][q]};
+          float t0, t1;
+          slab_hoisted(lo, hi, inv, roinv, t0, t1);
+          key[c] = nan_max(t0, 0.f);
+          if (enters(t0, t1, eps, reach) && ent[c] != kPad) {
+            if (ent[c] < 0) leaves |= 1u << c;
+            else inner |= 1u << c;
+          }
         }
       }
 
@@ -319,9 +415,7 @@ packet_traverse_kernel(const float* __restrict__ nodes,
           }
         }
         inner &= ~(1u << bc);
-        ++sp;
-        s_code[sp] = be;
-        s_t[sp] = bk;
+        stack[++sp] = make_int2(be, __float_as_int(bk));
       }
     }
   }
@@ -413,7 +507,7 @@ packet_walk_v1_kernel(const float* __restrict__ nodes,
       float k = 0.f;
       if (mine && cent[c] != kPad) {
         float t0, t1;
-        slab<1>(box, c, o, inv, roinv, t0, t1);
+        slab_direct(box, c, o, inv, t0, t1);
         entered = enters(t0, t1, eps, reach);
         k = nan_max(t0, 0.f);
       }
@@ -458,14 +552,69 @@ packet_walk_v1_kernel(const float* __restrict__ nodes,
   }
 }
 
-// ---------------------------------- K5b: v3 tile-ranged walk per 8 warps --
+// ------------------------------------ K5b: v3's ranged walk, a warp a tile --
 
-struct PacketEntry {
-  int code;
-  float key;                  // the packet's entry distance
-  int lo, hi;                 // warps [lo, hi) that entered
-  unsigned mask[kWarpsV3];    // each warp's entering lanes
-};
+// The warp's node step: the lanes with `mine` slab-test the 8 children of
+// node `code` (hoisted form); lane c < 8 returns child c's entry, the lanes
+// that entered it and the least of their keys (the other lanes kPad, no
+// lane, kNoKey). The leaf children some lane entered are tested at once,
+// nearest first, by the lanes that entered them.
+__device__ __forceinline__ void ranged_node_step(
+    const float* __restrict__ nodes, const int* __restrict__ entries,
+    const float* __restrict__ runs, int code, bool mine, const float o[3],
+    const float d[3], const float inv[3], const float roinv[3], float eps,
+    float& tb, int& pb, int& ent_c, unsigned& mask_c, unsigned& key_c) {
+  const int lane = threadIdx.x & 31;
+  ent_c = lane < kWidth ? __ldg(entries + (size_t)code * kRowF + lane) : kPad;
+  mask_c = 0u;
+  key_c = kNoKey;
+  const float reach = __fadd_rn(tb, eps);
+  unsigned cmask[kWidth], ckey[kWidth];   // warp-uniform
+  unsigned leafs = 0;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float b[6][4];
+    load_half_boxes(nodes + (size_t)code * kRowF, half, b);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = 4 * half + q;
+      const int ent = __shfl_sync(kFullMask, ent_c, c);
+      bool entered = false;
+      float key = 0.f;
+      if (mine && ent != kPad) {
+        const float lo[3] = {b[0][q], b[1][q], b[2][q]};
+        const float hi[3] = {b[3][q], b[4][q], b[5][q]};
+        float t0, t1;
+        slab_hoisted(lo, hi, inv, roinv, t0, t1);
+        entered = enters(t0, t1, eps, reach);
+        key = nan_max(t0, 0.f);
+      }
+      cmask[c] = __ballot_sync(kFullMask, entered);
+      ckey[c] = __reduce_min_sync(kFullMask, entered ? key_bits(key) : kNoKey);
+      if (cmask[c] && ent < 0) leafs |= 1u << c;
+      if (lane == c) {
+        mask_c = cmask[c];
+        key_c = ckey[c];
+      }
+    }
+  }
+  while (leafs) {   // warp-uniform: nearest first, ties to the lower slot
+    int bc = 0;
+    unsigned bk = kNoKey, bm = 0;
+#pragma unroll
+    for (int c = 0; c < kWidth; ++c) {
+      if (((leafs >> c) & 1u) && ckey[c] < bk) {
+        bc = c;
+        bk = ckey[c];
+        bm = cmask[c];
+      }
+    }
+    leafs &= ~(1u << bc);
+    const int ent = __shfl_sync(kFullMask, ent_c, bc);
+    if (((bm >> lane) & 1u) && __uint_as_float(bk) < __fadd_rn(tb, eps))
+      test_leaf<0>(runs, ent, o, d, eps, tb, pb);
+  }
+}
 
 __global__ void __launch_bounds__(kThreadsV3)
 packet_walk_v3_kernel(const float* __restrict__ nodes,
@@ -478,134 +627,55 @@ packet_walk_v3_kernel(const float* __restrict__ nodes,
                       float* __restrict__ t_out, int* __restrict__ prim_out,
                       int* __restrict__ iters_out, int* __restrict__ err,
                       int n, int stack_cap, int max_iters, float eps) {
-  __shared__ PacketEntry s_stack[kMaxStack];
-  __shared__ PacketEntry s_leaf[kWidth];        // this pop's leaves, nearest first
-  __shared__ unsigned s_cmask[kWarpsV3][kWidth];  // [warp][child] entering lanes
-  __shared__ unsigned s_ckey[kWarpsV3][kWidth];   // [warp][child] key bits
-  __shared__ int s_sp, s_nleaf, s_overflow;
+  // each warp's stack, stack_cap entries of (code, key bits, lane mask, -)
+  extern __shared__ int4 s_stacks[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int4* __restrict__ stack = s_stacks + warp * stack_cap;
   const int i = blockIdx.x * kThreadsV3 + threadIdx.x;
   float o[3], d[3], inv[3], roinv[3], tb;
   const bool act = packet_lane(ro, rd, t_init, active, i, n, o, d, inv, roinv, tb);
   int pb = -1;
-  const unsigned wm = __ballot_sync(kFullMask, act);
-  if (lane == 0) s_stack[0].mask[warp] = wm;
-  if (threadIdx.x == 0) {   // the root, over v3's full range
-    s_stack[0].code = 0;
-    s_stack[0].key = 0.f;
-    s_stack[0].lo = 0;
-    s_stack[0].hi = kWarpsV3;
+  const unsigned root = __ballot_sync(kFullMask, act);
+  int sp = -1, iters = 0;   // warp-uniform
+  if (root) {
+    if (lane == 0) stack[0] = make_int4(0, 0, (int)root, 0);
+    sp = 0;
   }
-  int sp = __syncthreads_or(act) ? 0 : -1;   // block-uniform
-  int iters = 0;
+  __syncwarp();
   while (sp >= 0) {
     if (iters >= max_iters) {
-      if (threadIdx.x == 0) atomicOr(err, kErrIters);
+      if (lane == 0) atomicOr(err, kErrIters);
       break;
     }
     ++iters;
-    const PacketEntry& e = s_stack[sp];
-    const int code = e.code;
-    const float key = e.key;
-    const bool in_range = warp >= e.lo && warp < e.hi;
-    const unsigned m = e.mask[warp];
+    const int4 e = stack[sp];
     --sp;
-    const bool mine = in_range && ((m >> lane) & 1u) && key < __fadd_rn(tb, eps);
-    if (!__syncthreads_or(mine)) continue;   // stale for every lane
-
-    // slab test of the 8 children by the warps in range
-    unsigned cmask[kWidth], ckey[kWidth];
+    const bool mine = (((unsigned)e.z >> lane) & 1u) &&
+                      __int_as_float(e.y) < __fadd_rn(tb, eps);
+    if (!__any_sync(kFullMask, mine)) continue;   // stale for every lane
+    int ent_c;
+    unsigned mask_c, key_c;
+    ranged_node_step(nodes, entries, runs, e.x, mine, o, d, inv, roinv, eps, tb,
+                     pb, ent_c, mask_c, key_c);
+    // lane c ranks its node child among the entered ones by (key, slot) and
+    // pushes it, the nearest on top
+    const bool node = mask_c != 0u && ent_c >= 0;
+    const unsigned inner = __ballot_sync(kFullMask, node);
+    int rank = 0;
 #pragma unroll
-    for (int c = 0; c < kWidth; ++c) {
-      cmask[c] = 0;
-      ckey[c] = kNoKey;
+    for (int j = 0; j < kWidth; ++j) {
+      const unsigned kj = __shfl_sync(kFullMask, key_c, j);
+      if (((inner >> j) & 1u) && (kj < key_c || (kj == key_c && j < lane))) ++rank;
     }
-    if (in_range) {   // warp-uniform
-      const float* __restrict__ box = nodes + (size_t)code * kRowF;
-      const int* __restrict__ kid = entries + (size_t)code * kRowF;
-      const float reach = __fadd_rn(tb, eps);
-#pragma unroll
-      for (int c = 0; c < kWidth; ++c) {
-        bool entered = false;
-        float k = 0.f;
-        if (mine && __ldg(kid + c) != kPad) {
-          float t0, t1;
-          slab<0>(box, c, o, inv, roinv, t0, t1);
-          entered = enters(t0, t1, eps, reach);
-          k = nan_max(t0, 0.f);
-        }
-        cmask[c] = __ballot_sync(kFullMask, entered);
-        ckey[c] = __reduce_min_sync(kFullMask, entered ? key_bits(k) : kNoKey);
-      }
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int c = 0; c < kWidth; ++c) {
-        s_cmask[warp][c] = cmask[c];
-        s_ckey[warp][c] = ckey[c];
-      }
-    }
-    __syncthreads();
-
-    // warp 0: lane c merges child c over the warps, ranks it among the
-    // entered children of its kind by (key, slot), and writes it: nodes
-    // onto the stack (the nearest on top), leaves into this pop's list
-    if (warp == 0) {
-      const int c = lane;
-      unsigned kb = kNoKey;
-      int clo = kWarpsV3, chi = 0, ent = kPad;
-      if (c < kWidth) {
-        ent = __ldg(entries + (size_t)code * kRowF + c);
-        for (int w = 0; w < kWarpsV3; ++w) {
-          if (s_cmask[w][c]) {
-            kb = min(kb, s_ckey[w][c]);
-            clo = min(clo, w);
-            chi = w + 1;
-          }
-        }
-      }
-      const bool entered = chi > 0;
-      const unsigned leafs = __ballot_sync(kFullMask, entered && ent < 0);
-      const unsigned inner = __ballot_sync(kFullMask, entered && ent >= 0);
-      const unsigned kind = ent < 0 ? leafs : inner;
-      int rank = 0;
-      for (int j = 0; j < kWidth; ++j) {
-        const unsigned kj = __shfl_sync(kFullMask, kb, j);
-        if (((kind >> j) & 1u) && (kj < kb || (kj == kb && j < c))) ++rank;
-      }
-      const int nn = __popc(inner);
-      const bool overflow = sp + nn >= stack_cap;
-      PacketEntry* dst = nullptr;
-      if (entered && ent >= 0 && !overflow) dst = &s_stack[sp + nn - rank];
-      if (entered && ent < 0) dst = &s_leaf[rank];
-      if (dst) {
-        dst->code = ent;
-        dst->key = __uint_as_float(kb);
-        dst->lo = clo;
-        dst->hi = chi;
-        for (int w = 0; w < kWarpsV3; ++w) dst->mask[w] = s_cmask[w][c];
-      }
-      if (lane == 0) {
-        s_sp = sp + nn;
-        s_nleaf = __popc(leafs);
-        s_overflow = overflow;
-      }
-    }
-    __syncthreads();
-    if (s_overflow) {
-      if (threadIdx.x == 0) atomicOr(err, kErrStack);
+    const int nn = __popc(inner);
+    if (sp + nn >= stack_cap) {
+      if (lane == 0) atomicOr(err, kErrStack);
       break;
     }
-    sp = s_sp;
-
-    // leaves inline, nearest first, by the lanes that entered them
-    const int nleaf = s_nleaf;
-    for (int k = 0; k < nleaf; ++k) {
-      const PacketEntry& leaf = s_leaf[k];
-      if (warp >= leaf.lo && warp < leaf.hi && ((leaf.mask[warp] >> lane) & 1u) &&
-          leaf.key < __fadd_rn(tb, eps))
-        test_leaf<0>(runs, leaf.code, o, d, eps, tb, pb);
-    }
+    __syncwarp();   // every lane has read the popped entry
+    if (node) stack[sp + nn - rank] = make_int4(ent_c, (int)key_c, (int)mask_c, 0);
+    sp += nn;
+    __syncwarp();   // the pushes are visible to every lane
   }
   if (i < n) {
     t_out[i] = tb;
@@ -621,9 +691,10 @@ packet_walk_v3_kernel(const float* __restrict__ nodes,
 // (one byte each); t_out: f32[n]; prim_out, iters_out: i32[n]; err: one i32,
 // zero on entry (bit 1: stack overflow, bit 2: pop backstop). leaf_kind 0 =
 // triangles, 1 = spheres; version 2 = K2/K3, 1 = K5a, 3 = K5b (triangles
-// only). All contiguous on the current device. Launches on `stream` and
-// returns cudaGetLastError() (0 on success) without synchronising, or
-// cudaErrorInvalidValue for a version or leaf kind it does not take.
+// only). stack_cap: at most kMaxStack for K2/K3/K5a; K5b sizes its shared
+// memory by it. All contiguous on the current device. Launches on `stream`
+// and returns cudaGetLastError() (0 on success) without synchronising, or
+// cudaErrorInvalidValue for a version, leaf kind or stack it does not take.
 extern "C" int lpt_packet_traverse(const void* nodes, const void* entries,
                                    const void* runs, const void* ro,
                                    const void* rd, const void* t_init,
@@ -633,7 +704,8 @@ extern "C" int lpt_packet_traverse(const void* nodes, const void* entries,
                                    float eps, int leaf_kind, int version,
                                    void* stream) {
   if (version < 1 || version > 3 || leaf_kind < 0 || leaf_kind > 1 ||
-      (version != 2 && leaf_kind != 0))
+      (version != 2 && leaf_kind != 0) || stack_cap < 1 ||
+      (version != 3 && stack_cap > kMaxStack))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* nf = (const float*)nodes;
@@ -651,7 +723,14 @@ extern "C" int lpt_packet_traverse(const void* nodes, const void* entries,
     packet_walk_v1_kernel<<<(n + kThreadsV1 - 1) / kThreadsV1, kThreadsV1, 0, s>>>(
         nf, ei, rf, rof, rdf, tif, ac, to, po, io, er, n, stack_cap, max_iters, eps);
   } else if (version == 3) {
-    packet_walk_v3_kernel<<<(n + kThreadsV3 - 1) / kThreadsV3, kThreadsV3, 0, s>>>(
+    const size_t smem = sizeof(int4) * kWarpsV3 * (size_t)stack_cap;
+    if (smem > 48 * 1024) {   // above the default limit: ask for it, or fail
+      const cudaError_t e = cudaFuncSetAttribute(
+          packet_walk_v3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    packet_walk_v3_kernel<<<(n + kThreadsV3 - 1) / kThreadsV3, kThreadsV3, smem, s>>>(
         nf, ei, rf, rof, rdf, tif, ac, to, po, io, er, n, stack_cap, max_iters, eps);
   } else if (leaf_kind == 1) {
     packet_traverse_kernel<1><<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(

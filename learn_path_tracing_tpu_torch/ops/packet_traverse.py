@@ -8,15 +8,23 @@ argument here, all in ``csrc/packet_traverse.cu``:
 - version 2 (default): K2 (triangle leaves) and K3 (sphere leaves) for the
   TPU's ``_kernel_v2``. The TPU walks one shared SMEM stack per 1024-ray
   packet; the port gives every ray its own stack (one thread per ray),
-  which is how the reference walks its BVH.
+  which is how the reference walks its BVH. On the H100 the walk is bound
+  by instruction rate under divergence, so it reads a node row and a
+  sphere run row as 16-byte loads and takes the slab test's NaN-propagating
+  min/max as single instructions (the source note has the designs that were
+  measured and dropped).
 - version 1: K5a for ``_kernel`` (v1), one packet of 32 rays per warp with
   a shared stack whose entries carry the mask of the lanes that entered
   them; leaves are pushed like nodes, and nodes are slab-tested in v1's
   form ``(lo - ro)*inv``.
-- version 3: K5b for ``_kernel_v3`` (tile-ranged), one packet of 256 rays
-  per block, its 8 warps standing for v3's 8 lane tiles; every entry
-  carries the range of warps that entered it and each warp's lane mask,
-  and only warps in range do the pop's slab and leaf work.
+- version 3: K5b for ``_kernel_v3`` (tile-ranged). v3 lets each of its 8
+  lane tiles skip the nodes none of its lanes entered; here a tile is a
+  warp with a stack of its own (``stack_cap`` entries of shared memory),
+  which walks only what its own lanes entered, with no block-wide barrier.
+  It keeps v3's hoisted slab form (so its function is K2's) and tests
+  leaves inline at their parent's pop, nearest first. A packet of 8 warps
+  sharing one ranged stack was measured and dropped: every shared pop cost
+  all its warps a barrier and saved none of them a slab test.
 
 Sphere leaves take version 2 only, as in the JAX package. The data
 contract is the JAX package's:
@@ -62,9 +70,9 @@ operations in the same order, each rounded on its own):
 
 The packet kernels (K5a, K5b) walk a packet's union of nodes, each lane
 testing only what its own mask says it entered, so their ``(t, prim)``
-are the per-ray walk's; their ``iters`` are the packet's pops, given to
-each of its rays (the twin's are per ray), so ``iters`` is reported and
-not compared.
+are the per-ray walk's. Their ``iters`` are the pops of the ray's warp (in
+K5a leaf pops included, in K5b node pops only), given to each of its rays;
+the twin's are per ray, so ``iters`` is reported and not compared.
 
 ``traverse`` dispatches on the device: CUDA tensors launch the version's
 kernel (and count the launch in ``traverse.launches[<kernel>]``), CPU
@@ -91,7 +99,9 @@ VERSIONS = (1, 2, 3)
 # the kernel that carries each (leaf kind, version), as traverse.launches counts
 KERNELS = {("tri", 2): "k2", ("sphere", 2): "k3", ("tri", 1): "k5a", ("tri", 3): "k5b"}
 SLABS = {1: "direct", 2: "hoisted", 3: "hoisted"}
-MAX_STACK = 256             # the kernels' stack entries (csrc kMaxStack)
+# stack entries K2, K3 and K5a hold (csrc kMaxStack); K5b sizes its shared
+# memory by the tables' stack_cap
+MAX_STACK = 256
 _INF = float("inf")
 
 # Treelet-key sentinels (see _treelet_entry_key / _coherence_key): rays that
@@ -423,9 +433,10 @@ def packet_traverse_sorted(nodes, entries, runs, ro, rd, active, treelets,
 # ------------------------------------------------------------------ kernel --
 
 def _launch(nodes, entries, runs, ro, rd, t_init, active, eps, leaf_kind, stack, version):
-    if stack > MAX_STACK:
+    kernel = KERNELS[(leaf_kind, version)]
+    if kernel != "k5b" and stack > MAX_STACK:
         raise ValueError(f"packet traversal kernel: the tables need a stack of "
-                         f"{stack} entries, the kernel holds {MAX_STACK}")
+                         f"{stack} entries, {kernel} holds {MAX_STACK}")
     tensors = (("nodes", nodes), ("entries", entries), ("runs", runs), ("ro", ro),
                ("rd", rd), ("t_init", t_init), ("active", active))
     for name, x in tensors:
@@ -450,7 +461,7 @@ def _launch(nodes, entries, runs, ro, rd, t_init, active, eps, leaf_kind, stack,
     if code != 0:
         msg = lib.lpt_error_string(code).decode()
         raise RuntimeError(f"packet traversal kernel launch failed: {msg} ({code})")
-    traverse.launches[KERNELS[(leaf_kind, version)]] += 1
+    traverse.launches[kernel] += 1
     flags = int(err.item())
     if flags:
         what = {1: "stack overflow", 2: "iteration backstop reached",
@@ -479,10 +490,10 @@ def _sqrt_f32(x):
     return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
-def _leaf_candidates(row, nslots, o, d, eps, leaf_kind):
-    """Best ``(t, prim)`` of one run row per ray: ``row f32[R,128]``, valid
-    slots ``j < nslots[R]``, ray origins/directions ``o, d f32[R,3]``.
-    Returns ``(t f32[R] (+inf: none), prim i32[R])``."""
+def _slot_candidates(row, nslots, o, d, eps, leaf_kind):
+    """Every slot of one run row per ray: ``row f32[R,128]``, valid slots
+    ``j < nslots[R]``, ray origins/directions ``o, d f32[R,3]``. Returns
+    ``(t f32[R,8] (+inf: no hit), prim i32[R,8], ok bool[R,8])``."""
     def c(k):
         return row[:, k * WIDTH:(k + 1) * WIDTH]                   # [R,8]
 
@@ -510,7 +521,14 @@ def _leaf_candidates(row, nslots, o, d, eps, leaf_kind):
     slot = torch.arange(SLOTS, device=row.device)
     ok = ok & (slot[None, :] < nslots[:, None])
     pid = row[:, _PRIM_COL:_PRIM_COL + SLOTS].to(torch.int32)
-    t = torch.where(ok, t, _INF)
+    return torch.where(ok, t, _INF), pid, ok
+
+
+def _leaf_candidates(row, nslots, o, d, eps, leaf_kind):
+    """Best ``(t, prim)`` of one run row per ray (arguments as
+    ``_slot_candidates``): the least ``t`` and, among the slots that reach
+    it, the least prim id. Returns ``(t f32[R] (+inf: none), prim i32[R])``."""
+    t, pid, ok = _slot_candidates(row, nslots, o, d, eps, leaf_kind)
     t_min, _ = torch.min(t, dim=1)
     at_min = ok & (t == t_min[:, None])
     p_min, _ = torch.min(torch.where(at_min, pid, torch.iinfo(torch.int32).max), dim=1)

@@ -324,3 +324,325 @@ def test_stack_overflow_and_backstop_raise():
     loop = [torch.as_tensor(x) for x in (nodes, entries, runs)] + args[3:]
     with pytest.raises(RuntimeError, match="backstop"):
         tpt.packet_traverse(*loop, stack=8)
+
+
+# ------------------------------------------- models of the kernels' schedules --
+#
+# Slow numpy models of what the CUDA kernels do, step for step, on small
+# inputs; each is held to ``packet_traverse_plain`` bit for bit in
+# ``(t, prim)``. The slab test is written out in float32 numpy (one rounding
+# per operation, NaN-propagating min/max); the leaf arithmetic is the twin's
+# ``_slot_candidates``, since the models check the schedules, not the roots.
+
+_EPS = np.float32(1e-4)
+
+
+def _tied_tables(leaf_kind, seed, count, max_leaf):
+    """Tables in which every third primitive of the first half is repeated
+    in the second half, so that rays meet exact ties in ``t`` between two
+    prim ids (in different leaves)."""
+    r = np.random.default_rng(seed)
+    dup = np.arange(0, count // 2, 3)
+    if leaf_kind == "tri":
+        v0 = r.normal(size=(count, 3)).astype(np.float32) * 3
+        v1 = v0 + r.normal(size=(count, 3)).astype(np.float32)
+        v2 = v0 + r.normal(size=(count, 3)).astype(np.float32)
+        for v in (v0, v1, v2):
+            v[dup + count // 2] = v[dup]
+        lo, hi = np.minimum(np.minimum(v0, v1), v2), np.maximum(np.maximum(v0, v1), v2)
+        flat = j_build_bvh(lo, hi, centroid=(v0 + v1 + v2) / 3, max_depth=12,
+                           max_leaf=max_leaf, backend="numpy")
+        tables = jpt.pack_packet_tables(j_collapse(flat, max_run=max_leaf), v0, v1, v2)
+    else:
+        c = r.uniform(-6, 6, (count, 3)).astype(np.float32)
+        rad = r.uniform(0.3, 1.4, count).astype(np.float32)
+        tr = (r.uniform(size=count) < 0.3).astype(np.float32)
+        c[dup + count // 2], rad[dup + count // 2] = c[dup], rad[dup]
+        flat = j_build_bvh(c - rad[:, None], c + rad[:, None], centroid=c, max_depth=12,
+                           max_leaf=max_leaf, backend="numpy")
+        tables = jpt.pack_sphere_packet_tables(j_collapse(flat, max_run=max_leaf), c, rad, tr)
+    return [np.asarray(x) for x in tables]
+
+
+class _Walk:
+    """State and steps shared by the schedule models: the rays' best hits,
+    the hoisted slab test of one ray against a node's 8 children and the
+    leaf test of some rays against one leaf run, folded by the tie rule."""
+
+    def __init__(self, tables, ro, rd, ti, active, leaf_kind):
+        self.nodes, self.entries, self.runs = tables
+        self.t_runs = torch.tensor(self.runs)
+        self.ro, self.rd, self.active, self.leaf_kind = ro, rd, active, leaf_kind
+        with np.errstate(all="ignore"):
+            self.inv = np.float32(1.0) / rd
+            self.roinv = ro * self.inv
+        self.t = ti.copy()
+        self.p = np.full(len(ro), -1, np.int32)
+        self.leaf_tests = []          # (ray, node, child) of every leaf test
+
+    def slab(self, code, r):
+        """``(entered bool[8], key f32[8])`` of ray ``r`` at node ``code``."""
+        row = self.nodes[code]
+        t0 = np.full(8, -np.inf, np.float32)
+        t1 = np.full(8, np.inf, np.float32)
+        with np.errstate(all="ignore"):
+            for k in range(3):
+                ta = row[k * 8:(k + 1) * 8] * self.inv[r, k] - self.roinv[r, k]
+                tc = row[(3 + k) * 8:(4 + k) * 8] * self.inv[r, k] - self.roinv[r, k]
+                t0 = np.maximum(t0, np.minimum(ta, tc))
+                t1 = np.minimum(t1, np.maximum(ta, tc))
+            hit = ((t1 > t0 - _EPS) & (t1 > 0) & (t0 < self.t[r] + _EPS)
+                   & (self.entries[code, :8] != _PAD))
+        return hit, np.maximum(t0, np.float32(0)) + np.float32(0)
+
+    def slots(self, r, code):
+        """Per-slot candidates ``[(t, prim)]`` (hits only) of ray ``r`` over
+        the one or two rows of leaf run ``code``."""
+        v = -(int(code) + 1)
+        row, count = v // 64, v % 64
+        out = []
+        for extra in range(2):
+            if count > 8 * extra:
+                t, pid, ok = tpt._slot_candidates(
+                    self.t_runs[row + extra][None], torch.tensor([count - 8 * extra]),
+                    torch.as_tensor(self.ro[r])[None], torch.as_tensor(self.rd[r])[None],
+                    torch.tensor(1e-4), self.leaf_kind)
+                out += [(np.float32(a), int(b)) for a, b, c in
+                        zip(t[0].numpy(), pid[0].numpy(), ok[0].numpy()) if c]
+        return out
+
+    def fold(self, r, cand):
+        t, p = cand
+        if t < self.t[r] or (t == self.t[r] and p < self.p[r]):
+            self.t[r], self.p[r] = t, p
+
+    def test_leaf(self, r, node, child):
+        self.leaf_tests.append((r, node, child))
+        for cand in self.slots(r, self.entries[node, child]):
+            self.fold(r, cand)
+
+    def check_leaf_tests(self):
+        """Every leaf test was of a box the ray's own slab test admits
+        (whatever its best hit was then)."""
+        saved, self.t = self.t, np.full_like(self.t, np.inf)
+        for r, node, child in self.leaf_tests:
+            assert self.slab(node, r)[0][child], (r, node, child)
+        self.t = saved
+
+
+def _ranged_walk(walk, stack, lanes, warps, detach, drain, seed=0):
+    """A ranged packet walk on packets of ``warps`` warps of ``lanes`` rays:
+    a shared stack whose entries carry the range of warps that entered and
+    each warp's lane mask; node children that at most ``detach`` warps
+    entered go onto those warps' private stacks, with the warp's own key and
+    mask. A private stack is walked by its warp alone: after every shared
+    pop (``drain='eager'``), when it could overflow and at the end
+    (``'deferred'``), or at random (``'random'``). Leaves are tested at
+    their parent's pop, nearest first, by the lanes that entered them.
+    K5b is ``detach=warps``: below the root every warp walks alone (sharing
+    more of the walk was measured on the card and only cost time); the
+    smaller thresholds show that the result does not depend on how much of
+    the walk a packet shares. Returns the pops of each ray's packet plus
+    its warp's own."""
+    rng = np.random.default_rng(seed)
+    n = len(walk.ro)
+    pcap = stack if drain == "eager" else 3 * stack + 8
+    pops = np.zeros(n, np.int32)
+
+    def node_step(rays, code, mine):
+        """The warp's entered lanes ``cmask bool[8, lanes]`` and least keys
+        ``ckey f32[8]`` per child, leaf children tested."""
+        ent = walk.entries[code, :8]
+        cmask = np.zeros((8, len(rays)), bool)
+        ckey = np.full(8, np.inf, np.float32)
+        for li in np.flatnonzero(mine):
+            hit, key = walk.slab(code, rays[li])
+            cmask[:, li] = hit
+            ckey = np.where(hit, np.minimum(ckey, key), ckey)
+        leaves = [c for c in range(8) if cmask[c].any() and ent[c] < 0]
+        for c in sorted(leaves, key=lambda c: (ckey[c], c)):
+            for li in np.flatnonzero(cmask[c]):
+                if ckey[c] < walk.t[rays[li]] + _EPS:
+                    walk.test_leaf(rays[li], code, c)
+        return cmask, ckey
+
+    def push(st, children):
+        """Nearest (ties: the lowest slot) on top."""
+        st.extend(e for _, _, e in sorted(children, key=lambda x: (x[0], x[1]), reverse=True))
+
+    for base in range(0, n, lanes * warps):
+        idx = np.arange(base, min(base + lanes * warps, n))
+        rays_of = [idx[w * lanes:(w + 1) * lanes] for w in range(warps)]
+        own_pops = [0] * warps
+
+        def drain_private(w):
+            st, rays = private[w], rays_of[w]
+            while st:
+                own_pops[w] += 1
+                code, key, mask = st.pop()
+                mine = mask & (key < walk.t[rays] + _EPS)
+                if not mine.any():
+                    continue
+                cmask, ckey = node_step(rays, code, mine)
+                ent = walk.entries[code, :8]
+                push(st, [(ckey[c], c, (int(ent[c]), ckey[c], cmask[c]))
+                          for c in range(8) if cmask[c].any() and ent[c] >= 0])
+                assert len(st) <= pcap
+
+        shared = [(0, np.float32(0), 0, warps, [walk.active[r] for r in rays_of])]
+        private = [[] for _ in range(warps)]
+        shared_pops = 0
+        while shared:
+            shared_pops += 1
+            code, key, lo, hi, masks = shared.pop()
+            table = []
+            for w, rays in enumerate(rays_of):
+                mine = masks[w] & (key < walk.t[rays] + _EPS) & (lo <= w < hi)
+                table.append(node_step(rays, code, mine) if mine.any() else
+                             (np.zeros((8, len(rays)), bool), np.full(8, np.inf, np.float32)))
+            ent = walk.entries[code, :8]
+            to_shared, to_private = [], [[] for _ in range(warps)]
+            for c in range(8):
+                ws = [w for w in range(warps) if table[w][0][c].any()]
+                if not ws or ent[c] < 0:
+                    continue
+                if len(ws) <= detach:
+                    for w in ws:
+                        to_private[w].append((table[w][1][c], c,
+                                              (int(ent[c]), table[w][1][c], table[w][0][c])))
+                else:
+                    kb = min(table[w][1][c] for w in ws)
+                    to_shared.append((kb, c, (int(ent[c]), kb, ws[0], ws[-1] + 1,
+                                              [table[w][0][c] for w in range(warps)])))
+            push(shared, to_shared)
+            assert len(shared) <= stack
+            for w in range(warps):
+                push(private[w], to_private[w])
+                assert len(private[w]) <= pcap
+                now = {"eager": True, "deferred": len(private[w]) + 8 + stack > pcap,
+                       "random": rng.random() < 0.5}[drain]
+                if private[w] and now:
+                    drain_private(w)
+        for w in range(warps):
+            drain_private(w)
+            pops[rays_of[w]] = shared_pops + own_pops[w]
+    return pops
+
+
+def _model_case(leaf_kind, max_leaf, n=96, seed=0):
+    """Tables with tied primitives, rays aimed into them (some with a
+    ``t_init`` in front of their hit, some inactive), the twin's result and
+    the tables' stack bound."""
+    count = 160
+    tables = _tied_tables(leaf_kind, 30 + seed + max_leaf, count, max_leaf)
+    r = np.random.default_rng(50 + seed)
+    ro = (r.normal(size=(n, 3)) * 6).astype(np.float32)
+    rd = (r.normal(size=(n, 3)) * 1.5 - ro).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    ti = np.where(r.uniform(size=n) < 0.3, r.uniform(1, 8, n), np.inf).astype(np.float32)
+    active = r.uniform(size=n) < 0.8
+    twin = tpt.packet_traverse_plain(*(torch.tensor(x) for x in tables), torch.tensor(ro),
+                                     torch.tensor(rd), torch.tensor(ti), torch.tensor(active),
+                                     leaf_kind=leaf_kind)
+    t, p, it = (x.numpy() for x in twin)
+    # the case has hits, hits on repeated primitives (exact ties, the lower
+    # prim id winning), rays that keep their t_init and inactive rays
+    tied = np.arange(0, count // 2, 3)
+    assert (p >= 0).sum() > n // 4 and np.isin(p, tied).sum() > 2
+    assert not np.isin(p, tied + count // 2).any()
+    assert ((p < 0) & np.isfinite(ti) & active).any() and not active.all()
+    return tables, (ro, rd, ti, active), (t, p, it), tpt.stack_cap(tables[1])
+
+
+@pytest.mark.parametrize("drain", ["eager", "deferred", "random"])
+@pytest.mark.parametrize("detach", [1, 2, 8])
+@pytest.mark.parametrize("lanes,warps,max_leaf", [(4, 4, 4), (2, 8, 12), (8, 2, 8)])
+def test_ranged_walk_schedule_is_the_twin(lanes, warps, max_leaf, detach, drain):
+    """The ranged packet walk (K5b's per-warp stacks below the root, and the
+    shared stack with warp ranges above whatever is detached) gives the
+    twin's ``(t, prim)`` bit for bit whenever the private work runs and
+    however many warps an entry may have to be detached; no lane tests a
+    leaf its own slab test did not enter; the stacks stay within the
+    tables' bound."""
+    tables, rays, (t, p, _), stack = _model_case("tri", max_leaf)
+    walk = _Walk(tables, *rays, "tri")
+    pops = _ranged_walk(walk, stack, lanes, warps, detach, drain, seed=lanes + detach)
+    np.testing.assert_array_equal(walk.p, p)
+    np.testing.assert_array_equal(walk.t.view(np.int32), t.view(np.int32))
+    walk.check_leaf_tests()
+    assert (pops[rays[3]] > 0).all()
+
+
+def _butterfly(cands):
+    """The least ``(t, prim)`` of up to 8 lanes' candidates by xor-shuffle
+    steps 1, 2, 4, as a group of lanes would reduce them; None if no lane
+    has one."""
+    lanes = (cands + [(np.float32(np.inf), np.iinfo(np.int32).max)] * 8)[:8]
+    for m in (1, 2, 4):
+        lanes = [min(lanes[j], lanes[j ^ m]) for j in range(8)]
+    assert len(set(lanes)) == 1
+    return lanes[0] if cands else None
+
+
+def _ray_walk(walk, stack, fold):
+    """K2/K3's schedule, one ray at a time: pop, drop a stale entry, slab
+    the 8 children, then the kernel's selection loops: the entered leaves by
+    repeatedly taking the least key (the first such slot), each skipped if
+    its key is no longer below the best hit; the entered nodes pushed by
+    repeatedly taking the greatest key (the last such slot), so that the
+    nearest, lowest slot ends on top. ``fold``: a leaf's slots folded into
+    the best hit one by one (``'serial'``, the kernel) or reduced first
+    across lanes (``'butterfly'``): the tie rule makes them equal. Returns
+    each ray's pops."""
+    pops = np.zeros(len(walk.ro), np.int32)
+    for r in np.flatnonzero(walk.active):
+        st = [(0, np.float32(0))]
+        while st:
+            pops[r] += 1
+            code, key = st.pop()
+            if not key < walk.t[r] + _EPS:
+                continue
+            hit, keys = walk.slab(code, r)
+            ent = walk.entries[code, :8]
+            leaves = [c for c in range(8) if hit[c] and ent[c] < 0]
+            inner = [c for c in range(8) if hit[c] and ent[c] >= 0]
+            while leaves:
+                bc = leaves[0]
+                for c in leaves:
+                    if keys[c] < keys[bc]:
+                        bc = c
+                leaves.remove(bc)
+                if not keys[bc] < walk.t[r] + _EPS:
+                    continue
+                walk.leaf_tests.append((r, code, bc))
+                cands = walk.slots(r, ent[bc])
+                if fold == "butterfly":
+                    best = _butterfly(cands[:8])
+                    cands = ([best] if best else []) + cands[8:]
+                for cand in cands:
+                    walk.fold(r, cand)
+            while inner:
+                bc = inner[0]
+                for c in inner:
+                    if keys[c] >= keys[bc]:
+                        bc = c
+                inner.remove(bc)
+                st.append((int(ent[bc]), keys[bc]))
+            assert len(st) <= stack
+    return pops
+
+
+@pytest.mark.parametrize("fold", ["serial", "butterfly"])
+@pytest.mark.parametrize("leaf_kind,max_leaf", [("tri", 4), ("tri", 12), ("sphere", 8),
+                                                ("sphere", 12)])
+def test_ray_walk_schedule_is_the_twin(leaf_kind, max_leaf, fold):
+    """K2/K3's schedule (the selection loops in place of the twin's stable
+    sort) gives the twin's ``(t, prim)`` and pops bit for bit, on tables
+    with exact ties, fat leaves, ``t_init`` and inactive rays."""
+    tables, rays, (t, p, it), stack = _model_case(leaf_kind, max_leaf, seed=3)
+    walk = _Walk(tables, *rays, leaf_kind)
+    pops = _ray_walk(walk, stack, fold)
+    np.testing.assert_array_equal(walk.p, p)
+    np.testing.assert_array_equal(walk.t.view(np.int32), t.view(np.int32))
+    np.testing.assert_array_equal(pops, it)
+    walk.check_leaf_tests()
