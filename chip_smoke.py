@@ -86,8 +86,9 @@ Phases:
    width with every slice count (and K1's device ms in the modular frame:
    its passes at each width times its time there), K3 and K1 under
    ``hit()`` on the primary rays at every pass width, K4's pass from each
-   of its three states, and K2, K3, K5a and K5b on
-   every ray set in lane and sorted order with their pops per ray. They
+   of its three states, K2, K3, K5a and K5b on
+   every ray set in lane and sorted order with their pops per ray, and K6a
+   and K6b on every gather set. They
    come last because a profiler run can slow the process's later
    launches, which every CUDA-event time and timed frame above would show.
 
@@ -112,9 +113,9 @@ the ``nvidia-smi`` name and power limit, a JSON line of the kernels, and
 ``{"ok": true, "device": {...}}``. Every kernel's ``ms`` in the kernels
 line is CUDA events around one wrapper call (the host's issue time
 included, and for the packet kernels the read-back of their error word,
-one host round trip); K1, K4 and the packet kernels (K2, K3, K5a, K5b) also
-give ``device_ms``, the kernel's own duration from ``torch.profiler``. Without a CUDA device it exits 1 and prints no
-result.
+one host round trip); every kernel also gives ``device_ms``, its own
+duration from ``torch.profiler``. Without a CUDA device it exits 1 and
+prints no result.
 """
 
 from __future__ import annotations
@@ -1485,7 +1486,9 @@ def check_row_gather(wd, device):
     ``torch.index_select`` (the library call, in-range sets) and the plain
     version are timed in turns. Returns ``{kernel: kernels-line entry
     (without launches)}`` at the main path's shapes (the stand-in's
-    triangle-attribute and material pair-row calls)."""
+    triangle-attribute and material pair-row calls) and ``device_times()``,
+    to be called after the timed frames: each kernel's own time on every
+    set from the profiler (it sets each entry's ``device_ms``)."""
     import torch
 
     from learn_path_tracing_tpu_torch.ops import row_gather as rg
@@ -1535,7 +1538,18 @@ def check_row_gather(wd, device):
                            "source": "learn_path_tracing_tpu_torch/csrc/row_gather.cu",
                            "replaces": replaces, "max_abs_err": 0.0, "ms": ms,
                            "plain_ms": plain_ms, **b, "library_ms": lib_ms}
-    return out
+
+    def device_times():
+        for name, (tab, idx) in sets.items():
+            kernel = rg.kernel_for(tab)
+            dev_ms = kernel_ms(lambda: rg.gather(tab, idx), GATHER_KERNEL_NAMES[kernel])
+            b = gather_bound(tab, idx)
+            _log(f"[{kernel} device] {name}: {dev_ms:.4f} ms on the device (profiler, median "
+                 f"of 20), {b['bound_ms'] / dev_ms:.3f} of the bound")
+            if main_sets[kernel] == name:
+                out[kernel]["device_ms"] = dev_ms
+
+    return out, device_times
 
 
 # --------------------------------------------------------- stage l13 --
@@ -1853,7 +1867,7 @@ def main(argv=None) -> int:
              f"{time.time() - t0:.2f} s")
         tri_kernels, tri_device_times = check_packet(mesh_wd, tri.packet, tri.stack, "tri",
                                                      device, seed=7)
-        gather_kernels = check_row_gather(mesh_wd, device)
+        gather_kernels, gather_device_times = check_row_gather(mesh_wd, device)
 
         t0 = time.time()
         sph_wd = _build_quiet(sphere_world(), device=device)
@@ -1881,6 +1895,7 @@ def main(argv=None) -> int:
     k4_device_times()
     tri_device_times()
     sph_device_times()
+    gather_device_times()
 
     print(card)
     print(json.dumps({"kernels": [k1, tri_kernels["k2"], k3, k4, tri_kernels["k5a"],

@@ -1,6 +1,7 @@
 // Nearest hit over an 8-wide BVH for NVIDIA Hopper (sm_90a): kernels K2
 // (triangle leaves) and K3 (sphere leaves), one template, and the packet
-// kernels K5a and K5b (triangle leaves), which share its slab and leaf code.
+// kernels K5a and K5b (triangle leaves), one template too, which share its
+// slab and leaf code.
 //
 // Replaces the TPU kernels of learn_path_tracing_tpu/ops/packet_traverse.py,
 // the versions the JAX package picks with LPT_PACKET_VERSION:
@@ -30,48 +31,62 @@
 // lie side by side) and the 8 entries as two; the NaN-propagating min/max
 // of the slab test are single min.NaN/max.NaN instructions; a sphere run
 // row is read as 16-byte loads, four slots at a time, and the root is taken
-// only where the discriminant admits one. The triangle leaf keeps its
-// scalar loads: the 16-byte form needs 98 registers and loses on the
-// coherent primary slab what it gains on incoherent rays. The stack stays
-// in local memory (interleaved by lane, so a warp's entry is one 128-byte
-// line, resident in L1): a shared-memory stack of stack_cap entries a
-// thread caps the SM at a third of its threads and measured no faster.
+// only where the discriminant admits one. K2's triangle leaf reads two
+// slots at a time, each coefficient of the pair as one 8-byte load: the 13
+// loads of a pair are in flight together, which is what a walk waits for on
+// incoherent rays and in narrow launches, at 70 registers. The 16-byte form
+// (four slots, 100 registers) gains more there and loses a quarter on the
+// coherent primary slab; capped to 64 registers it spills and loses
+// everywhere. The stack stays in local memory (interleaved by lane, so a
+// warp's entry is one 128-byte line, resident in L1): a shared-memory stack
+// of stack_cap entries a thread caps the SM at a third of its threads and
+// measured no faster.
 // Tried and dropped, with the times in PERF.md: eight lanes walking one ray
 // together (a lane a child, a lane a leaf slot, the stack in shared
 // memory). It cuts the divergence to 4 rays a warp and beat the old walk on
 // incoherent rays by a third, but runs over twice the instructions a pop
 // (ballots, shuffles and the ranking replace work that 32 rays shared) and
-// took 2.5 times as long on the coherent slabs.
+// took 2.5 times as long on the coherent slabs. A split triangle test (the
+// plane distance of four slots first, the barycentric weights only where
+// t > eps and t <= t_best): exact, but the plane rejects few slots a warp
+// (some lane nearly always goes on), and the second dependent load cost
+// 6-25 % on every set but rays starting on the surface. Persistent warps
+// whose idle lanes refetch rays from a counter: exact in (t, prim, iters),
+// up to 15 % faster on over a million incoherent rays (K3), 12-24 % slower
+// on K2's coherent slab (a vote a pop, 72 against 64 registers, rays of a
+// warp no longer neighbours). Prefetching the next node's rows before the
+// leaf tests: no faster.
 //
-// K5a design (v1): the TPU's packet becomes a warp's: 32 rays share one
-// stack in shared memory whose entries are (code, packet entry distance,
-// mask of the lanes that entered). At a node pop each lane of the mask whose
-// t_best still admits the entry slab-tests the 8 children in v1's form
-// (lo - ro)*inv; __ballot_sync gives each child's mask and
-// __reduce_min_sync on the bits of the non-negative entry distances its
-// packet key. Children, leaves included, are pushed near to far; a leaf pop
-// is tested by the lanes of its mask only, which keeps each ray's (t, prim)
-// that of its own walk (the TPU tests every lane against a leaf, so there a
-// ray's result can depend on its packet mates). Each node pop replaces one
-// entry by at most 8, so the stack bound stays 1 + 7*depth.
-//
-// K5b design (v3): v3 splits its packet into 8 lane tiles and lets a tile
-// skip every node that none of its lanes entered. On this card a tile is a
-// warp, and the ranging is taken to its end: every warp keeps a stack of
-// its own (shared memory, stack_cap entries of code, key, lane mask) and
-// walks only what its own lanes entered, with __syncwarp and no block-wide
-// barrier. What is v3's stays: the hoisted slab form lo*inv - ro*inv (so its
-// function is K2's), and leaves tested inline at their parent's pop, nearest
-// first, never pushed. A node row is read as 16-byte loads; lane c keeps
-// child c's entry, mask and key, and ranks it with 8 shuffles.
-// What bounds it is the packet's node union (every lane of a warp steps
+// K5a and K5b design: the TPU's v1 walks one ordered stack a 1024-ray
+// packet; its v3 splits the packet into 8 lane tiles and lets a tile skip
+// every node that none of its lanes entered. On this card a tile is a warp,
+// and the ranging is taken to its end: every warp keeps a stack of its own
+// (shared memory, stack_cap entries of code, key, lane mask) and walks only
+// what its own lanes entered, with __syncwarp and no block-wide barrier. A
+// node row is read as 16-byte loads; each lane of the entry's mask whose
+// t_best still admits it slab-tests the 8 children; __ballot_sync gives each
+// child's mask and __reduce_min_sync on the bits of the non-negative entry
+// distances its key; lane c keeps child c's entry, mask and key, and ranks
+// it with 8 shuffles. Leaves are tested inline at their parent's pop, nearest
+// first, by the lanes that entered them, never pushed (the TPU's v1 tests
+// every lane against a leaf, so there a ray's result can depend on its packet
+// mates). The two kernels are one template and differ in what is their
+// function: K5a slab-tests in v1's form (lo - ro)*inv, which hits the
+// axis-parallel rays that the hoisted lo*inv - ro*inv of K5b (and K2) loses
+// to inf - inf. Their leaf is the scalar one: 8-byte loads made both slower
+// on the coherent slab (76-80 registers) for 2-3 % in narrow launches.
+// What bounds them is the packet's node union (every lane of a warp steps
 // through every node any of them entered) and, on incoherent rays, leaf
 // tests by a few lanes of a warp. Tried and dropped, with the times in
-// PERF.md: one packet of 8 warps a block with a stack replicated per warp,
-// entries carrying the range of warps that entered, one __syncthreads a
-// shared pop, and entries that at most 1, 2, 4 or 8 warps entered detached
-// onto those warps' private stacks (drained after each shared pop, or put
-// off until the shared stack was empty). Every step towards less sharing
+// PERF.md: K5a as first ported (scalar node loads, every lane ranking all 8
+// children, three static 256-entry stacks a warp), and the new walk with
+// v1's pushed leaves (a pop, a vote and two __syncwarp more a leaf run: 8 %
+// slower a frame than inline); for K5b one packet of 8 warps a block with a
+// stack replicated per warp, entries carrying the range of warps that
+// entered, one __syncthreads a shared pop, and entries that at most 1, 2, 4
+// or 8 warps entered detached onto those warps' private stacks (drained
+// after each shared pop, or put off until the shared stack was empty). Every
+// step towards less sharing
 // was faster: a shared pop costs all 8 warps a barrier and a merge and
 // saves none of them a slab test, so the walk with nothing shared is the
 // one kept. Packets of 2 or 4 warps for narrow launches went with it.
@@ -104,7 +119,7 @@
 // distance, not its own); what they add lies beyond the eps-relaxed boxes
 // the ray's own walk culled, so the least (t, prim) is the same.
 // iters: K2/K3 count each ray's pops, bit for bit the twin's; K5a and K5b
-// give every ray its warp's pops.
+// give every ray its warp's node pops.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -114,7 +129,7 @@ namespace {
 constexpr int kThreads = 128;     // K2/K3: one ray per thread
 constexpr int kWidth = 8;
 constexpr int kRowF = 128;        // floats per table row
-constexpr int kMaxStack = 256;    // K2/K3/K5a: stack entries (ops MAX_STACK)
+constexpr int kMaxStack = 256;    // K2/K3: stack entries (ops MAX_STACK)
 constexpr int kPad = -(1 << 30);  // empty child slot
 constexpr int kEnc = 64;          // run-length field of a leaf code
 constexpr int kPrimCol = 96;      // prim ids of a run row
@@ -123,10 +138,8 @@ constexpr int kErrIters = 2;
 
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr unsigned kNoKey = 0xffffffffu;   // above the bits of any finite key
-constexpr int kWarpsV1 = 4;                // K5a: packets (warps) per block
-constexpr int kThreadsV1 = 32 * kWarpsV1;
-constexpr int kWarpsV3 = 4;                // K5b: packets (warps) per block
-constexpr int kThreadsV3 = 32 * kWarpsV3;
+constexpr int kWarpsPk = 4;                // K5a/K5b: packets (warps) per block
+constexpr int kThreadsPk = 32 * kWarpsPk;
 
 // NaN-propagating min and max (torch.minimum / torch.maximum): one
 // instruction each on sm_80 and later.
@@ -167,38 +180,6 @@ __device__ __forceinline__ void load_ray(const float* __restrict__ ro,
   }
 }
 
-// v1's slab interval [t0, t1] of child c of a node row: (lo - ro)*inv.
-__device__ __forceinline__ void slab_direct(const float* __restrict__ box, int c,
-                                            const float o[3], const float inv[3],
-                                            float& t0, float& t1) {
-  t0 = -INFINITY;
-  t1 = INFINITY;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const float ta = __fmul_rn(__fsub_rn(__ldg(box + k * kWidth + c), o[k]), inv[k]);
-    const float tc =
-        __fmul_rn(__fsub_rn(__ldg(box + (3 + k) * kWidth + c), o[k]), inv[k]);
-    t0 = nan_max(t0, nan_min(ta, tc));
-    t1 = nan_min(t1, nan_max(ta, tc));
-  }
-}
-
-// The hoisted slab interval lo*inv - ro*inv from a child's box.
-__device__ __forceinline__ void slab_hoisted(const float lo[3], const float hi[3],
-                                             const float inv[3],
-                                             const float roinv[3], float& t0,
-                                             float& t1) {
-  t0 = -INFINITY;
-  t1 = INFINITY;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const float ta = __fsub_rn(__fmul_rn(lo[k], inv[k]), roinv[k]);
-    const float tc = __fsub_rn(__fmul_rn(hi[k], inv[k]), roinv[k]);
-    t0 = nan_max(t0, nan_min(ta, tc));
-    t1 = nan_min(t1, nan_max(ta, tc));
-  }
-}
-
 // Component k (lo.x .. hi.z) of children 4*half .. 4*half + 3 of a node row,
 // read as 16-byte vectors: b[k][q].
 __device__ __forceinline__ void load_half_boxes(const float* __restrict__ node_row,
@@ -214,6 +195,29 @@ __device__ __forceinline__ void load_half_boxes(const float* __restrict__ node_r
   }
 }
 
+// The slab interval [t0, t1] of child q of a half row b (load_half_boxes):
+// v1's form (lo - ro)*inv if kDirect, else the hoisted lo*inv - ro*inv.
+template <bool kDirect>
+__device__ __forceinline__ void slab_child(float b[6][4], int q, const float o[3],
+                                           const float inv[3], const float roinv[3],
+                                           float& t0, float& t1) {
+  t0 = -INFINITY;
+  t1 = INFINITY;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float ta, tc;
+    if (kDirect) {
+      ta = __fmul_rn(__fsub_rn(b[k][q], o[k]), inv[k]);
+      tc = __fmul_rn(__fsub_rn(b[3 + k][q], o[k]), inv[k]);
+    } else {
+      ta = __fsub_rn(__fmul_rn(b[k][q], inv[k]), roinv[k]);
+      tc = __fsub_rn(__fmul_rn(b[3 + k][q], inv[k]), roinv[k]);
+    }
+    t0 = nan_max(t0, nan_min(ta, tc));
+    t1 = nan_min(t1, nan_max(ta, tc));
+  }
+}
+
 __device__ __forceinline__ bool enters(float t0, float t1, float eps,
                                        float reach) {
   return t1 > __fsub_rn(t0, eps) && t1 > 0.f && t0 < reach;
@@ -226,7 +230,28 @@ __device__ __forceinline__ void fold_hit(float t, int pid, float& tb, int& pb) {
   }
 }
 
-// Triangle slots [0, nslots) of one run row; folds hits into (tb, pb).
+// One triangle slot from its 12 coefficients: whether the ray hits it, and
+// at which t.
+__device__ __forceinline__ bool tri_slot_hit(const float c[12], const float o[3],
+                                             const float d[3], float eps, float& t) {
+  const float denom = dot3(d[0], d[1], d[2], c[0], c[1], c[2]);
+  const float ron = dot3(o[0], o[1], o[2], c[0], c[1], c[2]);
+  t = __fdiv_rn(__fsub_rn(c[3], ron), denom);
+  const float w1 = __fadd_rn(
+      __fadd_rn(dot3(o[0], o[1], o[2], c[4], c[5], c[6]),
+                __fmul_rn(t, dot3(d[0], d[1], d[2], c[4], c[5], c[6]))),
+      c[7]);
+  const float w2 = __fadd_rn(
+      __fadd_rn(dot3(o[0], o[1], o[2], c[8], c[9], c[10]),
+                __fmul_rn(t, dot3(d[0], d[1], d[2], c[8], c[9], c[10]))),
+      c[11]);
+  const float w3 = __fsub_rn(__fsub_rn(1.f, w1), w2);
+  return t > eps && w1 > 0.f && w2 > 0.f && w3 > 0.f;
+}
+
+// Triangle slots [0, nslots) of one run row, a slot at a time with scalar
+// loads (the packet walks' leaf: few lanes of a warp are in it at once, and
+// it keeps their register count down).
 __device__ __forceinline__ void test_tri_run(const float* __restrict__ row,
                                              int nslots, const float o[3],
                                              const float d[3], float eps,
@@ -235,20 +260,35 @@ __device__ __forceinline__ void test_tri_run(const float* __restrict__ row,
     float c[12];
 #pragma unroll
     for (int k = 0; k < 12; ++k) c[k] = __ldg(row + k * kWidth + j);
-    const float denom = dot3(d[0], d[1], d[2], c[0], c[1], c[2]);
-    const float ron = dot3(o[0], o[1], o[2], c[0], c[1], c[2]);
-    const float t = __fdiv_rn(__fsub_rn(c[3], ron), denom);
-    const float w1 = __fadd_rn(
-        __fadd_rn(dot3(o[0], o[1], o[2], c[4], c[5], c[6]),
-                  __fmul_rn(t, dot3(d[0], d[1], d[2], c[4], c[5], c[6]))),
-        c[7]);
-    const float w2 = __fadd_rn(
-        __fadd_rn(dot3(o[0], o[1], o[2], c[8], c[9], c[10]),
-                  __fmul_rn(t, dot3(d[0], d[1], d[2], c[8], c[9], c[10]))),
-        c[11]);
-    const float w3 = __fsub_rn(__fsub_rn(1.f, w1), w2);
-    if (t > eps && w1 > 0.f && w2 > 0.f && w3 > 0.f)
+    float t;
+    if (tri_slot_hit(c, o, d, eps, t))
       fold_hit(t, (int)__ldg(row + kPrimCol + j), tb, pb);
+  }
+}
+
+// The same slots two at a time, every coefficient of a pair as one 8-byte
+// load (K2's leaf): the 13 loads of a pair are in flight together, and 24
+// coefficients are live at once, not the 48 of the 16-byte form.
+__device__ __forceinline__ void test_tri_run_pairs(const float* __restrict__ row,
+                                                   int nslots, const float o[3],
+                                                   const float d[3], float eps,
+                                                   float& tb, int& pb) {
+  const float2* __restrict__ row2 = reinterpret_cast<const float2*>(row);
+#pragma unroll
+  for (int h = 0; h < kWidth / 2; ++h) {
+    if (2 * h >= nslots) break;
+    float c[2][12];
+#pragma unroll
+    for (int k = 0; k < 12; ++k) {
+      const float2 v = __ldg(row2 + (kWidth / 2) * k + h);
+      c[0][k] = v.x;
+      c[1][k] = v.y;
+    }
+    const float2 prim = __ldg(row2 + kPrimCol / 2 + h);
+    float t;
+    if (tri_slot_hit(c[0], o, d, eps, t)) fold_hit(t, (int)prim.x, tb, pb);
+    if (2 * h + 1 < nslots && tri_slot_hit(c[1], o, d, eps, t))
+      fold_hit(t, (int)prim.y, tb, pb);
   }
 }
 
@@ -295,9 +335,21 @@ __device__ __forceinline__ void test_sphere_run(const float* __restrict__ row,
   }
 }
 
+constexpr int kTriScalar = 0, kSpheres = 1, kTriPairs = 2;   // leaf kinds
+
+// Slots [0, nslots) of one run row by the leaf kind's test.
+template <int kLeaf>
+__device__ __forceinline__ void test_run(const float* __restrict__ row, int nslots,
+                                         const float o[3], const float d[3],
+                                         float eps, float& tb, int& pb) {
+  if (kLeaf == kSpheres) test_sphere_run(row, nslots, o, d, eps, tb, pb);
+  else if (kLeaf == kTriPairs) test_tri_run_pairs(row, nslots, o, d, eps, tb, pb);
+  else test_tri_run(row, nslots, o, d, eps, tb, pb);
+}
+
 // Test the leaf run of entry code (< 0): its first row, and the spill row
 // of a fat leaf.
-template <int kSphere>
+template <int kLeaf>
 __device__ __forceinline__ void test_leaf(const float* __restrict__ runs,
                                           int code, const float o[3],
                                           const float d[3], float eps,
@@ -305,18 +357,13 @@ __device__ __forceinline__ void test_leaf(const float* __restrict__ runs,
   const int v = -(code + 1);
   const int row = v / kEnc, count = v % kEnc;
   const float* __restrict__ first = runs + (size_t)row * kRowF;
-  if (kSphere) {
-    test_sphere_run(first, min(count, kWidth), o, d, eps, tb, pb);
-    if (count > kWidth) test_sphere_run(first + kRowF, count - kWidth, o, d, eps, tb, pb);
-  } else {
-    test_tri_run(first, min(count, kWidth), o, d, eps, tb, pb);
-    if (count > kWidth) test_tri_run(first + kRowF, count - kWidth, o, d, eps, tb, pb);
-  }
+  test_run<kLeaf>(first, min(count, kWidth), o, d, eps, tb, pb);
+  if (count > kWidth) test_run<kLeaf>(first + kRowF, count - kWidth, o, d, eps, tb, pb);
 }
 
 // ------------------------------------------------ K2/K3: a ray per thread --
 
-template <int kSphere>
+template <int kLeaf>
 __global__ void __launch_bounds__(kThreads)
 packet_traverse_kernel(const float* __restrict__ nodes,
                        const int* __restrict__ entries,
@@ -368,10 +415,8 @@ packet_traverse_kernel(const float* __restrict__ nodes,
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int c = 4 * half + q;
-          const float lo[3] = {b[0][q], b[1][q], b[2][q]};
-          const float hi[3] = {b[3][q], b[4][q], b[5][q]};
           float t0, t1;
-          slab_hoisted(lo, hi, inv, roinv, t0, t1);
+          slab_child<false>(b, q, o, inv, roinv, t0, t1);
           key[c] = nan_max(t0, 0.f);
           if (enters(t0, t1, eps, reach) && ent[c] != kPad) {
             if (ent[c] < 0) leaves |= 1u << c;
@@ -394,7 +439,7 @@ packet_traverse_kernel(const float* __restrict__ nodes,
         }
         leaves &= ~(1u << bc);
         if (!(bk < __fadd_rn(tb, eps))) continue;
-        test_leaf<kSphere>(runs, be, o, d, eps, tb, pb);
+        test_leaf<kLeaf>(runs, be, o, d, eps, tb, pb);
       }
 
       // node children, farthest pushed first (ties: higher slot first), so
@@ -443,122 +488,14 @@ __device__ __forceinline__ bool packet_lane(const float* __restrict__ ro,
   return true;
 }
 
-// ------------------------------------------- K5a: v1 packet walk per warp --
-
-__global__ void __launch_bounds__(kThreadsV1)
-packet_walk_v1_kernel(const float* __restrict__ nodes,
-                      const int* __restrict__ entries,
-                      const float* __restrict__ runs,
-                      const float* __restrict__ ro,
-                      const float* __restrict__ rd,
-                      const float* __restrict__ t_init,
-                      const unsigned char* __restrict__ active,
-                      float* __restrict__ t_out, int* __restrict__ prim_out,
-                      int* __restrict__ iters_out, int* __restrict__ err,
-                      int n, int stack_cap, int max_iters, float eps) {
-  __shared__ int s_code[kWarpsV1][kMaxStack];
-  __shared__ float s_key[kWarpsV1][kMaxStack];
-  __shared__ unsigned s_mask[kWarpsV1][kMaxStack];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int i = blockIdx.x * kThreadsV1 + threadIdx.x;
-  int* st_code = s_code[warp];
-  float* st_key = s_key[warp];
-  unsigned* st_mask = s_mask[warp];
-  float o[3], d[3], inv[3], roinv[3], tb;
-  const bool act = packet_lane(ro, rd, t_init, active, i, n, o, d, inv, roinv, tb);
-  int pb = -1;
-  const unsigned root = __ballot_sync(kFullMask, act);
-  int sp = -1, iters = 0;   // warp-uniform
-  if (root) {
-    if (lane == 0) {
-      st_code[0] = 0;
-      st_key[0] = 0.f;
-      st_mask[0] = root;
-    }
-    sp = 0;
-  }
-  __syncwarp();
-  while (sp >= 0) {
-    if (iters >= max_iters) {
-      if (lane == 0) atomicOr(err, kErrIters);
-      break;
-    }
-    ++iters;
-    const int code = st_code[sp];
-    const float key = st_key[sp];
-    const unsigned mask = st_mask[sp];
-    --sp;
-    const bool mine = ((mask >> lane) & 1u) && key < __fadd_rn(tb, eps);
-    if (!__any_sync(kFullMask, mine)) continue;   // stale for every lane
-    if (code < 0) {                                // a leaf run
-      if (mine) test_leaf<0>(runs, code, o, d, eps, tb, pb);
-      continue;
-    }
-    const float* __restrict__ box = nodes + (size_t)code * kRowF;
-    const int* __restrict__ kid = entries + (size_t)code * kRowF;
-    const float reach = __fadd_rn(tb, eps);
-    unsigned cmask[kWidth], ckey[kWidth];
-    int cent[kWidth];
-    unsigned present = 0;
-#pragma unroll
-    for (int c = 0; c < kWidth; ++c) {
-      cent[c] = __ldg(kid + c);
-      bool entered = false;
-      float k = 0.f;
-      if (mine && cent[c] != kPad) {
-        float t0, t1;
-        slab_direct(box, c, o, inv, t0, t1);
-        entered = enters(t0, t1, eps, reach);
-        k = nan_max(t0, 0.f);
-      }
-      cmask[c] = __ballot_sync(kFullMask, entered);
-      ckey[c] = __reduce_min_sync(kFullMask, entered ? key_bits(k) : kNoKey);
-      if (cmask[c]) present |= 1u << c;
-    }
-    if (sp + __popc(present) >= stack_cap) {
-      if (lane == 0) atomicOr(err, kErrStack);
-      break;
-    }
-    __syncwarp();   // every lane has read the popped entry
-    // children, leaves included, farthest pushed first (ties: higher slot
-    // first), so the nearest, lowest slot ends on top
-    while (present) {
-      int bc = 0;
-      unsigned bk = 0, bm = 0;
-      int be = 0;
-#pragma unroll
-      for (int c = 0; c < kWidth; ++c) {
-        if (((present >> c) & 1u) && ckey[c] >= bk) {
-          bc = c;
-          bk = ckey[c];
-          bm = cmask[c];
-          be = cent[c];
-        }
-      }
-      present &= ~(1u << bc);
-      ++sp;
-      if (lane == 0) {
-        st_code[sp] = be;
-        st_key[sp] = __uint_as_float(bk);
-        st_mask[sp] = bm;
-      }
-    }
-    __syncwarp();   // the pushes are visible to every lane
-  }
-  if (i < n) {
-    t_out[i] = tb;
-    prim_out[i] = pb;
-    iters_out[i] = iters;
-  }
-}
-
-// ------------------------------------ K5b: v3's ranged walk, a warp a tile --
+// ------------------------- K5a, K5b: the ranged packet walk, a warp a tile --
 
 // The warp's node step: the lanes with `mine` slab-test the 8 children of
-// node `code` (hoisted form); lane c < 8 returns child c's entry, the lanes
-// that entered it and the least of their keys (the other lanes kPad, no
-// lane, kNoKey). The leaf children some lane entered are tested at once,
-// nearest first, by the lanes that entered them.
+// node `code` (kDirect: v1's slab form, else the hoisted one); lane c < 8
+// returns child c's entry, the lanes that entered it and the least of their
+// keys (the other lanes kPad, no lane, kNoKey). The leaf children some lane
+// entered are tested at once, nearest first, by the lanes that entered them.
+template <bool kDirect>
 __device__ __forceinline__ void ranged_node_step(
     const float* __restrict__ nodes, const int* __restrict__ entries,
     const float* __restrict__ runs, int code, bool mine, const float o[3],
@@ -582,10 +519,8 @@ __device__ __forceinline__ void ranged_node_step(
       bool entered = false;
       float key = 0.f;
       if (mine && ent != kPad) {
-        const float lo[3] = {b[0][q], b[1][q], b[2][q]};
-        const float hi[3] = {b[3][q], b[4][q], b[5][q]};
         float t0, t1;
-        slab_hoisted(lo, hi, inv, roinv, t0, t1);
+        slab_child<kDirect>(b, q, o, inv, roinv, t0, t1);
         entered = enters(t0, t1, eps, reach);
         key = nan_max(t0, 0.f);
       }
@@ -612,26 +547,24 @@ __device__ __forceinline__ void ranged_node_step(
     leafs &= ~(1u << bc);
     const int ent = __shfl_sync(kFullMask, ent_c, bc);
     if (((bm >> lane) & 1u) && __uint_as_float(bk) < __fadd_rn(tb, eps))
-      test_leaf<0>(runs, ent, o, d, eps, tb, pb);
+      test_leaf<kTriScalar>(runs, ent, o, d, eps, tb, pb);
   }
 }
 
-__global__ void __launch_bounds__(kThreadsV3)
-packet_walk_v3_kernel(const float* __restrict__ nodes,
-                      const int* __restrict__ entries,
-                      const float* __restrict__ runs,
-                      const float* __restrict__ ro,
-                      const float* __restrict__ rd,
-                      const float* __restrict__ t_init,
-                      const unsigned char* __restrict__ active,
-                      float* __restrict__ t_out, int* __restrict__ prim_out,
-                      int* __restrict__ iters_out, int* __restrict__ err,
-                      int n, int stack_cap, int max_iters, float eps) {
-  // each warp's stack, stack_cap entries of (code, key bits, lane mask, -)
+// The walk of a warp's 32 rays over its own stack (stack_cap entries of the
+// block's shared memory: code, key bits, lane mask, -).
+template <bool kDirect>
+__device__ __forceinline__ void ranged_walk(
+    const float* __restrict__ nodes, const int* __restrict__ entries,
+    const float* __restrict__ runs, const float* __restrict__ ro,
+    const float* __restrict__ rd, const float* __restrict__ t_init,
+    const unsigned char* __restrict__ active, float* __restrict__ t_out,
+    int* __restrict__ prim_out, int* __restrict__ iters_out,
+    int* __restrict__ err, int n, int stack_cap, int max_iters, float eps) {
   extern __shared__ int4 s_stacks[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   int4* __restrict__ stack = s_stacks + warp * stack_cap;
-  const int i = blockIdx.x * kThreadsV3 + threadIdx.x;
+  const int i = blockIdx.x * kThreadsPk + threadIdx.x;
   float o[3], d[3], inv[3], roinv[3], tb;
   const bool act = packet_lane(ro, rd, t_init, active, i, n, o, d, inv, roinv, tb);
   int pb = -1;
@@ -655,8 +588,8 @@ packet_walk_v3_kernel(const float* __restrict__ nodes,
     if (!__any_sync(kFullMask, mine)) continue;   // stale for every lane
     int ent_c;
     unsigned mask_c, key_c;
-    ranged_node_step(nodes, entries, runs, e.x, mine, o, d, inv, roinv, eps, tb,
-                     pb, ent_c, mask_c, key_c);
+    ranged_node_step<kDirect>(nodes, entries, runs, e.x, mine, o, d, inv, roinv, eps,
+                              tb, pb, ent_c, mask_c, key_c);
     // lane c ranks its node child among the entered ones by (key, slot) and
     // pushes it, the nearest on top
     const bool node = mask_c != 0u && ent_c >= 0;
@@ -684,6 +617,38 @@ packet_walk_v3_kernel(const float* __restrict__ nodes,
   }
 }
 
+// K5a: the walk with v1's slab form.
+__global__ void __launch_bounds__(kThreadsPk)
+packet_walk_v1_kernel(const float* __restrict__ nodes,
+                      const int* __restrict__ entries,
+                      const float* __restrict__ runs,
+                      const float* __restrict__ ro,
+                      const float* __restrict__ rd,
+                      const float* __restrict__ t_init,
+                      const unsigned char* __restrict__ active,
+                      float* __restrict__ t_out, int* __restrict__ prim_out,
+                      int* __restrict__ iters_out, int* __restrict__ err,
+                      int n, int stack_cap, int max_iters, float eps) {
+  ranged_walk<true>(nodes, entries, runs, ro, rd, t_init, active, t_out, prim_out,
+                    iters_out, err, n, stack_cap, max_iters, eps);
+}
+
+// K5b: the walk with the hoisted slab form.
+__global__ void __launch_bounds__(kThreadsPk)
+packet_walk_v3_kernel(const float* __restrict__ nodes,
+                      const int* __restrict__ entries,
+                      const float* __restrict__ runs,
+                      const float* __restrict__ ro,
+                      const float* __restrict__ rd,
+                      const float* __restrict__ t_init,
+                      const unsigned char* __restrict__ active,
+                      float* __restrict__ t_out, int* __restrict__ prim_out,
+                      int* __restrict__ iters_out, int* __restrict__ err,
+                      int n, int stack_cap, int max_iters, float eps) {
+  ranged_walk<false>(nodes, entries, runs, ro, rd, t_init, active, t_out, prim_out,
+                     iters_out, err, n, stack_cap, max_iters, eps);
+}
+
 }  // namespace
 
 // Plain C entry for ctypes. nodes/entries/runs: the packed tables (f32 / i32
@@ -691,10 +656,11 @@ packet_walk_v3_kernel(const float* __restrict__ nodes,
 // (one byte each); t_out: f32[n]; prim_out, iters_out: i32[n]; err: one i32,
 // zero on entry (bit 1: stack overflow, bit 2: pop backstop). leaf_kind 0 =
 // triangles, 1 = spheres; version 2 = K2/K3, 1 = K5a, 3 = K5b (triangles
-// only). stack_cap: at most kMaxStack for K2/K3/K5a; K5b sizes its shared
-// memory by it. All contiguous on the current device. Launches on `stream`
-// and returns cudaGetLastError() (0 on success) without synchronising, or
-// cudaErrorInvalidValue for a version, leaf kind or stack it does not take.
+// only). stack_cap: at most kMaxStack for K2/K3; K5a and K5b size their
+// shared memory by it. All contiguous on the current device. Launches on
+// `stream` and returns cudaGetLastError() (0 on success) without
+// synchronising, or cudaErrorInvalidValue for a version, leaf kind or stack
+// it does not take.
 extern "C" int lpt_packet_traverse(const void* nodes, const void* entries,
                                    const void* runs, const void* ro,
                                    const void* rd, const void* t_init,
@@ -705,7 +671,7 @@ extern "C" int lpt_packet_traverse(const void* nodes, const void* entries,
                                    void* stream) {
   if (version < 1 || version > 3 || leaf_kind < 0 || leaf_kind > 1 ||
       (version != 2 && leaf_kind != 0) || stack_cap < 1 ||
-      (version != 3 && stack_cap > kMaxStack))
+      (version == 2 && stack_cap > kMaxStack))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* nf = (const float*)nodes;
@@ -719,24 +685,21 @@ extern "C" int lpt_packet_traverse(const void* nodes, const void* entries,
   int* po = (int*)prim_out;
   int* io = (int*)iters_out;
   int* er = (int*)err;
-  if (version == 1) {
-    packet_walk_v1_kernel<<<(n + kThreadsV1 - 1) / kThreadsV1, kThreadsV1, 0, s>>>(
-        nf, ei, rf, rof, rdf, tif, ac, to, po, io, er, n, stack_cap, max_iters, eps);
-  } else if (version == 3) {
-    const size_t smem = sizeof(int4) * kWarpsV3 * (size_t)stack_cap;
+  if (version != 2) {
+    const auto walk = version == 1 ? packet_walk_v1_kernel : packet_walk_v3_kernel;
+    const size_t smem = sizeof(int4) * kWarpsPk * (size_t)stack_cap;
     if (smem > 48 * 1024) {   // above the default limit: ask for it, or fail
       const cudaError_t e = cudaFuncSetAttribute(
-          packet_walk_v3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
+          (const void*)walk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return (int)e;
     }
-    packet_walk_v3_kernel<<<(n + kThreadsV3 - 1) / kThreadsV3, kThreadsV3, smem, s>>>(
+    walk<<<(n + kThreadsPk - 1) / kThreadsPk, kThreadsPk, smem, s>>>(
         nf, ei, rf, rof, rdf, tif, ac, to, po, io, er, n, stack_cap, max_iters, eps);
   } else if (leaf_kind == 1) {
-    packet_traverse_kernel<1><<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+    packet_traverse_kernel<kSpheres><<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
         nf, ei, rf, rof, rdf, tif, ac, to, po, io, er, n, stack_cap, max_iters, eps);
   } else {
-    packet_traverse_kernel<0><<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+    packet_traverse_kernel<kTriPairs><<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
         nf, ei, rf, rof, rdf, tif, ac, to, po, io, er, n, stack_cap, max_iters, eps);
   }
   return (int)cudaGetLastError();

@@ -10,13 +10,10 @@ argument here, all in ``csrc/packet_traverse.cu``:
   packet; the port gives every ray its own stack (one thread per ray),
   which is how the reference walks its BVH. On the H100 the walk is bound
   by instruction rate under divergence, so it reads a node row and a
-  sphere run row as 16-byte loads and takes the slab test's NaN-propagating
-  min/max as single instructions (the source note has the designs that were
-  measured and dropped).
-- version 1: K5a for ``_kernel`` (v1), one packet of 32 rays per warp with
-  a shared stack whose entries carry the mask of the lanes that entered
-  them; leaves are pushed like nodes, and nodes are slab-tested in v1's
-  form ``(lo - ro)*inv``.
+  sphere run row as 16-byte loads, a triangle run row as 8-byte loads (two
+  slots at a time) and takes the slab test's NaN-propagating min/max as
+  single ``min.NaN``/``max.NaN`` operations (the source note has the designs
+  that were measured and dropped).
 - version 3: K5b for ``_kernel_v3`` (tile-ranged). v3 lets each of its 8
   lane tiles skip the nodes none of its lanes entered; here a tile is a
   warp with a stack of its own (``stack_cap`` entries of shared memory),
@@ -25,6 +22,10 @@ argument here, all in ``csrc/packet_traverse.cu``:
   leaves inline at their parent's pop, nearest first. A packet of 8 warps
   sharing one ranged stack was measured and dropped: every shared pop cost
   all its warps a barrier and saved none of them a slab test.
+- version 1: K5a for ``_kernel`` (v1). The same walk, one template with
+  K5b, with what is v1's function: nodes are slab-tested in v1's form
+  ``(lo - ro)*inv``. v1's pushed leaves are its schedule, not its function;
+  they were measured here and lost to the inline test.
 
 Sphere leaves take version 2 only, as in the JAX package. The data
 contract is the JAX package's:
@@ -70,9 +71,9 @@ operations in the same order, each rounded on its own):
 
 The packet kernels (K5a, K5b) walk a packet's union of nodes, each lane
 testing only what its own mask says it entered, so their ``(t, prim)``
-are the per-ray walk's. Their ``iters`` are the pops of the ray's warp (in
-K5a leaf pops included, in K5b node pops only), given to each of its rays;
-the twin's are per ray, so ``iters`` is reported and not compared.
+are the per-ray walk's. Their ``iters`` are the node pops of the ray's
+warp, given to each of its rays; the twin's are per ray, so ``iters`` is
+reported and not compared.
 
 ``traverse`` dispatches on the device: CUDA tensors launch the version's
 kernel (and count the launch in ``traverse.launches[<kernel>]``), CPU
@@ -99,8 +100,8 @@ VERSIONS = (1, 2, 3)
 # the kernel that carries each (leaf kind, version), as traverse.launches counts
 KERNELS = {("tri", 2): "k2", ("sphere", 2): "k3", ("tri", 1): "k5a", ("tri", 3): "k5b"}
 SLABS = {1: "direct", 2: "hoisted", 3: "hoisted"}
-# stack entries K2, K3 and K5a hold (csrc kMaxStack); K5b sizes its shared
-# memory by the tables' stack_cap
+# stack entries K2 and K3 hold (csrc kMaxStack); K5a and K5b size their
+# shared memory by the tables' stack_cap
 MAX_STACK = 256
 _INF = float("inf")
 
@@ -226,9 +227,10 @@ def stack_cap(entries) -> int:
     """Stack entries a walk of these tables can need: ``1 + 7*depth``, with
     ``depth`` the number of wide-node levels. A pop of a node at level
     ``L`` replaces it by at most 8 children while each ancestor on its path
-    leaves at most 7 unvisited children below it: ``7*(L-1) + 8``. That
-    holds whether leaf children are pushed too (version 1) or tested inline
-    (versions 2 and 3): a leaf pop only removes an entry."""
+    leaves at most 7 unvisited children below it: ``7*(L-1) + 8``. Every
+    kernel tests leaf children inline, so only node children count (the
+    bound would also hold with leaves pushed: a leaf pop only removes an
+    entry)."""
     entries = np.asarray(entries)
     depth, level = 0, [0]
     while level:
@@ -434,7 +436,7 @@ def packet_traverse_sorted(nodes, entries, runs, ro, rd, active, treelets,
 
 def _launch(nodes, entries, runs, ro, rd, t_init, active, eps, leaf_kind, stack, version):
     kernel = KERNELS[(leaf_kind, version)]
-    if kernel != "k5b" and stack > MAX_STACK:
+    if version == 2 and stack > MAX_STACK:
         raise ValueError(f"packet traversal kernel: the tables need a stack of "
                          f"{stack} entries, {kernel} holds {MAX_STACK}")
     tensors = (("nodes", nodes), ("entries", entries), ("runs", runs), ("ro", ro),

@@ -179,7 +179,8 @@ def _packet_rays(n, device):
 
 
 # ray counts off K2's and K3's 128-thread blocks and the 32-ray packets of
-# K5a and K5b (1, 7, 9, 255, 257, 2,048); fat leaves (runs of 12: two rows) of both leaf kinds.
+# K5a and K5b (1, 7, 9, 255, 257, 2,048); fat leaves (runs of 12 and 16: two
+# rows, the second part or all filled) of both leaf kinds, and thin ones (4).
 # Versions 1 and 3 (K5a, K5b) report their packet's pops, so their iters are
 # not compared.
 @pytest.mark.parametrize("leaf_kind,count,max_leaf,n,version", [
@@ -192,7 +193,10 @@ def _packet_rays(n, device):
     ("tri", 900, 12, 7, 2), ("tri", 900, 12, 9, 2), ("tri", 900, 8, 255, 2),
     ("tri", 900, 12, 257, 2), ("tri", 3000, 12, 2048, 2),
     ("tri", 900, 12, 7, 3), ("tri", 900, 12, 9, 3), ("tri", 900, 8, 255, 3),
-    ("tri", 900, 12, 257, 3), ("tri", 3000, 12, 2048, 3)])
+    ("tri", 900, 12, 257, 3), ("tri", 3000, 12, 2048, 3),
+    ("tri", 900, 12, 7, 1), ("tri", 900, 12, 9, 1), ("tri", 900, 8, 255, 1),
+    ("tri", 900, 12, 257, 1), ("tri", 3000, 12, 2048, 1),
+    ("tri", 900, 4, 255, 2), ("tri", 3000, 16, 2048, 2), ("tri", 3000, 16, 2048, 1)])
 def test_packet_kernel_matches_twin_bitwise(cuda, leaf_kind, count, max_leaf, n, version):
     tables = [torch.as_tensor(x, device=cuda)
               for x in _packet_tables(leaf_kind, count + n, count, max_leaf)]
@@ -244,6 +248,36 @@ def test_packet_kernel_raises_on_stack_overflow(cuda, version):
     active = torch.ones((64,), dtype=torch.bool, device=cuda)
     with pytest.raises(RuntimeError, match="stack overflow"):
         tpt.traverse(*tables, ro, rd, t_init, active, stack=2, version=version)
+
+
+@pytest.mark.parametrize("version", [1, 2, 3])
+def test_packet_kernel_raises_on_backstop(cuda, version):
+    """A node whose child is itself: the walk ends at the pop backstop."""
+    nodes = np.zeros((1, 128), np.float32)
+    nodes[0, :24], nodes[0, 24:48] = -100.0, 100.0
+    entries = np.full((1, 128), -(1 << 30), np.int32)
+    entries[0, 0] = 0
+    tables = [torch.as_tensor(x, device=cuda) for x in (nodes, entries,
+                                                        np.zeros((1, 128), np.float32))]
+    with pytest.raises(RuntimeError, match="backstop"):
+        tpt.traverse(*tables, *_packet_rays(64, cuda), stack=8, version=version)
+
+
+@pytest.mark.parametrize("version", [1, 3])
+def test_packet_walk_sizes_its_stack_by_stack_cap(cuda, version):
+    """K5a and K5b keep their stacks in shared memory sized by ``stack``, so
+    a bound above K2's ``MAX_STACK`` runs (and gives the twin's hits), also
+    where the stacks need more than the default 48 KB a block; K2 refuses
+    it."""
+    tables = [torch.as_tensor(x, device=cuda) for x in _packet_tables("tri", 11, 2000, 8)]
+    args = _packet_rays(3001, cuda)
+    t2, p2, _ = tpt.packet_traverse_plain(*tables, *args, slab=tpt.SLABS[version])
+    for stack in (tpt.MAX_STACK + 44, 1000):
+        t, p, _ = tpt.traverse(*tables, *args, stack=stack, version=version)
+        torch.cuda.synchronize()
+        assert torch.equal(t.view(torch.int32), t2.view(torch.int32)) and torch.equal(p, p2)
+    with pytest.raises(ValueError, match="holds"):
+        tpt.traverse(*tables, *args, stack=tpt.MAX_STACK + 44, version=2)
 
 
 def test_gpu_hybrid_is_deterministic_and_matches_cpu(cuda):

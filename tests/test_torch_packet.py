@@ -26,6 +26,10 @@ Tolerances, with their reasons:
   hits every ray on both sides, v2 and v3 none.
 - The lane-order entry's coherence sort (``sort_rays=True``) against lane
   order, per version: bit for bit.
+- The schedule models (numpy, step for step what a kernel does, or what a
+  design that was measured on the card and dropped did: the split triangle
+  leaf, v1's pushed leaves, ray refetch, a shared ranged stack) against the
+  twin: bit for bit in ``(t, prim)``, and in the pops where they are per ray.
 """
 
 import jax.numpy as jnp
@@ -366,13 +370,15 @@ def _tied_tables(leaf_kind, seed, count, max_leaf):
 
 class _Walk:
     """State and steps shared by the schedule models: the rays' best hits,
-    the hoisted slab test of one ray against a node's 8 children and the
-    leaf test of some rays against one leaf run, folded by the tie rule."""
+    the slab test (``slab``: the hoisted form or v1's direct one) of one ray
+    against a node's 8 children and the leaf test of some rays against one
+    leaf run, folded by the tie rule."""
 
-    def __init__(self, tables, ro, rd, ti, active, leaf_kind):
+    def __init__(self, tables, ro, rd, ti, active, leaf_kind, slab="hoisted"):
         self.nodes, self.entries, self.runs = tables
         self.t_runs = torch.tensor(self.runs)
         self.ro, self.rd, self.active, self.leaf_kind = ro, rd, active, leaf_kind
+        self.slab_form = slab
         with np.errstate(all="ignore"):
             self.inv = np.float32(1.0) / rd
             self.roinv = ro * self.inv
@@ -387,8 +393,13 @@ class _Walk:
         t1 = np.full(8, np.inf, np.float32)
         with np.errstate(all="ignore"):
             for k in range(3):
-                ta = row[k * 8:(k + 1) * 8] * self.inv[r, k] - self.roinv[r, k]
-                tc = row[(3 + k) * 8:(4 + k) * 8] * self.inv[r, k] - self.roinv[r, k]
+                lo, hi = row[k * 8:(k + 1) * 8], row[(3 + k) * 8:(4 + k) * 8]
+                if self.slab_form == "direct":
+                    ta = (lo - self.ro[r, k]) * self.inv[r, k]
+                    tc = (hi - self.ro[r, k]) * self.inv[r, k]
+                else:
+                    ta = lo * self.inv[r, k] - self.roinv[r, k]
+                    tc = hi * self.inv[r, k] - self.roinv[r, k]
                 t0 = np.maximum(t0, np.minimum(ta, tc))
                 t1 = np.minimum(t1, np.maximum(ta, tc))
             hit = ((t1 > t0 - _EPS) & (t1 > 0) & (t0 < self.t[r] + _EPS)
@@ -410,6 +421,41 @@ class _Walk:
                 out += [(np.float32(a), int(b)) for a, b, c in
                         zip(t[0].numpy(), pid[0].numpy(), ok[0].numpy()) if c]
         return out
+
+    def split_slots(self, r, code):
+        """The split triangle leaf (measured on the card and dropped: exact,
+        but slower than the unsplit test) in float32 numpy, one rounding an
+        operation: per half row, ``t`` of four slots from the plane
+        coefficients; only a slot with ``t > eps`` and ``t <= `` the ray's
+        best ``t`` goes on to its barycentric weights, and a hit is folded
+        at once (so a later slot meets the new best)."""
+        v = -(int(code) + 1)
+        row, count = v // 64, v % 64
+        o, d = self.ro[r], self.rd[r]
+
+        def dot(a, x, y, z):
+            return (a[0] * x + a[1] * y) + a[2] * z
+
+        for extra in range(2):
+            nslots = min(count - 8 * extra, 8)
+            run = self.runs[row + extra] if nslots > 0 else None
+            for h in range(2):
+                if 4 * h >= nslots:
+                    break
+                n0, n1, n2, dd = (run[k * 8 + 4 * h:k * 8 + 4 * h + 4] for k in range(4))
+                with np.errstate(all="ignore"):
+                    t = (dd - dot(o, n0, n1, n2)) / dot(d, n0, n1, n2)
+                for q in range(4):
+                    j = 4 * h + q
+                    if not (j < nslots and t[q] > _EPS and t[q] <= self.t[r]):
+                        continue
+                    g = [run[(4 + k) * 8 + j] for k in range(8)]
+                    with np.errstate(all="ignore"):
+                        w1 = (dot(o, *g[0:3]) + t[q] * dot(d, *g[0:3])) + g[3]
+                        w2 = (dot(o, *g[4:7]) + t[q] * dot(d, *g[4:7])) + g[7]
+                        w3 = (np.float32(1) - w1) - w2
+                    if w1 > 0 and w2 > 0 and w3 > 0:
+                        self.fold(r, (t[q], int(run[96 + j])))
 
     def fold(self, r, cand):
         t, p = cand
@@ -529,21 +575,25 @@ def _ranged_walk(walk, stack, lanes, warps, detach, drain, seed=0):
     return pops
 
 
-def _model_case(leaf_kind, max_leaf, n=96, seed=0):
+def _model_case(leaf_kind, max_leaf, n=96, seed=0, slab="hoisted", axis=0):
     """Tables with tied primitives, rays aimed into them (some with a
-    ``t_init`` in front of their hit, some inactive), the twin's result and
-    the tables' stack bound."""
+    ``t_init`` in front of their hit, some inactive), the twin's result
+    (with slab form ``slab``) and the tables' stack bound. The first
+    ``axis`` rays run exactly along +z from below the figure."""
     count = 160
     tables = _tied_tables(leaf_kind, 30 + seed + max_leaf, count, max_leaf)
     r = np.random.default_rng(50 + seed)
     ro = (r.normal(size=(n, 3)) * 6).astype(np.float32)
     rd = (r.normal(size=(n, 3)) * 1.5 - ro).astype(np.float32)
     rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    ro[:axis] = np.concatenate([r.uniform(0.2, 3, (axis, 2)), np.full((axis, 1), -20.0)], 1)
+    rd[:axis] = [0, 0, 1]
     ti = np.where(r.uniform(size=n) < 0.3, r.uniform(1, 8, n), np.inf).astype(np.float32)
     active = r.uniform(size=n) < 0.8
+    ti[:axis], active[:axis] = np.inf, True
     twin = tpt.packet_traverse_plain(*(torch.tensor(x) for x in tables), torch.tensor(ro),
                                      torch.tensor(rd), torch.tensor(ti), torch.tensor(active),
-                                     leaf_kind=leaf_kind)
+                                     leaf_kind=leaf_kind, slab=slab)
     t, p, it = (x.numpy() for x in twin)
     # the case has hits, hits on repeated primitives (exact ties, the lower
     # prim id winning), rays that keep their t_init and inactive rays
@@ -584,57 +634,68 @@ def _butterfly(cands):
     return lanes[0] if cands else None
 
 
+def _ray_pop(walk, r, st, fold):
+    """One pop of K2/K3's schedule for ray ``r`` with stack ``st``: drop a
+    stale entry, slab the 8 children, then the kernel's selection loops: the
+    entered leaves by repeatedly taking the least key (the first such slot),
+    each skipped if its key is no longer below the best hit; the entered
+    nodes pushed by repeatedly taking the greatest key (the last such slot),
+    so that the nearest, lowest slot ends on top. ``fold``: a leaf's slots
+    folded into the best hit one by one (``'serial'``, the kernels': K3 four
+    slots to a load, K2 two), reduced first across lanes (``'butterfly'``),
+    or by the split triangle test (``'split'``): the tie rule makes them
+    equal."""
+    code, key = st.pop()
+    if not key < walk.t[r] + _EPS:
+        return
+    hit, keys = walk.slab(code, r)
+    ent = walk.entries[code, :8]
+    leaves = [c for c in range(8) if hit[c] and ent[c] < 0]
+    inner = [c for c in range(8) if hit[c] and ent[c] >= 0]
+    while leaves:
+        bc = leaves[0]
+        for c in leaves:
+            if keys[c] < keys[bc]:
+                bc = c
+        leaves.remove(bc)
+        if not keys[bc] < walk.t[r] + _EPS:
+            continue
+        walk.leaf_tests.append((r, code, bc))
+        if fold == "split":
+            walk.split_slots(r, ent[bc])
+            continue
+        cands = walk.slots(r, ent[bc])
+        if fold == "butterfly":
+            best = _butterfly(cands[:8])
+            cands = ([best] if best else []) + cands[8:]
+        for cand in cands:
+            walk.fold(r, cand)
+    while inner:
+        bc = inner[0]
+        for c in inner:
+            if keys[c] >= keys[bc]:
+                bc = c
+        inner.remove(bc)
+        st.append((int(ent[bc]), keys[bc]))
+
+
 def _ray_walk(walk, stack, fold):
-    """K2/K3's schedule, one ray at a time: pop, drop a stale entry, slab
-    the 8 children, then the kernel's selection loops: the entered leaves by
-    repeatedly taking the least key (the first such slot), each skipped if
-    its key is no longer below the best hit; the entered nodes pushed by
-    repeatedly taking the greatest key (the last such slot), so that the
-    nearest, lowest slot ends on top. ``fold``: a leaf's slots folded into
-    the best hit one by one (``'serial'``, the kernel) or reduced first
-    across lanes (``'butterfly'``): the tie rule makes them equal. Returns
-    each ray's pops."""
+    """K2/K3's schedule, one ray at a time (``_ray_pop`` until the stack is
+    empty). Returns each ray's pops."""
     pops = np.zeros(len(walk.ro), np.int32)
     for r in np.flatnonzero(walk.active):
         st = [(0, np.float32(0))]
         while st:
             pops[r] += 1
-            code, key = st.pop()
-            if not key < walk.t[r] + _EPS:
-                continue
-            hit, keys = walk.slab(code, r)
-            ent = walk.entries[code, :8]
-            leaves = [c for c in range(8) if hit[c] and ent[c] < 0]
-            inner = [c for c in range(8) if hit[c] and ent[c] >= 0]
-            while leaves:
-                bc = leaves[0]
-                for c in leaves:
-                    if keys[c] < keys[bc]:
-                        bc = c
-                leaves.remove(bc)
-                if not keys[bc] < walk.t[r] + _EPS:
-                    continue
-                walk.leaf_tests.append((r, code, bc))
-                cands = walk.slots(r, ent[bc])
-                if fold == "butterfly":
-                    best = _butterfly(cands[:8])
-                    cands = ([best] if best else []) + cands[8:]
-                for cand in cands:
-                    walk.fold(r, cand)
-            while inner:
-                bc = inner[0]
-                for c in inner:
-                    if keys[c] >= keys[bc]:
-                        bc = c
-                inner.remove(bc)
-                st.append((int(ent[bc]), keys[bc]))
+            _ray_pop(walk, r, st, fold)
             assert len(st) <= stack
     return pops
 
 
-@pytest.mark.parametrize("fold", ["serial", "butterfly"])
-@pytest.mark.parametrize("leaf_kind,max_leaf", [("tri", 4), ("tri", 12), ("sphere", 8),
-                                                ("sphere", 12)])
+@pytest.mark.parametrize("leaf_kind,max_leaf,fold", [
+    (k, m, f) for f in ("serial", "butterfly")
+    for k, m in (("tri", 4), ("tri", 12), ("sphere", 8), ("sphere", 12))]
+    + [("tri", 4, "split"), ("tri", 12, "split")])
 def test_ray_walk_schedule_is_the_twin(leaf_kind, max_leaf, fold):
     """K2/K3's schedule (the selection loops in place of the twin's stable
     sort) gives the twin's ``(t, prim)`` and pops bit for bit, on tables
@@ -646,3 +707,186 @@ def test_ray_walk_schedule_is_the_twin(leaf_kind, max_leaf, fold):
     np.testing.assert_array_equal(walk.t.view(np.int32), t.view(np.int32))
     np.testing.assert_array_equal(pops, it)
     walk.check_leaf_tests()
+
+
+def _edge_leaf_tables(prims):
+    """Tables of one root whose only child is a leaf run over unit right
+    triangles in planes ``z = d``: ``prims`` lists ``(prim id, d)`` per slot
+    (``d = None``: a degenerate triangle, all coefficients 0). On the ray
+    ``(x, y, 0) + t (0, 0, 1)`` a slot's ``t`` is ``d`` and its weights are
+    ``x``, ``y`` and ``1 - x - y``."""
+    nodes = np.zeros((1, 128), np.float32)
+    nodes[0, 0:24:8], nodes[0, 24:48:8] = -100.0, 100.0
+    entries = np.full((1, 128), _PAD, np.int32)
+    entries[0, 0] = -(0 * 64 + len(prims) + 1)
+    runs = np.zeros((-(-len(prims) // 8), 128), np.float32)
+    runs[:, 24:32] = np.inf                      # empty slots: plane at infinity
+    for s, (pid, d) in enumerate(prims):
+        row, j = runs[s // 8], s % 8
+        row[96 + j] = pid
+        row[24 + j] = 0.0
+        if d is not None:
+            row[16 + j], row[24 + j], row[32 + j], row[72 + j] = 1.0, d, 1.0, 1.0
+    return [nodes, entries, runs]
+
+
+@pytest.mark.parametrize("order", ["as listed", "reversed"])
+def test_split_leaf_edge_slots_are_the_twin(order):
+    """The split triangle leaf on the slots where its first pass decides: an
+    equal ``t`` with a smaller prim id (it must go on and win), a degenerate
+    triangle (``t`` NaN), ``t`` exactly ``eps`` and ``t`` equal to ``t_init``
+    (no hit), nearer slots after farther ones, a spill row, and rays on an
+    edge (a weight of +0 or -0: no hit)."""
+    eps = float(_EPS)
+    prims = [(9, 5.0), (7, 3.0), (3, 3.0), (11, None), (5, eps), (8, 4.0), (2, 6.0), (6, 3.0),
+             (1, 3.5), (4, 3.0), (0, 7.0)]
+    tables = _edge_leaf_tables(prims[::-1] if order == "reversed" else prims)
+    xy = np.array([[0.25, 0.25], [0.0, 0.3], [-0.0, 0.3], [0.3, 0.0], [0.3, -0.0], [0.5, 0.5],
+                   [0.25, 0.25], [0.25, 0.25], [0.25, 0.25], [2.0, 2.0]], np.float32)
+    ro = np.concatenate([xy, np.zeros((len(xy), 1), np.float32)], 1)
+    rd = np.tile(np.array([[0, 0, 1]], np.float32), (len(xy), 1))
+    ti = np.full(len(xy), np.inf, np.float32)
+    ti[6], ti[7], ti[8] = 3.0, 3.25, eps          # equal to the hit, behind it, at eps
+    active = np.ones(len(xy), bool)
+    t, p, it = (x.numpy() for x in tpt.packet_traverse_plain(
+        *(torch.tensor(x) for x in tables), torch.tensor(ro), torch.tensor(rd),
+        torch.tensor(ti), torch.tensor(active), slab="direct"))
+    # the twin: the tie goes to prim 3; edges, t_init == t and t_init == eps keep no prim
+    np.testing.assert_array_equal(p, [3, -1, -1, -1, -1, -1, -1, 3, -1, -1])
+    np.testing.assert_array_equal(t[[0, 7]], np.float32([3.0, 3.0]))
+    walk = _Walk(tables, ro, rd, ti, active, "tri", slab="direct")
+    pops = _ray_walk(walk, 8, "split")
+    np.testing.assert_array_equal(walk.p, p)
+    np.testing.assert_array_equal(walk.t.view(np.int32), t.view(np.int32))
+    np.testing.assert_array_equal(pops, it)
+
+
+def _warp_walk(walk, stack, lanes, push_leaves):
+    """K5a's and K5b's schedule: each warp of ``lanes`` rays walks a stack of
+    its own whose entries are (code, least key of the lanes that entered,
+    their mask). A node pop slab-tests its 8 children for the lanes of the
+    mask whose best hit still admits the entry; the entered children are
+    ranked by (key, slot) and pushed, the nearest on top. Leaf children are
+    tested at their parent's pop, nearest first, by the lanes that entered
+    them (K5a and K5b), or pushed with the nodes and tested at their own pop
+    (``push_leaves``: v1's schedule, measured and dropped). Returns each
+    ray's warp's pops."""
+    n = len(walk.ro)
+    pops = np.zeros(n, np.int32)
+    for base in range(0, n, lanes):
+        rays = np.arange(base, min(base + lanes, n))
+        st = [(0, np.float32(0), walk.active[rays].copy())] if walk.active[rays].any() else []
+        while st:
+            pops[rays] += 1
+            code, key, mask = st.pop()
+            mine = mask & (key < walk.t[rays] + _EPS)
+            if not mine.any():
+                continue
+            if code < 0:
+                for li in np.flatnonzero(mine):
+                    for cand in walk.slots(rays[li], code):
+                        walk.fold(rays[li], cand)
+                continue
+            ent = walk.entries[code, :8]
+            cmask = np.zeros((8, len(rays)), bool)
+            ckey = np.full(8, np.inf, np.float32)
+            for li in np.flatnonzero(mine):
+                hit, k = walk.slab(code, rays[li])
+                cmask[:, li] = hit
+                ckey = np.where(hit, np.minimum(ckey, k), ckey)
+            entered = [c for c in range(8) if cmask[c].any()]
+            if not push_leaves:
+                for c in sorted((c for c in entered if ent[c] < 0), key=lambda c: (ckey[c], c)):
+                    for li in np.flatnonzero(cmask[c]):
+                        if ckey[c] < walk.t[rays[li]] + _EPS:
+                            walk.test_leaf(rays[li], code, c)
+            pushed = [c for c in entered if push_leaves or ent[c] >= 0]
+            for c in sorted(pushed, key=lambda c: (ckey[c], c), reverse=True):
+                if ent[c] < 0:
+                    walk.leaf_tests += [(rays[li], code, c) for li in np.flatnonzero(cmask[c])]
+                st.append((int(ent[c]), ckey[c], cmask[c]))
+            assert len(st) <= stack
+    return pops
+
+
+@pytest.mark.parametrize("push_leaves", [False, True])
+@pytest.mark.parametrize("lanes,max_leaf", [(4, 4), (32, 12), (8, 8)])
+def test_direct_warp_walk_schedule_is_the_twin(lanes, max_leaf, push_leaves):
+    """The warp walk with v1's slab form ``(lo - ro)*inv`` (K5a), leaves
+    inline or pushed, gives the twin's ``(t, prim)`` with ``slab='direct'``
+    bit for bit, hits axis-parallel rays that the hoisted form misses, tests
+    no leaf a lane's own slab test did not enter and stays within the
+    tables' ``stack_cap``."""
+    axis = 24
+    tables, rays, (t, p, _), stack = _model_case("tri", max_leaf, seed=5, slab="direct",
+                                                 axis=axis)
+    hoisted = tpt.packet_traverse_plain(*(torch.tensor(x) for x in tables),
+                                        *(torch.tensor(x) for x in rays))[1].numpy()
+    assert (p[:axis] >= 0).sum() > 2 and (hoisted[:axis] < 0).all()
+    walk = _Walk(tables, *rays, "tri", slab="direct")
+    pops = _warp_walk(walk, stack, lanes, push_leaves)
+    np.testing.assert_array_equal(walk.p, p)
+    np.testing.assert_array_equal(walk.t.view(np.int32), t.view(np.int32))
+    walk.check_leaf_tests()
+    assert (pops[rays[3]] > 0).all()
+
+
+def _refetch_walk(walk, stack, lanes, warps, below, seed):
+    """The per-ray walk by persistent warps that refetch (measured on the
+    card and dropped): ``warps`` warps of ``lanes`` lanes share a counter of
+    the next ray; whenever fewer than ``below`` lanes of a warp are still
+    walking, its idle lanes store their finished ray and take the next rays
+    from the counter. The warps step in a random order, so the rays reach
+    the lanes in a random order. Each ray walks alone (``_ray_pop``) with
+    its lane's stack. Returns each ray's pops and how often it was
+    stored."""
+    rng = np.random.default_rng(seed)
+    n = len(walk.ro)
+    pops, stored = np.zeros(n, np.int32), np.zeros(n, np.int32)
+    counter = 0
+    ray = np.full((warps, lanes), -1)
+    stacks = [[[] for _ in range(lanes)] for _ in range(warps)]
+    exhausted, done = [False] * warps, [False] * warps
+    while not all(done):
+        w = rng.choice([w for w in range(warps) if not done[w]])
+        walking = [bool(st) for st in stacks[w]]
+        if sum(walking) < below:
+            idle = [li for li in range(lanes) if not walking[li]]
+            for li in idle:
+                if ray[w, li] >= 0:
+                    stored[ray[w, li]] += 1
+                    ray[w, li] = -1
+            if not exhausted[w]:
+                base, counter = counter, counter + len(idle)
+                exhausted[w] = base + len(idle) >= n
+                for k, li in enumerate(idle):
+                    if base + k < n:
+                        ray[w, li] = base + k
+                        if walk.active[base + k]:
+                            stacks[w][li].append((0, np.float32(0)))
+            if exhausted[w] and not any(stacks[w]):
+                done[w] = True
+                for li in range(lanes):
+                    if ray[w, li] >= 0:
+                        stored[ray[w, li]] += 1
+                continue
+        for li in range(lanes):
+            if stacks[w][li]:
+                pops[ray[w, li]] += 1
+                _ray_pop(walk, ray[w, li], stacks[w][li], "serial")
+                assert len(stacks[w][li]) <= stack
+    return pops, stored
+
+
+@pytest.mark.parametrize("leaf_kind,max_leaf", [("tri", 12), ("sphere", 8)])
+@pytest.mark.parametrize("lanes,warps,below", [(4, 3, 1), (8, 2, 5), (4, 5, 4), (32, 1, 20)])
+def test_refetch_schedule_is_the_twin(lanes, warps, below, leaf_kind, max_leaf):
+    """Whatever the fetch order and the threshold, every ray is fetched and
+    stored once and its ``(t, prim, pops)`` are the twin's bit for bit."""
+    tables, rays, (t, p, it), stack = _model_case(leaf_kind, max_leaf, seed=2)
+    walk = _Walk(tables, *rays, leaf_kind)
+    pops, stored = _refetch_walk(walk, stack, lanes, warps, below, seed=lanes + below)
+    assert (stored == 1).all()
+    np.testing.assert_array_equal(walk.p, p)
+    np.testing.assert_array_equal(walk.t.view(np.int32), t.view(np.int32))
+    np.testing.assert_array_equal(pops, it)
