@@ -5,9 +5,10 @@
 
 Drives the port's paths and checks them:
 
-- the 10_final sphere path: the stage-10 cover scene through
-  ``stages.common.run_path_traced`` → ``integrator.persistent`` (modular
-  engine) → ``scene.world.hit`` → the sphere-scan kernel (K1);
+- the 10_final sphere path: the stage-10 cover scene through the CLI's
+  ``render --stage 10`` → ``stages.common.run_path_traced`` →
+  ``integrator.persistent`` (modular engine) → ``scene.world.hit`` → the
+  sphere-scan kernel (K1), and through the bench's modular cell;
 - the mega engine: the same scene through
   ``integrator.persistent.render_persistent(engine='mega')``, one fused
   bounce-pass kernel (K4) per pass;
@@ -22,7 +23,14 @@ Drives the port's paths and checks them:
   strip-atlas pair rows (material and environment) through K6b
   (``ops.row_gather``);
 - stage l13: ``stages.l13_texture`` (one textured sphere under the
-  environment, the wavefront integrator), whose taps run K6b.
+  environment, the wavefront integrator), whose taps run K6b;
+- the bench (``bench_torch.run_cell``): the modular 10_final cell (K1),
+  the mega cell (K4) and the mesh cell on the stand-in's ``.world.npy``
+  (K2, K6a, K6b); stages l11 (K1 under ``--hit-backend auto``, K3 under
+  ``bvh``), l12 (the progressive renderer's wavefront engine over the
+  sphere BVH: K3) and l15 (the stand-in as an OBJ + MTL + PNG + EXR asset
+  tree, built, saved and accumulated through the hybrid engine: K2, K6a,
+  K6b); and ``python -m learn_path_tracing_tpu_torch smoke``.
 
 Phases:
 
@@ -56,9 +64,10 @@ Phases:
    indices, and with wrapping and out-of-range indices (fill rows),
    bitwise, timed beside ``torch.index_select``;
 4. renders small images on the card and on the CPU (cover scene,
-   persistent modular and mega, two mega card renders bitwise equal;
-   stand-in mesh + a sphere, hybrid) and holds each pair to the agreement
-   bounds of ``utils.checks``;
+   persistent modular and mega, two mega card renders bitwise equal; the
+   CLI's ``render --stage 10`` at 64x36, K1 once per hit call; stand-in
+   mesh + a sphere, hybrid) and holds each pair to the agreement bounds of
+   ``utils.checks``;
 5. with every launch count set to 0 just before each and read just after:
    a hybrid render of the sphere world (the K3 path); the 640x360, 64 spp,
    depth-32 stand-in render through ``stages.l14_mesh`` under packet
@@ -75,13 +84,24 @@ Phases:
    stand-in's texture set and EXR at the viewer cell's shape
    (``outputs/chip_smoke_l13.png``), its K6b launches checked the same
    way, and at 64x36 on the card and the CPU, held to
-   ``render_agreement``; the 1280x720, 64
-   spp, depth-32 cover scene (``outputs/chip_smoke_10_final.png``),
-   checking one K1 launch per ``hit`` call; and the same frame
-   through the
-   mega engine after a warm-up (``outputs/chip_smoke_10_final_mega.png``),
-   checking one K4 launch per pass and agreement with the modular frame,
-   then two more frames and a profiled one (device busy time, K4's share);
+   ``render_agreement``; the bench's mesh cell on the stand-in's
+   ``.world.npy`` (1280x720, 64 spp, depth 32, three frames: K2 once per
+   traversal call, K6a/K6b as its shading calls imply); stage l15 at its
+   preset (1500x1000, 32 spp, one pass) on the stand-in's asset tree, the
+   same launch checks, and its saved world reloaded with its own trees
+   (``rebuild_bvh=False``) held to the rebuilt world at 64x36; K1 and
+   ``hit(backend='bvh')`` (K3) bitwise against their twins on l11's world
+   (the 230,400 primary rays of its first orbit frame and the bounce pass
+   after them); stage l11 at its preset (640x360, 128 spp, depth 10) under ``auto`` (K1 once per
+   hit call, no K3) and ``bvh`` (the reverse), bit for bit the same frame;
+   stage l12 at its preset on the script ``w,.,.`` (K3 once per hit call,
+   no K1; spp 128, 256, 384; its peak device memory); the bench's modular
+   10_final cell (1280x720, 64 spp, depth 32, one frame;
+   ``outputs/chip_smoke_10_final.png``: one K1 launch per hit call,
+   156,430,643 segments) and its mega cell (three frames; one K4 launch
+   per pass, the modular cell's segments and linear image bit for bit),
+   then one mega frame under the profiler (device busy time, K4's share);
+   each bench row is printed as the CLI prints it;
 6. the kernels' own device times from ``torch.profiler``: K1 at each pass
    width with every slice count (and K1's device ms in the modular frame:
    its passes at each width times its time there), K3 and K1 under
@@ -90,7 +110,8 @@ Phases:
    every ray set in lane and sorted order with their pops per ray, and K6a
    and K6b on every gather set. They
    come last because a profiler run can slow the process's later
-   launches, which every CUDA-event time and timed frame above would show.
+   launches, which every CUDA-event time and timed frame above would show;
+7. the CLI's ``smoke`` command, run as a subprocess, must exit 0.
 
 The stand-in world (``standin_world``) takes the place of the reference's
 Yoimiya character, whose assets are not in the repository: one closed mesh
@@ -110,7 +131,12 @@ times on every ray set.
 
 Any failed phase raises, so the script exits non-zero. The last lines are
 the ``nvidia-smi`` name and power limit, a JSON line of the kernels, and
-``{"ok": true, "device": {...}}``. Every kernel's ``ms`` in the kernels
+``{"ok": true, "device": {...}}``. Each kernel's ``launches`` in the
+kernels line is from its first path's run (K1: the bench's modular cell;
+K2, K5a, K5b, K6a, K6b: the l14 frame under its version; K3: the sphere
+world's render; K4: the bench's mega cell) and ``paths`` holds its
+launches on every further path of this slice, each run with the counts
+set to 0 just before. Every kernel's ``ms`` in the kernels
 line is CUDA events around one wrapper call (the host's issue time
 included, and for the packet kernels the read-back of their error word,
 one host round trip); every kernel also gives ``device_ms``, its own
@@ -372,14 +398,13 @@ def check_sphere_scan(device):
     return entry, device_times
 
 
-def k1_frame_ms(widths_ms, rep) -> float:
-    """K1's device ms in the modular headline frame: its passes at each
-    width (``headline``'s report) times the kernel's time at that width."""
-    ms = 0.0
-    for chunk in rep["chunks"]:
-        ms += chunk["passes_full"] * widths_ms[chunk["pool"]]
-        for w, passes in zip(chunk["drain_widths"], chunk["drain_passes"]):
-            ms += passes * widths_ms[w]
+def k1_frame_ms(widths_ms, st) -> float:
+    """K1's device ms in the modular 10_final frame: its passes at each
+    width (the frame's render stats ``st``) times the kernel's time at that
+    width."""
+    ms = st["passes_full"] * widths_ms[st["pool"]]
+    for w, passes in zip(st["drain_widths"], st["drain_passes"]):
+        ms += passes * widths_ms[w]
     return ms
 
 
@@ -460,44 +485,44 @@ def check_gpu_vs_cpu(device):
         raise AssertionError(f"GPU render disagrees with the CPU render: {rep}")
 
 
-def headline(device):
+# the 10_final frame's exact count of live segments (1280x720, 64 spp, depth 32)
+HEADLINE_SEGMENTS = 156_430_643
+
+
+def bench_modular(device):
+    """The bench's modular 10_final cell through ``bench_torch.run_cell``
+    (1280x720, 64 spp, depth 32), one timed frame after its spp-1 warm-up,
+    with the counts set to 0 just before: one K1 launch per hit call of both
+    renders, ``HEADLINE_SEGMENTS`` segments, a sane image
+    (``outputs/chip_smoke_10_final.png``). Prints the row as the CLI does
+    and returns it."""
     import numpy as np
-    import torch
 
-    from learn_path_tracing_tpu_torch.integrator.persistent import render_persistent
-    from learn_path_tracing_tpu_torch.models import random_scene, stage10_camera
+    import bench_torch
+    from learn_path_tracing_tpu_torch.core import color, image
     from learn_path_tracing_tpu_torch.ops import sphere_scan as ss
-    from learn_path_tracing_tpu_torch.stages.common import run_path_traced
-    from learn_path_tracing_tpu_torch.utils.config import STAGE_CONFIGS
 
-    world = random_scene(seed=SCENE_SEED)
-    cam = stage10_camera(RES)
-    t0 = time.time()
-    render_persistent(world.device(device), cam.params(device), RES, spp=1,
-                      limit=DEPTH, seed=-1)
-    torch.cuda.synchronize()
-    _log(f"[headline] warm-up (spp 1) {time.time() - t0:.2f} s")
-
-    cfg = STAGE_CONFIGS[10].with_(width=RES[0], height=RES[1], spp=SPP,
-                                  propagate_limit=DEPTH, device=device,
-                                  out="outputs/chip_smoke_10_final.png")
     ss.intersect_spheres_scan.launches = 0
-    img, rep = run_path_traced(world, cam, cfg, "10_final.png")
+    row = bench_torch.run_cell(engine="persistent", resolution=RES, spp=SPP, limit=DEPTH,
+                               device=device, frames=1)
     launches = ss.intersect_spheres_scan.launches
-    arr = img.cpu().numpy()
-    mean = float(arr.mean())
-    chunk = rep["chunks"][0]
-    _log(f"[headline] {RES[0]}x{RES[1]} spp {SPP} depth {DEPTH}: "
-         f"{rep['seconds']:.3f} s, {rep['segments']} segments, "
-         f"{rep['mrays']:.3f} Mrays/s, {rep['passes']} passes (pool {chunk['pool']}, "
-         f"full-width {chunk['passes_full']}, drain widths {chunk['drain_widths']}, "
-         f"drain passes {chunk['drain_passes']}), sphere-scan launches {launches}, "
-         f"image mean {mean:.5f}")
-    if launches != rep["passes"]:
-        raise AssertionError(f"sphere-scan launches {launches} != hit calls {rep['passes']}")
-    if not np.isfinite(arr).all() or not 0.05 < mean < 0.95:
-        raise AssertionError(f"headline image is not sane: mean {mean}")
-    return launches, rep
+    print(bench_torch.row_line(row), flush=True)
+    st = row["stats"]
+    post = color.post_process(row["image"])
+    image.write_png(post, "outputs/chip_smoke_10_final.png")
+    mean = float(post.mean())
+    _log(f"[bench modular] {RES[0]}x{RES[1]} spp {SPP} depth {DEPTH}: frame "
+         f"{row['frames'][0]:.3f} s, {row['segments']} segments, {row['value']:.3f} Mrays/s, "
+         f"pool {st['pool']}, full-width passes {st['passes_full']}, drain widths "
+         f"{st['drain_widths']}, drain passes {st['drain_passes']}; K1 launches {launches} "
+         f"for hit calls {row['calls']} (warm-up, frame); image mean {mean:.5f}")
+    if launches != sum(row["calls"]):
+        raise AssertionError(f"sphere-scan launches {launches} != hit calls {row['calls']}")
+    if row["segments"] != HEADLINE_SEGMENTS:
+        raise AssertionError(f"{row['segments']} segments, not {HEADLINE_SEGMENTS}")
+    if not np.isfinite(row["image"].cpu().numpy()).all() or not 0.05 < mean < 0.95:
+        raise AssertionError(f"the 10_final image is not sane: mean {mean}")
+    return launches, row
 
 
 # ------------------------------------------------- the mega engine (K4) --
@@ -687,71 +712,64 @@ def check_mega_gpu_vs_cpu(device):
 
 
 def mega_headline(device, modular):
-    """The cover scene at 1280x720, 64 spp, depth 32 through
-    ``render_persistent(engine='mega')``, after a warm-up; held to
-    ``render_agreement`` against the modular headline's linear image
-    (``modular``: ``headline``'s report) from the same run."""
+    """The bench's mega 10_final cell through ``bench_torch.run_cell``
+    (three frames after its spp-1 warm-up), with the counts set to 0 just
+    before: one K4 launch per pass of every render, and the modular cell's
+    (``modular``: ``bench_modular``'s row) segments and linear image bit
+    for bit (``outputs/chip_smoke_10_final_mega.png``). Then one frame under
+    ``torch.profiler`` (device busy time, K4's share and its device ms by
+    the lanes each pass listed). Returns K4's launches in the cell."""
     import numpy as np
     import torch
 
+    import bench_torch
     from learn_path_tracing_tpu_torch.core import color, image
     from learn_path_tracing_tpu_torch.integrator.persistent import render_persistent
     from learn_path_tracing_tpu_torch.models import random_scene, stage10_camera
     from learn_path_tracing_tpu_torch.ops import bounce_megakernel as mk
-    from learn_path_tracing_tpu_torch.utils.checks import render_agreement
+
+    mk.bounce_pass.launches = 0
+    row = bench_torch.run_cell(engine="mega", resolution=RES, spp=SPP, limit=DEPTH,
+                               device=device)
+    launches = mk.bounce_pass.launches
+    print(bench_torch.row_line(row), flush=True)
+    image.write_png(color.post_process(row["image"]), "outputs/chip_smoke_10_final_mega.png")
+    arr = row["image"].cpu().numpy()
+    mean = float(arr.mean())
+    same = (row["segments"] == modular["segments"]
+            and bitwise_equal(row["image"], modular["image"]))
+    med = statistics.median(row["frames"])
+    _log(f"[mega headline] {RES[0]}x{RES[1]} spp {SPP} depth {DEPTH}: frames "
+         f"{', '.join(f'{w:.4f}' for w in row['frames'])} s (median {med:.4f} s = "
+         f"{row['value']:.3f} Mrays/s), {row['segments']} segments, passes {row['calls']} "
+         f"(warm-up, frames), K4 launches {launches}, image mean {mean:.5f}; segments and "
+         f"linear image bit for bit the modular cell's ({modular['frames'][0]:.3f} s): {same}")
+    if launches != sum(row["calls"]):
+        raise AssertionError(f"K4 launches {launches} != passes {row['calls']}")
+    if not np.isfinite(arr).all() or not 0.05 < mean < 0.95:
+        raise AssertionError(f"mega headline image is not sane: mean {mean}")
+    if not same:
+        raise AssertionError("the mega cell differs from the modular cell")
 
     wd = random_scene(seed=SCENE_SEED).device(device)
     cp = stage10_camera(RES).params(device)
-    t0 = time.time()
-    render_persistent(wd, cp, RES, spp=1, limit=DEPTH, seed=-1, engine="mega")
     torch.cuda.synchronize()
-    _log(f"[mega headline] warm-up (spp 1) {time.time() - t0:.2f} s")
-
-    mk.bounce_pass.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.time()
-    img, segs, st = render_persistent(wd, cp, RES, spp=SPP, limit=DEPTH, seed=0,
-                                      engine="mega", stats=True)
-    torch.cuda.synchronize()
-    seconds = time.time() - t0
-    launches = mk.bounce_pass.launches
-    image.write_png(color.post_process(img), "outputs/chip_smoke_10_final_mega.png")
-    arr = img.cpu().numpy()
-    mean = float(arr.mean())
-    rep = render_agreement(arr, modular["linear"].cpu().numpy(), segs, modular["segments"])
-    _log(f"[mega headline] {RES[0]}x{RES[1]} spp {SPP} depth {DEPTH}: {seconds:.3f} s, "
-         f"{segs} segments, {segs / seconds / 1e6:.3f} Mrays/s, {st['passes']} passes, "
-         f"K4 launches {launches}, image mean {mean:.5f}; against the modular headline "
-         f"({modular['seconds']:.3f} s, {modular['segments']} segments): {rep}")
-    if launches != st["passes"]:
-        raise AssertionError(f"K4 launches {launches} != passes {st['passes']}")
-    if not np.isfinite(arr).all() or not 0.05 < mean < 0.95:
-        raise AssertionError(f"mega headline image is not sane: mean {mean}")
-    if not rep["ok"]:
-        raise AssertionError(f"the mega headline disagrees with the modular one: {rep}")
-
-    def frame():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        render_persistent(wd, cp, RES, spp=SPP, limit=DEPTH, seed=0, engine="mega")
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    walls = [seconds] + [frame() for _ in range(2)]
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        prof_wall = frame()
-    listed = st["listed"]     # the lanes each pass listed (every frame's are the same)
+        t0 = time.perf_counter()
+        _, _, st = render_persistent(wd, cp, RES, spp=SPP, limit=DEPTH, seed=0, engine="mega",
+                                     stats=True)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    listed = st["listed"]     # the lanes each pass listed
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
     k4 = sorted((e for e in dev if "bounce_pass_kernel" in e.name),
                 key=lambda e: e.time_range.start)
     k4_ms = sum(e.time_range.elapsed_us() for e in k4) / 1e3
-    med = statistics.median(walls)
-    _log(f"[mega headline] frames {', '.join(f'{w:.4f}' for w in walls)} s (median "
-         f"{med:.4f} s = {segs / med / 1e6:.3f} Mrays/s); profiled frame {prof_wall:.4f} s: "
-         f"{len(dev)} device events, device busy {busy_ms:.3f} ms, K4 {k4_ms:.3f} ms, "
-         f"idle {1.0 - busy_ms / (med * 1e3):.4f} of the median frame")
+    _log(f"[mega headline] profiled frame {prof_wall:.4f} s: {len(dev)} device events, device "
+         f"busy {busy_ms:.3f} ms, K4 {k4_ms:.3f} ms, idle {1.0 - busy_ms / (med * 1e3):.4f} of "
+         f"the median frame")
     if not dev:
         raise AssertionError("torch.profiler recorded no device events")
     if len(k4) != len(listed):
@@ -941,6 +959,46 @@ def standin_world(directory, level=5, tex_size=STANDIN_TEX, env_size=STANDIN_ENV
     world.environments.add(exr, 0, size=env_size)
     world.set_environment(0)
     return world
+
+
+def _obj_rows(tag, rows, fmt):
+    return "".join(f"{tag} {fmt % tuple(r)}\n" for r in rows.tolist())
+
+
+def standin_asset_tree(root, level=5, tex_size=STANDIN_TEX, env_size=STANDIN_ENV,
+                       seed=STANDIN_SEED, **base):
+    """The stand-in as the reference's asset tree for ``stages.l15_module``
+    under ``root``: ``models/Yoimiya/Yoimiya_ShapeChange.obj`` with its MTL
+    (one material whose ``map_Kd`` names the PBR set ``standin``, the key
+    ``io.obj.load_obj`` turns into a texture) and the set beside it, and
+    ``textures/cayley_interior_2k.exr``. The OBJ holds ``_standin_mesh``
+    mirrored in x and with v flipped, which l15's 180° turn, ``flip_z`` and
+    ``flip_textcoord`` undo, so the stage's world is the stand-in's figure
+    (``base``: ``_standin_mesh``'s tessellation of the base). Returns the
+    OBJ's path."""
+    import numpy as np
+
+    model_dir = os.path.join(root, "models", "Yoimiya")
+    tex_dir = os.path.join(root, "textures")
+    os.makedirs(model_dir, exist_ok=True)
+    os.makedirs(tex_dir, exist_ok=True)
+    _, exr = _standin_assets(model_dir, seed, tex_size, env_size)
+    os.replace(exr, os.path.join(tex_dir, "cayley_interior_2k.exr"))
+    mesh = _standin_mesh(level, seed, **base)
+    mirror = np.array([-1.0, 1.0, 1.0], np.float32)
+    uv = np.stack([mesh.uvs[:, 0], 1.0 - mesh.uvs[:, 1].astype(np.float64)], 1)
+    faces = np.stack([mesh.face_p, mesh.face_t, mesh.face_n], -1) + 1     # [F, 3, 3]
+    with open(os.path.join(model_dir, "Yoimiya_ShapeChange.mtl"), "w") as f:
+        f.write("newmtl standin\nmap_Kd standin\n")
+    path = os.path.join(model_dir, "Yoimiya_ShapeChange.obj")
+    with open(path, "w") as f:
+        f.write("mtllib Yoimiya_ShapeChange.mtl\n")
+        f.write(_obj_rows("v", mesh.positions * mirror, "%.9g %.9g %.9g"))
+        f.write(_obj_rows("vt", uv, "%.17g %.17g"))
+        f.write(_obj_rows("vn", mesh.normals * mirror, "%.9g %.9g %.9g"))
+        f.write("usemtl standin\n")
+        f.write(_obj_rows("f", faces.reshape(-1, 9), "%d/%d/%d %d/%d/%d %d/%d/%d"))
+    return path
 
 
 def l14_camera(res):
@@ -1617,6 +1675,321 @@ def l13_phase(device, directory):
     return rep
 
 
+# ------------------------------ the bench's mesh cell, l11, l12 and l15 --
+
+def bench_standin(world, device, path):
+    """The bench's mesh cell on the stand-in's ``.world.npy`` (``path``):
+    ``bench_torch.run_cell(scene='yoimiya', world=path)`` at the bench's
+    1280x720, 64 spp, depth 32 through the hybrid engine, three frames after
+    its spp-1 warm-up, with the counts set to 0 just before: K2 launches
+    once per traversal call of every render (slabs plus pool passes) and no
+    other traversal kernel runs; K6a and K6b as often as the shading calls
+    imply. Prints the row as the CLI does; returns ``{kernel: launches}``."""
+    import numpy as np
+
+    import bench_torch
+    from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
+    from learn_path_tracing_tpu_torch.ops import row_gather as rg
+
+    zero_launches()
+    with shading_calls() as shading:
+        row = bench_torch.run_cell(scene="yoimiya", world=path, resolution=RES, spp=SPP,
+                                   limit=DEPTH, device=device)
+    launches, gathers = dict(pt.traverse.launches), dict(rg.gather.launches)
+    print(bench_torch.row_line(row), flush=True)
+    expected = expected_gathers(world.device(device), shading)
+    mean = float(row["image"].mean())
+    _log(f"[bench stand-in] {row['metric']}: frames {row['frames']} s, {row['segments']} "
+         f"segments, {row['value']:.3f} Mrays/s, traversal calls {row['calls']} (warm-up, "
+         f"frames), launches {launches}, row gathers {gathers} for {shading['attrs']} attribute "
+         f"blocks and {shading['env']} environment taps, linear mean {mean:.5f}")
+    if row["metric"] != "bvh_mrays_per_sec_chip_standin" or row["engine"] != "hybrid":
+        raise AssertionError(f"the stand-in cell ran as {row['metric']}, {row['engine']}")
+    if launches.pop("k2") != sum(row["calls"]) or any(launches.values()):
+        raise AssertionError(f"K2 launches != traversal calls {row['calls']}, or another "
+                             f"kernel ran: {pt.traverse.launches}")
+    if gathers != expected or not all(gathers.values()):
+        raise AssertionError(f"row-gather launches {gathers}, expected {expected}")
+    if not np.isfinite(row["image"].cpu().numpy()).all() or not 0.02 < mean < 10.0:
+        raise AssertionError(f"the stand-in cell's image is not sane: mean {mean}")
+    return {"k2": sum(row["calls"]), **gathers}
+
+
+@contextlib.contextmanager
+def hit_calls():
+    """Counts ``scene.world.hit`` calls (one per wavefront bounce pass of a
+    sphere world) while the block runs."""
+    import learn_path_tracing_tpu_torch.scene.world as world_mod
+
+    counts = [0]
+    real = world_mod.hit
+
+    def counted(*args, **kw):
+        counts[0] += 1
+        return real(*args, **kw)
+
+    world_mod.hit = counted
+    try:
+        yield counts
+    finally:
+        world_mod.hit = real
+
+
+def stage10_cli(device):
+    """``python -m learn_path_tracing_tpu_torch render --stage 10`` in this
+    process (``__main__.main``) at 64x36, spp 4, limit 8: the stage entry
+    ``stages.common.run_path_traced`` (chunks, accumulation, post-process,
+    PNG) on the card, with the counts set to 0 just before: one K1 launch
+    per hit call (the report's passes), no K3; then the same command with
+    ``--device cpu``, whose linear image and segments the card's must match
+    by ``render_agreement``. Returns K1's launches."""
+    import numpy as np
+
+    from learn_path_tracing_tpu_torch import __main__ as cli
+    from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
+    from learn_path_tracing_tpu_torch.ops import sphere_scan as ss
+    from learn_path_tracing_tpu_torch.stages import s10_final
+    from learn_path_tracing_tpu_torch.utils.checks import render_agreement
+
+    small = ["--width", str(SMALL_RES[0]), "--height", str(SMALL_RES[1]), "--spp",
+             str(SMALL_SPP), "--limit", str(SMALL_LIMIT)]
+    reps, real = [], s10_final.run_path_traced
+
+    def kept(*args, **kw):          # the stage's report, which the CLI drops
+        out = real(*args, **kw)
+        reps.append(out[1])
+        return out
+
+    s10_final.run_path_traced = kept
+    try:
+        zero_launches()
+        ss.intersect_spheres_scan.launches = 0
+        with hit_calls() as calls:
+            rc = cli.main(["render", "--stage", "10", *small, "--device", device,
+                           "--out", "outputs/chip_smoke_s10.png"])
+        k1, k3 = ss.intersect_spheres_scan.launches, pt.traverse.launches["k3"]
+        rc_cpu = cli.main(["render", "--stage", "10", *small, "--device", "cpu",
+                           "--out", "outputs/chip_smoke_s10_cpu.png"])
+    finally:
+        s10_final.run_path_traced = real
+    (card, cpu) = reps
+    agree = render_agreement(card["linear"].cpu().numpy(), cpu["linear"].numpy(),
+                             card["segments"], cpu["segments"])
+    _log(f"[stage 10 cli] render --stage 10 at {SMALL_RES[0]}x{SMALL_RES[1]} spp {SMALL_SPP} "
+         f"limit {SMALL_LIMIT}: exit codes {rc} (card), {rc_cpu} (cpu); {card['segments']} "
+         f"segments, passes {card['passes']}, hit calls {calls[0]}, K1 launches {k1}, K3 "
+         f"launches {k3}; against the CPU: {agree}")
+    if rc or rc_cpu or k1 != calls[0] or k1 != card["passes"] or not k1 or k3:
+        raise AssertionError(f"stage 10 through the CLI: exit codes {rc}, {rc_cpu}, K1 "
+                             f"launches {k1}, hit calls {calls[0]}, K3 launches {k3}")
+    if not agree["ok"] or not np.isfinite(card["linear"].cpu().numpy()).all():
+        raise AssertionError(f"stage 10 on the card disagrees with the CPU: {agree}")
+    return k1
+
+
+def l11_twins(device, res=(640, 360)):
+    """K1 and K3 held to their plain twins at l11's shapes, on l11's world
+    (485 spheres on the r = 10,000 ground): the primary rays of orbit frame 0
+    at ``res`` (230,400 at the preset's 640x360; sample 0) and the first bounce pass that follows
+    them (the legacy BSDF scattered from the twin's hits, so this set does
+    not depend on the kernels under test). K1 (``intersect_spheres_scan``)
+    bitwise against ``intersect_spheres_scan_plain`` in ``(t, idx, attr)``;
+    ``hit(backend='bvh')`` (K3) bitwise against the hit record of
+    ``packet_traverse_plain`` over the same tables."""
+    import torch
+
+    from learn_path_tracing_tpu_torch.bsdf.bsdf import SCATTERERS
+    from learn_path_tracing_tpu_torch.camera.camera import generate_rays_for_pixels, pixel_grid
+    from learn_path_tracing_tpu_torch.core import rng
+    from learn_path_tracing_tpu_torch.core.pytree import tree_where
+    from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
+    from learn_path_tracing_tpu_torch.ops import sphere_scan as ss
+    from learn_path_tracing_tpu_torch.scene.world import hit, hit_record
+    from learn_path_tracing_tpu_torch.stages import l11_bvh
+
+    wd = l11_bvh.legacy_random_scene().device(device, use_bvh=True)
+    pix = pixel_grid(res, device)
+    rays = generate_rays_for_pixels(l11_bvh.orbit_camera(res, 0).params(device), res, pix, 0, 0)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    table, attrs = wd.scan_table, wd.scan_attrs
+    for name in ("primary", "bounce1"):
+        n = rays.count
+        ro, rd = rays.ro.contiguous(), rays.rd.contiguous()
+        scan = ss.intersect_spheres_scan(ro, rd, table, attrs)
+        scan_plain = ss.intersect_spheres_scan_plain(ro, rd, table, attrs)
+        walk = hit(wd, rays, backend="bvh")
+        t, prim, _ = pt.packet_traverse_plain(
+            *wd.bvh, ro, rd, torch.full((n,), float("inf"), device=device),
+            torch.ones((n,), dtype=torch.bool, device=device), eps=ss.T_MIN,
+            leaf_kind="sphere", stack=wd.bvh_stack)
+        prim = torch.clamp_min(prim, 0)
+        walk_plain = hit_record(rays, t, prim, attrs[prim.to(torch.int64)])
+        torch.cuda.synchronize()
+        same = {"k1": all(bitwise_equal(a, b) for a, b in zip(scan, scan_plain)),
+                "k3": all(bitwise_equal(getattr(walk, f), getattr(walk_plain, f))
+                          for f in ("t", "obj", "hit", "point", "normal"))}
+        _log(f"[l11 twins] {name}: {n} rays, K1 slices {ss.team_slices(n, table.shape[0], sms)} "
+             f"over {table.shape[0]} padded spheres, hit rate "
+             f"{float(torch.isfinite(scan[0]).float().mean()):.4f}; bitwise equal to the "
+             f"twin: K1 {same['k1']}, hit(backend='bvh') (K3) {same['k3']}")
+        if not all(same.values()):
+            raise AssertionError(f"l11 '{name}': a kernel differs from its twin: {same}")
+        if name == "primary":       # the first bounce, as trace_sample_pixels makes it
+            base = rng.base(rng.stream(0, 0, 0, rng.STREAM_BSDF), pix.to(torch.int64))
+            scattered = SCATTERERS["legacy"](rays, walk_plain, base)
+            survived = rays.alive & walk_plain.hit
+            rays = tree_where(survived, scattered, rays).with_alive(survived)
+
+
+def l11_phase(device):
+    """Stage l11 at its preset (640x360, 128 spp, depth 10, the first orbit
+    frame), once under ``--hit-backend auto`` and once under ``bvh``, with
+    the counts set to 0 just before each: under 'auto' K1 launches once per
+    hit call and K3 not at all, under 'bvh' the reverse; the two frames are
+    bit for bit equal. First, K1 and K3 against their twins at the stage's
+    shapes (``l11_twins``). Returns ``{kernel: launches}``."""
+    import numpy as np
+
+    from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
+    from learn_path_tracing_tpu_torch.ops import sphere_scan as ss
+    from learn_path_tracing_tpu_torch.stages import l11_bvh
+
+    l11_twins(device)
+    reps, out = {}, {}
+    for backend, kernel in (("auto", "k1"), ("bvh", "k3")):
+        zero_launches()
+        ss.intersect_spheres_scan.launches = 0
+        with hit_calls() as calls:
+            _, reps[backend] = l11_bvh.main(["--hit-backend", backend, "--device", device,
+                                             "--out", f"outputs/chip_smoke_l11_{backend}.png"])
+        got = {"k1": ss.intersect_spheres_scan.launches, "k3": pt.traverse.launches["k3"]}
+        others = {k: n for k, n in pt.traverse.launches.items() if k != "k3" and n}
+        rep = reps[backend]
+        mean = float(rep["linear"].mean())
+        _log(f"[l11 {backend}] 640x360 spp 128 depth 10: {rep['seconds']:.3f} s, "
+             f"{rep['segments']} segments, {rep['mrays']:.3f} Mrays/s, hit calls {calls[0]}, "
+             f"launches {got}, linear mean {mean:.5f}")
+        if got != {kernel: calls[0], ("k3" if kernel == "k1" else "k1"): 0} or others:
+            raise AssertionError(f"l11 {backend}: launches {got} {others}, hit calls {calls[0]}")
+        if not np.isfinite(rep["linear"].cpu().numpy()).all() or not 0.02 < mean < 10.0:
+            raise AssertionError(f"the l11 frame is not sane: mean {mean}")
+        out[kernel] = calls[0]
+    same = (reps["auto"]["segments"] == reps["bvh"]["segments"]
+            and bitwise_equal(reps["auto"]["linear"], reps["bvh"]["linear"]))
+    _log(f"[l11] the 'bvh' frame bit for bit the 'auto' frame: {same}")
+    if not same:
+        raise AssertionError("l11's 'bvh' frame differs from its 'auto' frame")
+    return out
+
+
+def l12_phase(device):
+    """Stage l12 at its preset (640x360, 128 spp a keyframe, depth 10) on
+    the script ``w,.,.``, with the counts set to 0 just before: K3 launches
+    once per hit call and K1 not at all, the spp resets on the move and
+    accumulates on the holds (128, 256, 384), the frame is finite; the
+    run's peak device memory above what was allocated before it is logged.
+    Returns K3's launches."""
+    import torch
+
+    from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
+    from learn_path_tracing_tpu_torch.ops import sphere_scan as ss
+    from learn_path_tracing_tpu_torch.stages import l12_free_view
+
+    zero_launches()
+    ss.intersect_spheres_scan.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()      # what earlier phases still hold
+    t0 = time.perf_counter()
+    with hit_calls() as calls:
+        frame, rep = l12_free_view.main(["--script", "w,.,.", "--device", device])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    k1, launches = ss.intersect_spheres_scan.launches, dict(pt.traverse.launches)
+    _log(f"[l12] 640x360, 128 spp a keyframe, depth 10, script w,.,.: {seconds:.3f} s, spp "
+         f"{rep['spp']}, hit calls {calls[0]}, launches {launches}, K1 launches {k1}, peak "
+         f"device memory {peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held "
+         f"before, frame mean {float(frame.mean()):.5f}")
+    if launches.pop("k3") != calls[0] or any(launches.values()) or k1:
+        raise AssertionError(f"l12: K3 launches != hit calls {calls[0]}, or another kernel ran")
+    if rep["spp"] != [128, 256, 384] or not bool(torch.isfinite(frame).all()):
+        raise AssertionError(f"l12: spp {rep['spp']}, or the frame is not finite")
+    return calls[0]
+
+
+def l15_phase(device, directory):
+    """Stage l15 at its preset (1500x1000, 32 spp, one pass) on the stand-in
+    written as the reference's asset tree (``standin_asset_tree``: OBJ,
+    MTL, PBR set, EXR), with the counts set to 0 just before: K2 launches
+    once per traversal call, K6a and K6b as the shading calls imply, the
+    image finite with a sane mean (``outputs/chip_smoke_l15.png``). Then its
+    saved ``.world.npy`` reloads with ``rebuild_bvh=False`` and renders the
+    64x36 check cell within ``render_agreement`` of the rebuilt world's.
+    Returns ``{kernel: launches}``."""
+    import numpy as np
+
+    from learn_path_tracing_tpu_torch.integrator.hybrid import render_hybrid
+    from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
+    from learn_path_tracing_tpu_torch.ops import row_gather as rg
+    from learn_path_tracing_tpu_torch.scene.legacy_world import LegacyWorld
+    from learn_path_tracing_tpu_torch.stages import l15_module
+    from learn_path_tracing_tpu_torch.stages.legacy_common import make_asset_path_map
+    from learn_path_tracing_tpu_torch.utils.checks import render_agreement
+
+    root = os.path.join(directory, "l15_assets")
+    t0 = time.time()
+    standin_asset_tree(root)
+    _log(f"[l15] stand-in asset tree written in {time.time() - t0:.2f} s")
+    zero_launches()
+    with warnings.catch_warnings(), shading_calls() as shading:
+        warnings.simplefilter("error")             # every asset must load
+        frame, rep = l15_module.main(["--assets", root, "--passes", "1", "--device", device,
+                                      "--out", "outputs/chip_smoke_l15.png"])
+    launches, gathers = dict(pt.traverse.launches), dict(rg.gather.launches)
+    path_map = make_asset_path_map(root)
+    t0 = time.time()
+    own = LegacyWorld().load(rep["world"], path_map=path_map, rebuild_bvh=False, device=device)
+    load_s = time.time() - t0
+    expected = expected_gathers(own, shading)
+    calls = rep["n_chunks"] + rep["passes"]
+    mean = float(rep["linear"].mean())
+    _log(f"[l15] 1500x1000 spp 32, one pass: {rep['seconds']:.3f} s, {rep['segments']} "
+         f"segments, {rep['mrays']:.3f} Mrays/s, slabs {rep['n_chunks']} + pool passes "
+         f"{rep['passes']}, launches {launches}, row gathers {gathers} for {shading['attrs']} "
+         f"attribute blocks and {shading['env']} environment taps, linear mean {mean:.5f}; "
+         f"the saved world reloaded with its own trees in {load_s:.2f} s "
+         f"({own.meshes[0].packet[0].shape[0]} wide nodes, stack {own.meshes[0].stack})")
+    if launches.pop("k2") != calls or any(launches.values()):
+        raise AssertionError(f"l15: K2 launches != traversal calls {calls}: {pt.traverse.launches}")
+    if gathers != expected or not all(gathers.values()):
+        raise AssertionError(f"l15: row-gather launches {gathers}, expected {expected}")
+    if not np.isfinite(rep["linear"].cpu().numpy()).all() or not 0.02 < mean < 10.0:
+        raise AssertionError(f"the l15 image is not sane: mean {mean}")
+
+    rebuilt = LegacyWorld().load(rep["world"], path_map=path_map, device=device)
+    cam = l14_camera(SMALL_RES).params(device)
+    (a, sa), (b, sb) = (render_hybrid(wd, cam, SMALL_RES, spp=SMALL_SPP, limit=SMALL_LIMIT)
+                        for wd in (own, rebuilt))
+    agree = render_agreement(a.cpu().numpy(), b.cpu().numpy(), sa, sb)
+    _log(f"[l15] {SMALL_RES[0]}x{SMALL_RES[1]} spp {SMALL_SPP} limit {SMALL_LIMIT}, the file's "
+         f"trees against the rebuilt world: segments {sa} vs {sb}, {agree}")
+    if not agree["ok"]:
+        raise AssertionError(f"the reloaded l15 world disagrees with the rebuilt one: {agree}")
+    return {"k2": calls, **gathers}
+
+
+def cli_smoke():
+    """``python -m learn_path_tracing_tpu_torch smoke`` as a subprocess from
+    the checkout's root; it must exit 0."""
+    proc = subprocess.run([sys.executable, "-m", "learn_path_tracing_tpu_torch", "smoke"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=120)
+    _log(f"[cli smoke] exit code {proc.returncode}: {(proc.stdout + proc.stderr).strip()}")
+    if proc.returncode != 0:
+        raise AssertionError("python -m learn_path_tracing_tpu_torch smoke failed")
+
+
 def _timed(table, name, fn):
     """``fn`` wrapped to add its synchronised wall ms and one call to
     ``table[name]``."""
@@ -1853,6 +2226,7 @@ def main(argv=None) -> int:
     k4, k4_device_times = check_bounce_megakernel(device)
     check_gpu_vs_cpu(device)
     check_mega_gpu_vs_cpu(device)
+    s10_k1 = stage10_cli(device)
     with tempfile.TemporaryDirectory() as directory:
         t0 = time.time()
         mesh_world = standin_world(directory)
@@ -1868,6 +2242,7 @@ def main(argv=None) -> int:
         tri_kernels, tri_device_times = check_packet(mesh_wd, tri.packet, tri.stack, "tri",
                                                      device, seed=7)
         gather_kernels, gather_device_times = check_row_gather(mesh_wd, device)
+        mesh_kernels = {**tri_kernels, **gather_kernels}
 
         t0 = time.time()
         sph_wd = _build_quiet(sphere_world(), device=device)
@@ -1881,26 +2256,37 @@ def main(argv=None) -> int:
 
         check_mesh_gpu_vs_cpu(device, directory)
         for kernel, launches in mesh_headline(mesh_world, device, directory).items():
-            (gather_kernels if kernel in gather_kernels else tri_kernels)[kernel]["launches"] = \
-                launches
+            mesh_kernels[kernel]["launches"] = launches
         viewer_wavefront(mesh_world, device)
         l13_phase(device, directory)
-    k1["launches"], modular = headline(device)
+        # the kernels of each further path, as that path's run counted them
+        paths = {"bench stand-in": bench_standin(mesh_world, device,
+                                                 os.path.join(directory, "standin.world.npy")),
+                 "l15": l15_phase(device, directory)}
+    paths["stage 10 cli"] = {"k1": s10_k1}
+    paths["l11"] = l11_phase(device)
+    paths["l12"] = {"k3": l12_phase(device)}
+    k1["launches"], modular = bench_modular(device)
     k4["launches"] = mega_headline(device, modular)
+    paths["bench modular"] = {"k1": k1["launches"]}
+    paths["bench mega"] = {"k4": k4["launches"]}
+    for entry in (k1, k3, k4, *mesh_kernels.values()):
+        entry["paths"] = {p: n[entry["id"]] for p, n in paths.items() if entry["id"] in n}
     k1_widths = k1_device_times()
-    _log(f"[k1 frame] K1 device ms in the modular headline frame (passes x kernel ms at "
+    _log(f"[k1 frame] K1 device ms in the modular 10_final frame (passes x kernel ms at "
          f"each width, {dict((w, round(ms, 4)) for w, ms in k1_widths.items())}): "
-         f"{k1_frame_ms(k1_widths, modular):.3f} ms")
+         f"{k1_frame_ms(k1_widths, modular['stats']):.3f} ms")
     bvh_device_times()
     k4_device_times()
     tri_device_times()
     sph_device_times()
     gather_device_times()
+    cli_smoke()
 
     print(card)
-    print(json.dumps({"kernels": [k1, tri_kernels["k2"], k3, k4, tri_kernels["k5a"],
-                                  tri_kernels["k5b"], gather_kernels["k6a"],
-                                  gather_kernels["k6b"]]}))
+    print(json.dumps({"kernels": [k1, mesh_kernels["k2"], k3, k4, mesh_kernels["k5a"],
+                                  mesh_kernels["k5b"], mesh_kernels["k6a"],
+                                  mesh_kernels["k6b"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,7 +6,8 @@ function has its counterpart at the same path:
 
   core/        tensor dataclasses, counter RNG, color pipeline, PNG I/O
   geometry/    sphere, triangle and AABB math (plain PyTorch)
-  accel/       host-side SAH BVH build and its 8-wide collapse (numpy)
+  accel/       host-side SAH BVH build, its 8-wide collapse (numpy) and
+               BVH debug dumps and renders
   io/          OBJ meshes, OpenEXR images, texture atlases
   bsdf/        sampling primitives and BSDF scatter functions
   camera/      pinhole and thin-lens cameras
@@ -18,8 +19,12 @@ function has its counterpart at the same path:
   integrator/  wavefront, persistent (path-regeneration) and hybrid
                integrators
   viewer/      progressive accumulation renderer
-  utils/       render configuration, render agreement checks
-  stages/      runnable stage scripts
+  utils/       render configuration, numerical checks (render agreement,
+               image validity, NaN trap), profiling, frame timing
+  stages/      runnable stage scripts (s01-s10, l11-l15)
+  __main__     the CLI: ``python -m learn_path_tracing_tpu_torch
+               render|stages|smoke|bench`` (the bench is ``bench_torch.py``
+               at the root of the checkout)
 
 The package imports ``torch`` and ``numpy`` only. Every function that creates
 tensors takes an explicit ``device``; randomness is the counter hash of

@@ -177,15 +177,18 @@ def intersect_spheres_scan_plain(ro, rd, table, attrs, t_min: float = T_MIN):
         half_b = -((oc[0] * rd_c[0] + oc[1] * rd_c[1]) + oc[2] * rd_c[2])
         c0 = ((oc[0] * oc[0] + oc[1] * oc[1]) + oc[2] * oc[2]) - r2
         disc = half_b * half_b - c0
-        # sqrt of a negative disc is NaN; every compare with NaN is false, so
-        # misses and padding (r2 = -inf) fall out of the t >= t_min test.
+        # the kernel's sqrt of a negative disc is NaN, and every compare with
+        # NaN is false, so misses and padding (r2 = -inf) fall out of its
+        # t >= t_min test. Here the disc is clamped at 0 before the sqrt and
+        # those lanes are masked by disc >= 0, which gives the same result
+        # and makes no NaN (``utils.checks.checked_trace`` traces this path).
         # PyTorch's vectorized f32 sqrt on the CPU is not always correctly
         # rounded; the f64 sqrt rounded to f32 is, like the kernel's IEEE sqrt.
-        sq = torch.sqrt(disc.to(torch.float64)).to(torch.float32)
+        sq = torch.sqrt(torch.clamp_min(disc, 0.0).to(torch.float64)).to(torch.float32)
         t_near = half_b - sq
         use_far = (t_near < t_min_t) & (flag > 1.5)
         t = torch.where(use_far, half_b + sq, t_near)
-        t = torch.where(t >= t_min_t, t, inf)
+        t = torch.where((t >= t_min_t) & (disc >= 0.0), t, inf)
         t_chunk, i_chunk = torch.min(t, dim=1)   # first index of the minimum
         better = t_chunk < t_best
         t_best = torch.where(better, t_chunk, t_best)

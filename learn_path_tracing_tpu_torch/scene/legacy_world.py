@@ -46,10 +46,7 @@ attribute shading runs on exactly the hit rows instead of static prefix
 buckets (``_attrs_switch``'s ``_r256`` widths exist for XLA's static
 shapes); the fused single-mesh hit path (``_hit_legacy_fused``) is the
 composed sort, traversal and unsort, which the JAX package's tests hold
-bitwise equal to it; the multi-mesh default merges meshes under one BVH, as there. ``load`` always
-rebuilds the BVHs (the JAX package's ``rebuild_bvh=False`` and
-``textures_from_obj`` serve the reference's asset files and are not
-carried over).
+bitwise equal to it; the multi-mesh default merges meshes under one BVH, as there.
 """
 
 from __future__ import annotations
@@ -464,41 +461,88 @@ class LegacyWorld:
             environments=self.environments.dump(),
         )
 
-    def load(self, filename, path_map=None, merge_meshes: bool = True,
+    def load(self, filename, path_map=None, rebuild_bvh: bool = True,
+             textures_from_obj: str | None = None, merge_meshes: bool = True,
              sphere_packet: bool | None = None, device=None,
              packet_version: int = 2) -> LegacyWorldData:
-        """Load a ``.world.npy`` onto ``device``, rebuilding the BVHs from
-        the stored geometry with the build settings (meshes depth 24,
-        leaves of 8; spheres depth 12, leaves of 4); ``packet_version`` as
-        in ``build``.
+        """Load a ``.world.npy`` (either schema era) onto ``device``;
+        ``packet_version`` as in ``build``.
 
-        Not carried over from the JAX package: ``rebuild_bvh=False`` (the
-        file's own trees, for parity debugging against the reference's
-        files) and ``textures_from_obj`` (14-era files whose textures come
-        from the companion OBJ); both need the reference's assets."""
+        ``rebuild_bvh=True`` (default) rebuilds the BVHs from the stored
+        geometry with the build settings (meshes depth 24, leaves of 8,
+        merged under one BVH unless ``merge_meshes`` is False; spheres depth
+        12, leaves of 4). ``rebuild_bvh=False`` packs the file's own trees
+        as stored, one structure per mesh (the reference's depth-16 trees
+        have leaves of up to ~60 primitives, which the collapse splits into
+        runs of 8).
+
+        ``textures_from_obj``: 14-era files carry no texture configs; the
+        reference loads the textures of the companion OBJ's materials into
+        fixed 2048-wide atlas slots (14_mesh.py:994-999), which the file's
+        face texture ids index. Pass the OBJ path (``path_map`` applies to
+        it) to do the same."""
         data = serialize.load_world_npy(filename)
         self.environment = data["environment"]
         if data["textures"] is not None:
             self.textures.load(data["textures"])
+        elif textures_from_obj is not None:
+            from ..io.obj import load_obj
+
+            obj_path = path_map(textures_from_obj) if path_map else textures_from_obj
+            mats = load_obj(obj_path, texture_start_id=0).textures
+            self.textures.configs = [
+                {"file_path": m["file_path"], "size": (2048, 2048), "id": int(m["id"]),
+                 "area": {"low": (i * 2048, 0), "high": ((i + 1) * 2048, 2048)}}
+                for i, m in enumerate(mats)]
+            self.textures.size = (2048 * max(len(mats), 1), 2048)
         if data["environments"] is not None:
             self.environments.load(data["environments"])
 
-        mesh_devices = _build_mesh_devices(
-            [(rec["positions"], rec["normals"], rec["uvs"],
-              rec["faces"]["p"], rec["faces"]["n"], rec["faces"]["t"],
-              rec["faces"]["tex"]) for rec in data["meshes_bvhs"]],
-            24, 8, merge=merge_meshes)
+        if rebuild_bvh:
+            mesh_devices = _build_mesh_devices(
+                [(rec["positions"], rec["normals"], rec["uvs"],
+                  rec["faces"]["p"], rec["faces"]["n"], rec["faces"]["t"],
+                  rec["faces"]["tex"]) for rec in data["meshes_bvhs"]],
+                24, 8, merge=merge_meshes)
+        else:
+            mesh_devices = tuple(
+                _mesh_device(rec["positions"], rec["normals"], rec["uvs"],
+                             rec["faces"]["p"], rec["faces"]["n"], rec["faces"]["t"],
+                             rec["faces"]["tex"], _bvh_from_record(rec))
+                for rec in data["meshes_bvhs"])
         sphere_device = None
         if data["spheres_bvh"] is not None:
-            s = data["spheres_bvh"]["spheres"]
-            c = np.asarray(s["center"], np.float32)
-            r = np.asarray(s["radius"], np.float32)[:, None]
-            sbvh = build_bvh(c - r, c + r, centroid=c, max_depth=12, max_leaf=4)
+            rec = data["spheres_bvh"]
+            s = rec["spheres"]
+            if rebuild_bvh:
+                c = np.asarray(s["center"], np.float32)
+                r = np.asarray(s["radius"], np.float32)[:, None]
+                sbvh = build_bvh(c - r, c + r, centroid=c, max_depth=12, max_leaf=4)
+            else:
+                sbvh = _bvh_from_record(rec)
             sphere_device = _sphere_device(
                 s["center"], s["radius"], np.asarray(s["transparency"], np.float32),
                 s["texture_id"], sbvh, sphere_packet)
         return self._finish(mesh_devices, sphere_device, path_map, device,
                             packet_version)
+
+
+def _bvh_from_record(rec) -> FlatBVH:
+    """A stored tree as a ``FlatBVH`` whose primitives are the record's own,
+    already in leaf order."""
+    cut = np.asarray(rec["cut"], np.int32)
+    nodes = rec["nodes"]
+    return FlatBVH(
+        left=np.asarray(nodes["left"], np.int32),
+        right=np.asarray(nodes["right"], np.int32),
+        low=np.asarray(nodes["low"], np.float32),
+        high=np.asarray(nodes["high"], np.float32),
+        data=np.asarray(nodes["data"], np.int32),
+        cut=cut,
+        prim=np.arange(int(cut[-1]), dtype=np.int32),
+        max_depth=int(rec["max_depth"]),
+        max_leaf=int((cut[1:] - cut[:-1]).max(initial=1)),
+    )
 
 
 # --------------------------------------------------------------- tracing --

@@ -1,3 +1,3 @@
-from . import checks, config
+from . import benchlib, checks, config, profiling
 
-__all__ = ["checks", "config"]
+__all__ = ["benchlib", "checks", "config", "profiling"]

@@ -9,10 +9,14 @@ accumulator and the counters: the RNG is counter-based).
 
 Two engines, with the same RNG counters (absolute pixel, sample and
 bounce), so switching engines never changes the converged image: the hybrid
-integrator (``integrator.hybrid``; 'auto' takes it on every device) and the
-masked wavefront (``integrator.wavefront.render_accumulate``, one
-``hit_legacy`` per bounce pass for legacy scenes, so it reaches the world's
-packet-traversal kernel too).
+integrator (``integrator.hybrid``; 'auto' takes it for legacy scenes on
+every device) and the masked wavefront
+(``integrator.wavefront.render_accumulate``; 'auto' takes it for sphere
+scenes, which the hybrid integrator does not render, as the JAX package
+does). The wavefront engine passes ``hit_backend`` to the sphere world's
+``hit`` ('bvh': the sphere BVH through K3); for legacy scenes it runs one
+``hit_legacy`` per bounce pass, so it reaches the world's packet-traversal
+kernel too.
 """
 
 from __future__ import annotations
@@ -27,16 +31,17 @@ class ProgressiveRenderer:
     def __init__(self, world_data, camera: Camera, resolution,
                  spp_per_frame: int = 32, limit: int = 32, seed: int = 0,
                  bsdf: str = "legacy", scene: str = "legacy",
-                 camera_model: str = "thinlens", preview_spp: int = 0,
-                 preview_limit: int = 2, engine: str = "auto"):
+                 camera_model: str = "thinlens", hit_backend: str = "auto",
+                 preview_spp: int = 0, preview_limit: int = 2, engine: str = "auto"):
         """``preview_spp > 0`` enables motion preview: while the camera is
         moving, frames render at ``preview_spp`` samples and
         ``preview_limit`` bounces; the first still frame discards the
         preview and restarts clean accumulation at full quality.
 
-        ``engine``: 'auto' and 'hybrid' render with
-        ``integrator.hybrid.render_hybrid``, 'wavefront' with
-        ``integrator.wavefront.render_accumulate``."""
+        ``engine``: 'hybrid' renders with ``integrator.hybrid.render_hybrid``
+        (legacy scenes only; it takes no ``hit_backend``), 'wavefront' with
+        ``integrator.wavefront.render_accumulate``, and 'auto' with the
+        hybrid integrator for legacy scenes and the wavefront otherwise."""
         if engine not in ("auto", "hybrid", "wavefront"):
             raise ValueError(f"unknown engine: {engine!r}")
         self.world_data = world_data
@@ -48,9 +53,12 @@ class ProgressiveRenderer:
         self.bsdf = bsdf
         self.scene = scene
         self.camera_model = camera_model
+        self.hit_backend = hit_backend
         self.preview_spp = int(preview_spp)
         self.preview_limit = int(preview_limit)
-        self.engine = "wavefront" if engine == "wavefront" else "hybrid"
+        if engine == "auto":
+            engine = "hybrid" if scene == "legacy" else "wavefront"
+        self.engine = engine
         self.device = world_data.device
         w, h = self.resolution
         self.acc = torch.zeros((w * h, 3), dtype=torch.float32, device=self.device)
@@ -68,7 +76,8 @@ class ProgressiveRenderer:
             acc, segments = render_accumulate(
                 self.world_data, cam, acc, sample_start, self.resolution, spp,
                 limit=limit, seed=self.seed, bsdf=self.bsdf,
-                camera_model=self.camera_model, scene=self.scene)
+                camera_model=self.camera_model, scene=self.scene,
+                hit_backend=self.hit_backend)
             self.last_stats = {"segments": segments, "spp": spp}
             return acc
         from ..integrator.hybrid import render_hybrid

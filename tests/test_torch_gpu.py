@@ -4,6 +4,8 @@ the JAX package, so it runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest tests/test_torch_gpu.py -m gpu -q
 
+(from the root of the checkout: the bench tests import ``bench_torch``).
+
 Tolerances: the sphere-scan kernel (K1, at the frame's pass widths and
 every slice count, ties included), the packet-traversal kernels (K2
 triangle leaves, K3 sphere leaves; ``hit(backend='bvh')`` through K3 equals
@@ -427,3 +429,99 @@ def test_row_gather_kernel_rejects_misaligned(cuda):
     with pytest.raises(ValueError, match="aligned"):
         trg.gather(tab.view(-1)[1:129].view(8, 16), torch.zeros(4, dtype=torch.int64,
                                                                   device=cuda))
+
+
+# ------------------------------------ the bench, l11, l12 and the utilities --
+
+@pytest.mark.parametrize("engine", ["persistent", "mega"])
+def test_bench_cell_launches_one_kernel_per_pass(cuda, engine):
+    """``bench_torch.run_cell`` at 64x36 on the card: the engine's kernel (K1
+    for the modular engine, K4 for the mega engine) launches once per hit
+    call or pass of every render the cell made, warm-up included, and the
+    two engines give the same segments and image bit for bit."""
+    import bench_torch
+
+    rows = {}
+    for name in ("persistent", "mega"):
+        tss.intersect_spheres_scan.launches = 0
+        tmk.bounce_pass.launches = 0
+        rows[name] = bench_torch.run_cell(engine=name, resolution=(64, 36), spp=4, limit=8,
+                                          device=cuda)
+        launches = (tss.intersect_spheres_scan.launches, tmk.bounce_pass.launches)
+        calls = sum(rows[name]["calls"])
+        assert launches == ((calls, 0) if name == "persistent" else (0, calls))
+    row = rows[engine]
+    assert row["card"] != "cpu" and len(row["frames"]) == 3 and row["value"] > 0
+    assert rows["persistent"]["segments"] == rows["mega"]["segments"]
+    assert torch.equal(rows["persistent"]["image"].view(torch.int32),
+                       rows["mega"]["image"].view(torch.int32))
+
+
+@pytest.fixture
+def hit_calls(monkeypatch):
+    """Counts ``scene.world.hit`` calls (one per wavefront bounce pass)."""
+    from learn_path_tracing_tpu_torch.scene import world as tworld
+
+    calls = [0]
+    real = tworld.hit
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tworld, "hit", counted)
+    return calls
+
+
+def test_l11_bvh_equals_auto_bitwise(cuda, hit_calls, tmp_path):
+    from learn_path_tracing_tpu_torch.stages import l11_bvh
+
+    args = ["--width", "64", "--height", "36", "--spp", "4", "--limit", "8"]
+    reps = {}
+    for backend in ("auto", "bvh"):
+        hit_calls[0] = 0
+        tss.intersect_spheres_scan.launches = 0
+        tpt.traverse.launches.update(dict.fromkeys(tpt.traverse.launches, 0))
+        _, reps[backend] = l11_bvh.main(args + ["--hit-backend", backend,
+                                                "--out", str(tmp_path / f"{backend}.png")])
+        k1, k3 = tss.intersect_spheres_scan.launches, tpt.traverse.launches["k3"]
+        assert (k1, k3) == ((hit_calls[0], 0) if backend == "auto" else (0, hit_calls[0]))
+    assert reps["auto"]["segments"] == reps["bvh"]["segments"]
+    assert torch.equal(reps["auto"]["linear"].view(torch.int32),
+                       reps["bvh"]["linear"].view(torch.int32))
+
+
+def test_l12_walks_the_sphere_bvh_only(cuda, hit_calls, tmp_path, monkeypatch):
+    from learn_path_tracing_tpu_torch.stages import l12_free_view
+
+    monkeypatch.chdir(tmp_path)
+    tss.intersect_spheres_scan.launches = 0
+    tpt.traverse.launches.update(dict.fromkeys(tpt.traverse.launches, 0))
+    frame, rep = l12_free_view.main(["--width", "64", "--height", "36", "--spp", "4",
+                                     "--limit", "8", "--script", "w,.,."])
+    assert rep["spp"] == [4, 8, 12]
+    assert tss.intersect_spheres_scan.launches == 0
+    assert tpt.traverse.launches["k3"] == hit_calls[0] > 0
+    assert torch.isfinite(frame).all()
+
+
+def test_device_smoke_test_on_the_card(cuda):
+    from learn_path_tracing_tpu_torch.utils.checks import device_smoke_test
+
+    assert device_smoke_test()
+
+
+def test_checked_trace_around_a_card_render(cuda):
+    """A cover-scene render on the card makes no NaN that a later op masks
+    (K1 runs outside the dispatcher); a masked NaN on the card raises."""
+    from learn_path_tracing_tpu_torch.utils.checks import checked_trace
+
+    world, cam = random_scene(seed=20230328), stage10_camera((32, 18))
+    img, segs = checked_trace(render_persistent, world.device(cuda), cam.params(cuda), (32, 18),
+                              spp=4, limit=8)
+    ref, ref_segs = render_persistent(world.device(cuda), cam.params(cuda), (32, 18), spp=4,
+                                      limit=8)
+    assert segs == ref_segs and torch.equal(img, ref)
+    x = torch.ones(8, device=cuda)
+    with pytest.raises(FloatingPointError, match="aten.sqrt"):
+        checked_trace(lambda v: torch.nan_to_num(torch.sqrt(v - 2.0)), x)

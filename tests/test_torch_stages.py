@@ -92,7 +92,8 @@ import importlib, pkgutil, sys
 import learn_path_tracing_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
-import chip_smoke
+import chip_smoke, bench_torch
+import learn_path_tracing_tpu_torch.__main__
 bad = [k for k in sys.modules
        if k == "jax" or k.startswith("jax.") or k == "learn_path_tracing_tpu"
        or k.startswith("learn_path_tracing_tpu.")]
