@@ -86,7 +86,7 @@ def metric_name(kind: str, scene: str, world: str, resolution, spp: int, mega: b
     return name + ("_mega" if mega else "")
 
 
-def _scene(scene, resolution, device, world, assets):
+def cell_scene(scene, resolution, device, world, assets):
     """``(world data, camera params, scene kind, bsdf, camera model)``."""
     if scene == "10_final":
         from learn_path_tracing_tpu_torch.models import random_scene, stage10_camera
@@ -135,7 +135,7 @@ def run_cell(scene="10_final", engine="auto", resolution=(1280, 720), spp=64, li
     from learn_path_tracing_tpu_torch.utils.benchlib import time_fn
 
     require_device(device)
-    wd, cp, scene_kind, bsdf, cam_model = _scene(scene, resolution, device, world, assets)
+    wd, cp, scene_kind, bsdf, cam_model = cell_scene(scene, resolution, device, world, assets)
     if engine == "auto":
         engine = "hybrid" if scene_kind == "legacy" else "persistent"
     calls, stats = [], {}
@@ -175,6 +175,69 @@ def run_cell(scene="10_final", engine="auto", resolution=(1280, 720), spp=64, li
             "unit": "Mrays/s" if rate else "s",
             "frames": seconds, "segments": int(segs), "card": card(device),
             "engine": engine, "calls": calls, "stats": stats, "image": img}
+
+
+def sharded_cells(cells, limit=32, device="cuda", world=DEFAULT_WORLD, assets=None):
+    """A job for ``parallel.launch`` (every rank runs it): each cell
+    ``(scene, engine, resolution, spp, n_spp)`` of ``cells`` through its
+    engine's sharded function (``parallel.mesh``; 'persistent', 'wavefront'
+    or 'hybrid') over a ``(ranks / n_spp) x n_spp`` mesh of every rank,
+    after a warm-up frame at spp ``n_spp``. Then, on each of those meshes,
+    the collectives of a sharded frame's int64 accumulator at the first
+    cell's resolution, each the median ms of 20 calls (CUDA events on the
+    card): the spp axis's ``all_reduce`` of the rank's ``(W·H / n_tile, 3)``
+    rows (when ``n_spp > 1``), the tile axis's ``all_gather_into_tensor``
+    of them, and an ``all_reduce`` of the whole ``(W·H, 3)`` accumulator
+    over every rank.
+
+    Returns ``(frames, collectives)``: ``{"image", "segments", "seconds"}``
+    a cell (the frame's wall seconds from a barrier to the assembled image
+    on this rank), and ``{"<n_tile>x<n_spp>": {collective: ms}}``."""
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from learn_path_tracing_tpu_torch.parallel import mesh as pm
+    from learn_path_tracing_tpu_torch.utils.benchlib import time_fn
+
+    fns = {"persistent": pm.render_persistent_multichip, "wavefront": pm.render_multichip,
+           "hybrid": pm.render_hybrid_multichip}
+    ranks = dist.get_world_size()
+    meshes, scenes, frames = {}, {}, []
+    for scene, engine, res, spp, n_spp in cells:
+        if n_spp not in meshes:
+            meshes[n_spp] = pm.make_mesh(ranks // n_spp, n_spp)
+        if (scene, tuple(res)) not in scenes:
+            scenes[scene, tuple(res)] = cell_scene(scene, res, device, world, assets)
+        wd, cp, kind, bsdf, cam_model = scenes[scene, tuple(res)]
+        fn, mesh = fns[engine], meshes[n_spp]
+        kw = dict(limit=limit, bsdf=bsdf, camera_model=cam_model, scene=kind)
+        fn(wd, cp, res, n_spp, mesh, **kw)          # warm-up (its collectives sync)
+        dist.barrier()
+        t0 = time.perf_counter()
+        img, segs = fn(wd, cp, res, spp, mesh, **kw)
+        img = img.cpu()                               # waits for the frame
+        frames.append({"image": img, "segments": segs, "seconds": time.perf_counter() - t0})
+
+    def ms(f):
+        return 1e3 * statistics.median(time_fn(f, iters=20, warmup=3, device=device)[0])
+
+    w, h = cells[0][2]
+    collectives = {}
+    for mesh in meshes.values():
+        rows = -(-w * h // mesh.n_tile)
+        acc = torch.ones((rows, 3), dtype=torch.int64, device=device)
+        tiles = torch.empty((rows * mesh.n_tile, 3), dtype=torch.int64, device=device)
+        whole = torch.ones((w * h, 3), dtype=torch.int64, device=device)
+        times = {}
+        if mesh.n_spp > 1:
+            times["all_reduce spp"] = ms(lambda: dist.all_reduce(acc, group=mesh.spp_group))
+        times["all_gather_into_tensor tile"] = ms(
+            lambda: dist.all_gather_into_tensor(tiles, acc, group=mesh.tile_group))
+        times["all_reduce all ranks"] = ms(lambda: dist.all_reduce(whole))
+        collectives[f"{mesh.n_tile}x{mesh.n_spp}"] = times
+    return frames, collectives
 
 
 def row_line(row) -> str:

@@ -30,14 +30,25 @@ Drives the port's paths and checks them:
   ``bvh``), l12 (the progressive renderer's wavefront engine over the
   sphere BVH: K3) and l15 (the stand-in as an OBJ + MTL + PNG + EXR asset
   tree, built, saved and accumulated through the hybrid engine: K2, K6a,
-  K6b); and ``python -m learn_path_tracing_tpu_torch smoke``.
+  K6b); and ``python -m learn_path_tracing_tpu_torch smoke``;
+- multi-device rendering (``parallel.mesh`` over an NCCL group of one rank
+  on the card): ``render_hybrid_multichip`` on the stand-in (K2, K6a,
+  K6b), ``render_persistent_multichip`` and ``render_multichip`` on the
+  cover scene (K1); with more than one card, the same on every card as
+  every tile and, with an even count, as (cards / 2) tiles x 2 spp
+  (``parallel.launch`` of ``bench_torch.sharded_cells``), with the
+  collectives timed between the cards;
+- the HTTP viewer (``viewer.serve``): its loop on the sphere scene (K1
+  through the wavefront engine) and on the stand-in's ``.world.npy`` (K2,
+  K6a, K6b through the hybrid engine), with the native BVH builder
+  (``accel.native``) building every stand-in tree.
 
 Phases:
 
 1. prints the card, its power limit, and the torch and CUDA versions;
 2. builds every kernel from the sources in the checkout (one ``nvcc`` per
-   source, all started together) and prints ``ptxas``'s register, memory
-   and spill lines;
+   source, all started together, and the native BVH builder's ``g++``
+   beside them) and prints ``ptxas``'s register, memory and spill lines;
 3. holds each kernel against its plain PyTorch twin on the card, at the
    paths' shapes, timed with CUDA events (median of 20 runs), with the
    bound of its work: K1 on the cover scene's wavefronts and on their
@@ -101,7 +112,16 @@ Phases:
    156,430,643 segments) and its mega cell (three frames; one K4 launch
    per pass, the modular cell's segments and linear image bit for bit),
    then one mega frame under the profiler (device busy time, K4's share);
-   each bench row is printed as the CLI prints it;
+   each bench row is printed as the CLI prints it; before the stand-in's
+   build, ``[native bvh]``: its BVH with the numpy and the C++ builder,
+   byte for byte equal, both timed (the stand-in's build then asserts that
+   the C++ builder ran); after l15, ``[multichip]`` (``multichip_phase``:
+   the three sharded functions against their single-device frames, bit for
+   bit, with the same launches; the collectives timed, which at world
+   size 1 are a single-rank copy),
+   ``[multichip split]`` (a 2 tile x 2 spp split by ranges on one card)
+   and ``[serve]`` (the viewer's loop on both scenes, served frames and
+   input checked);
 6. the kernels' own device times from ``torch.profiler``: K1 at each pass
    width with every slice count (and K1's device ms in the modular frame:
    its passes at each width times its time there), K3 and K1 under
@@ -111,7 +131,9 @@ Phases:
    and K6b on every gather set. They
    come last because a profiler run can slow the process's later
    launches, which every CUDA-event time and timed frame above would show;
-7. the CLI's ``smoke`` command, run as a subprocess, must exit 0.
+7. the CLI's ``smoke`` command and its ``multichip --nproc <cards>`` dry
+   run (``parallel.launch``: one NCCL rank a card), run as subprocesses,
+   must exit 0.
 
 The stand-in world (``standin_world``) takes the place of the reference's
 Yoimiya character, whose assets are not in the repository: one closed mesh
@@ -127,7 +149,10 @@ traversal kernel's device time by the lanes its launches listed, peak
 memory, synchronised per-layer host times), printed as one JSON line.
 ``python3 chip_smoke.py --packet-times`` runs only the build and
 ``packet_times``: the packet kernels against their twins and their device
-times on every ray set.
+times on every ray set. ``python3 chip_smoke.py --multichip`` runs only the
+build, ``[multichip]`` (on every card of the host when there are several,
+as tiles and as tiles x 2 spp, the collectives timed across the cards) and
+the CLI's ``multichip --nproc <cards>`` dry run.
 
 Any failed phase raises, so the script exits non-zero. The last lines are
 the ``nvidia-smi`` name and power limit, a JSON line of the kernels, and
@@ -1118,9 +1143,14 @@ PACKET_ENTRIES = {   # kernels-line name and TPU kernel of each packet kernel
 
 
 def zero_launches():
+    """Every kernel's launch count to 0 (``all_launches`` reads them)."""
+    from learn_path_tracing_tpu_torch.ops import bounce_megakernel as mk
     from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
     from learn_path_tracing_tpu_torch.ops import row_gather as rg
+    from learn_path_tracing_tpu_torch.ops import sphere_scan as ss
 
+    ss.intersect_spheres_scan.launches = 0
+    mk.bounce_pass.launches = 0
     pt.traverse.launches.update(dict.fromkeys(pt.traverse.launches, 0))
     rg.gather.launches.update(dict.fromkeys(rg.gather.launches, 0))
 
@@ -1990,6 +2020,382 @@ def cli_smoke():
         raise AssertionError("python -m learn_path_tracing_tpu_torch smoke failed")
 
 
+# ------------------------ the native builder, multi-device, the viewer --
+
+MC_PERSISTENT_SPP = 8                  # the sharded cover-scene cell: spp cut from 64
+MC_WAVEFRONT_RES, MC_WAVEFRONT_SPP = (320, 180), 4
+
+
+def native_bvh_phase():
+    """``[native bvh]``: the stand-in mesh's BVH (23,424 triangles, the mesh
+    build's depth 24 and leaves of 8) once with each builder (the C++
+    library was built with the kernels); the arrays must be equal byte for
+    byte. Prints both build times; returns them."""
+    from learn_path_tracing_tpu_torch.accel.bvh import build_bvh
+
+    mesh = _standin_mesh(5, STANDIN_SEED)
+    tri = mesh.positions[mesh.face_p]
+    args = (tri.min(axis=1), tri.max(axis=1))
+    kw = dict(centroid=tri.mean(axis=1), max_depth=24, max_leaf=8)
+    out, trees = {}, {}
+    for backend in ("numpy", "native"):
+        t0 = time.perf_counter()
+        trees[backend] = build_bvh(*args, backend=backend, **kw)
+        out[f"{backend}_s"] = time.perf_counter() - t0
+    a, b = trees["numpy"], trees["native"]
+    same = all(getattr(a, f).dtype == getattr(b, f).dtype
+               and getattr(a, f).tobytes() == getattr(b, f).tobytes()
+               for f in ("left", "right", "low", "high", "data", "cut", "prim"))
+    _log(f"[native bvh] stand-in, {tri.shape[0]} triangles, {a.left.shape[0]} nodes: numpy "
+         f"{out['numpy_s']:.3f} s, native {out['native_s']:.4f} s; arrays byte for byte "
+         f"equal: {same}")
+    if not same or a.max_leaf != b.max_leaf:
+        raise AssertionError("the native BVH builder's arrays differ from numpy's")
+    return out
+
+
+def all_launches() -> dict:
+    from learn_path_tracing_tpu_torch.ops import bounce_megakernel as mk
+    from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
+    from learn_path_tracing_tpu_torch.ops import row_gather as rg
+    from learn_path_tracing_tpu_torch.ops import sphere_scan as ss
+
+    return {"k1": ss.intersect_spheres_scan.launches, **pt.traverse.launches,
+            "k4": mk.bounce_pass.launches, **rg.gather.launches}
+
+
+def counted_frame(fn):
+    """``fn()`` with every launch count set to 0 just before; returns
+    ``(result, synchronised seconds, launches, hit calls, shading calls)``."""
+    import torch
+
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with hit_calls() as hits, shading_calls() as shading:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, all_launches(), hits[0], shading
+
+
+def only(launches, **want) -> bool:
+    """The launches are ``want`` on the named kernels and 0 on every other."""
+    return all(n == want.get(k, 0) for k, n in launches.items())
+
+
+def multichip_cells(device, world_path):
+    """The three sharded cells: ``name → (single-device fn, sharded fn, world
+    data, camera params, resolution, spp, the bench's scene)``, each built as
+    the bench builds its cell (``bench_torch.cell_scene``; the stand-in's
+    world loaded from ``world_path``, its textures beside it), as the ranks
+    of a multi-card job build them."""
+    import bench_torch
+    from learn_path_tracing_tpu_torch.integrator.hybrid import render_hybrid
+    from learn_path_tracing_tpu_torch.integrator.persistent import render_persistent
+    from learn_path_tracing_tpu_torch.integrator.wavefront import render
+    from learn_path_tracing_tpu_torch.parallel import mesh as pm
+
+    assets = os.path.dirname(os.path.abspath(world_path))
+    cells = {"hybrid": (render_hybrid, pm.render_hybrid_multichip, "yoimiya", RES, SPP),
+             "persistent": (render_persistent, pm.render_persistent_multichip, "10_final",
+                            RES, MC_PERSISTENT_SPP),
+             "wavefront": (render, pm.render_multichip, "10_final", MC_WAVEFRONT_RES,
+                           MC_WAVEFRONT_SPP)}
+    out = {}
+    for name, (single, sharded, scene, res, spp) in cells.items():
+        wd, cp, *_ = bench_torch.cell_scene(scene, res, device, world_path, assets)
+        out[name] = (single, sharded, wd, cp, res, spp, scene)
+    return out
+
+
+def multichip_phase(device, world_path):
+    """``[multichip]``: an NCCL group of world size 1 on the card, and over
+    its 1x1 mesh the three sharded functions, each after its single-device
+    render, with the counts set to 0 just before each: the hybrid on the
+    stand-in at the bench's cell (1280x720, 64 spp, depth 32: K2 once per
+    traversal call, K6a/K6b as its shading calls imply, nothing else), the
+    persistent engine on the cover scene at 1280x720, depth 32, spp 8, and
+    the wavefront at 320x180, spp 4 (K1 once per hit call, nothing else).
+    Each sharded image must be the single-device one bit for bit, with the
+    same segments and launches. Then the int64 accumulator's
+    ``all_reduce`` and ``all_gather_into_tensor`` (1280x720x3, 22 MB) are
+    timed with CUDA events; with one rank they are a copy on the card, not
+    an exchange. With more than one card, one job on every card
+    (``parallel.launch`` of ``bench_torch.sharded_cells``) renders the same
+    cells over every card as tiles and, with an even count, as (cards / 2)
+    tiles x 2 spp, and times the collectives between the cards: rank 0's
+    images must be the world-size-1 ones, bit for bit (the wavefront's spp
+    split within rtol 1e-5, atol 1e-6), with the same segments. Returns
+    ``(paths, refs)``: the sharded runs' launches by path, and each cell's
+    single-device result for ``multichip_split``."""
+    import torch
+    import torch.distributed as dist
+
+    import bench_torch
+    from learn_path_tracing_tpu_torch.parallel import launch
+    from learn_path_tracing_tpu_torch.parallel import mesh as pm
+
+    cells = multichip_cells(device, world_path)
+    paths, refs = {}, {}
+    launch.init_group(0, 1, device, port=launch.free_port())
+    try:
+        m = pm.make_mesh(1, 1)
+        # NCCL sets up a group's communicator at its first collective:
+        # once here, outside the timed frames
+        t0 = time.perf_counter()
+        pm.combine(torch.zeros((1, 3), device=device), 0, m)
+        _log(f"[multichip] NCCL set-up (the first collectives of the mesh's groups): "
+             f"{time.perf_counter() - t0:.3f} s")
+        for name, (single, sharded, wd, cp, res, spp, _) in cells.items():
+            kw = dict(stats=True) if name == "hybrid" else {}
+            (img, segs, *st), t_single, l_single, hits, shading = counted_frame(
+                lambda: single(wd, cp, res, spp, limit=DEPTH, **kw))
+            (img_m, segs_m), t_sharded, l_sharded, hits_m, shading_m = counted_frame(
+                lambda: sharded(wd, cp, res, spp, m, limit=DEPTH))
+            if name == "hybrid":
+                calls = st[0]["n_chunks"] + st[0]["passes"]
+                want = dict(k2=calls, **expected_gathers(wd, shading_m))
+                kept = {k: l_sharded[k] for k in ("k2", "k6a", "k6b")}
+            else:
+                want = dict(k1=hits_m)
+                kept = {"k1": l_sharded["k1"]}
+            same = bitwise_equal(img_m, img) and segs_m == segs
+            _log(f"[multichip] {name} {res[0]}x{res[1]} spp {spp} depth {DEPTH}, NCCL world "
+                 f"size 1: sharded {t_sharded:.3f} s against single-device {t_single:.3f} s, "
+                 f"{segs_m} segments, launches {kept} (single-device {l_single}); image and "
+                 f"segments bit for bit the single-device frame's: {same}")
+            if not same:
+                raise AssertionError(f"the sharded {name} frame differs from the single-device one")
+            if not only(l_sharded, **want) or l_sharded != l_single or not all(want.values()):
+                raise AssertionError(f"{name}: launches {l_sharded}, expected {want} "
+                                     f"(single-device {l_single})")
+            paths[f"multichip {name}"] = kept
+            refs[name] = (wd, cp, res, spp, img, segs)
+
+        n = RES[0] * RES[1]
+        acc = torch.randint(0, 1 << 40, (n, 3), dtype=torch.int64, device=device)
+        out = torch.empty_like(acc)
+        times = {"all_reduce": cuda_ms(lambda: dist.all_reduce(acc)),
+                 "all_gather_into_tensor": cuda_ms(lambda: dist.all_gather_into_tensor(out, acc)),
+                 "copy_": cuda_ms(lambda: out.copy_(acc))}
+        _log(f"[multichip] collectives on the {acc.numel() * 8 / 1e6:.1f} MB int64 "
+             f"accumulator, NCCL world size 1 (a single-rank copy on the card, no exchange), "
+             f"CUDA events: " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
+    finally:
+        dist.destroy_process_group()
+
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        multichip_cards(cells, refs, world_path, device, cards)
+    return paths, refs
+
+
+def multichip_cards(cells, refs, world_path, device, cards):
+    """The multi-card part of ``[multichip]``: one job of ``cards`` ranks
+    (``bench_torch.sharded_cells``) renders each cell of ``cells`` as
+    ``cards`` tiles and, with an even count, as (cards / 2) tiles x 2 spp;
+    rank 0's images must be ``refs``' bit for bit (the wavefront's spp
+    split within rtol 1e-5, atol 1e-6), with the same segments. Prints the
+    frames' seconds and the collectives' times between the cards."""
+    import torch
+
+    import bench_torch
+    from learn_path_tracing_tpu_torch.parallel import launch
+
+    runs = [(name, n_spp) for n_spp in ((1, 2) if cards % 2 == 0 else (1,))
+            for name in cells]
+    job = [(cells[name][6], name, cells[name][4], cells[name][5], n_spp)
+           for name, n_spp in runs]
+    t0 = time.perf_counter()
+    frames, collectives = launch.launch(
+        cards, bench_torch.sharded_cells, job, DEPTH, device, world_path,
+        os.path.dirname(os.path.abspath(world_path)), device=device)
+    _log(f"[multichip] the {cards}-card job ({len(job)} frames, their warm-ups and the "
+         f"collectives): {time.perf_counter() - t0:.1f} s")
+    for (name, n_spp), r in zip(runs, frames):
+        img, segs = refs[name][4:]
+        img = img.cpu()
+        shape = f"{cards // n_spp} tiles x {n_spp} spp"
+        if name == "wavefront" and n_spp > 1:
+            diff = float((r["image"] - img).abs().max())
+            ok = bool(torch.allclose(r["image"], img, rtol=1e-5, atol=1e-6))
+            detail = f"within rtol 1e-5, atol 1e-6 (max |diff| {diff:.3g})"
+        else:
+            ok = bitwise_equal(r["image"], img)
+            detail = "bit for bit"
+        ok = ok and r["segments"] == segs
+        _log(f"[multichip] {name} over {cards} cards ({shape}, NCCL): rank 0's frame "
+             f"{r['seconds']:.3f} s, {r['segments']} segments; the world-size-1 frame "
+             f"{detail}: {ok}")
+        if not ok:
+            raise AssertionError(f"the {cards}-card {name} frame ({shape}) differs")
+    w, h = job[0][2]
+    for shape, times in collectives.items():
+        _log(f"[multichip] collectives between {cards} cards, mesh {shape} (tiles x spp), "
+             f"int64 accumulator of {w}x{h}x3, rank 0, CUDA events: "
+             + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
+
+
+def multichip_split(refs):
+    """``[multichip split]``: the 2 tile x 2 spp split on one card. The
+    range-local integrators run each of the four (pixel range, sample
+    range) coordinates of each cell, and the four results are combined as
+    the collectives combine them (summed over spp, the tiles in order):
+    persistent and hybrid bit for bit the single-device frames of
+    ``multichip_phase``, the wavefront (its spp halves summed in another
+    f32 order) within rtol 1e-5, atol 1e-6; the segments equal."""
+    import torch
+
+    from learn_path_tracing_tpu_torch.integrator.hybrid import _hybrid_core
+    from learn_path_tracing_tpu_torch.integrator.persistent import _persistent_core, radiance
+    from learn_path_tracing_tpu_torch.integrator.wavefront import trace_sample_pixels
+
+    for name, (wd, cp, res, spp, ref, ref_segs) in refs.items():
+        n = res[0] * res[1]
+        nl, sl = n // 2, spp // 2
+
+        def core(p0, s0):
+            if name == "hybrid":
+                return _hybrid_core(wd, cp, res, nl, p0, s0, sl, DEPTH, 0, "legacy", "jitter",
+                                    0, 0, 0, 2)[:2]
+            if name == "persistent":
+                return _persistent_core(wd, cp, res, nl, p0, s0, sl, DEPTH, 0, "modern",
+                                        "thinlens", "spheres", "auto")[:2]
+            pix = torch.arange(p0, p0 + nl, device=cp.device)
+            acc, segs = torch.zeros((nl, 3), device=cp.device), 0
+            for k in range(sl):
+                rad, sg = trace_sample_pixels(wd, cp, res, pix, 0, s0 + k, DEPTH)
+                acc, segs = acc + rad, segs + sg
+            return acc, segs
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tiles, segments = [], 0
+        for t in range(2):
+            (a, sa), (b, sb) = core(t * nl, 0), core(t * nl, sl)
+            tiles.append(a + b)
+            segments += sa + sb
+        acc = torch.cat(tiles)
+        img = (acc / spp if name == "wavefront" else radiance(acc) / spp).reshape(*res, 3)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if name == "wavefront":
+            diff = float((img - ref).abs().max())
+            ok = bool(torch.allclose(img, ref, rtol=1e-5, atol=1e-6))
+            detail = f"within rtol 1e-5, atol 1e-6 (max |diff| {diff:.3g}): {ok}"
+        else:
+            ok = bitwise_equal(img, ref)
+            detail = f"bit for bit: {ok}"
+        ok = ok and segments == ref_segs
+        _log(f"[multichip split] {name} {res[0]}x{res[1]} spp {spp}, 2 tiles x 2 spp ranges "
+             f"on one card: {seconds:.3f} s, {segments} segments (single-device {ref_segs}); "
+             f"the single-device frame {detail}")
+        if not ok:
+            raise AssertionError(f"the 2x2 split of {name} differs from the single-device frame")
+
+
+def serve_phase(device, world_path):
+    """``[serve]``: the viewer's loop (``viewer.serve.serve``) in this
+    process on an ephemeral port, first on ``--scene spheres`` at its
+    defaults (640x360, spp 16, limit 10), then on the stand-in's
+    ``.world.npy`` with motion preview on (4 spp, limit 2). After each
+    frame: ``GET /frame.png`` (``X-Gen`` counts the frames), after the first
+    ``GET /`` too, and after frame 2 (spheres) or 3 (the stand-in) ``POST
+    /input {"move": "w"}``, after which ``X-Spp`` restarts at the full spp
+    (spheres) or the preview's. With the counts set to 0 just before each
+    loop: spheres launch K1 once per hit call and nothing else; the
+    stand-in K2 and K6a/K6b as its shading calls imply, and nothing else.
+    Prints each frame's ``X-Pass-Ms``. Returns the launches by path."""
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from learn_path_tracing_tpu_torch.viewer import serve
+
+    def loop(argv, frames, move_after):
+        pr, cam, warns = serve.setup(serve.parse_args(argv + ["--device", device]))
+        if warns:
+            raise AssertionError(f"the viewer's world fell back: {warns}")
+        state = serve.ViewerState()
+        srv = ThreadingHTTPServer(("127.0.0.1", 0), serve._make_handler(state))
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        seen = []
+
+        def on_frame(k):
+            r = urllib.request.urlopen(base + "/frame.png", timeout=30)
+            body = r.read()
+            if r.status != 200 or body[:4] != b"\x89PNG":
+                raise AssertionError(f"/frame.png: {r.status}, {body[:4]}")
+            seen.append((int(r.headers["X-Gen"]), int(r.headers["X-Spp"]),
+                         int(r.headers["X-Pass-Ms"])))
+            if k == 1 and urllib.request.urlopen(base + "/", timeout=30).status != 200:
+                raise AssertionError("GET / failed")
+            if k == move_after:
+                req = urllib.request.Request(base + "/input", data=b'{"move": "w"}',
+                                             method="POST")
+                if urllib.request.urlopen(req, timeout=30).status != 204:
+                    raise AssertionError("POST /input failed")
+
+        done, seconds, launches, hits, shading = counted_frame(
+            lambda: serve.serve(pr, cam, srv, state, max_frames=frames, on_frame=on_frame))
+        if done != frames or len(seen) != frames:
+            raise AssertionError(f"the viewer published {done} frames, served {len(seen)}")
+        return pr, seen, seconds, launches, hits, shading
+
+    out = {}
+    pr, seen, seconds, launches, hits, _ = loop(["--scene", "spheres", "--port", "0"], 4, 2)
+    want = [(1, 16), (2, 32), (3, 16), (4, 32)]
+    _log(f"[serve] spheres 640x360 spp 16 limit 10: frames (X-Gen, X-Spp, X-Pass-Ms) {seen}, "
+         f"loop {seconds:.3f} s, launches {launches} for {hits} hit calls")
+    if [s[:2] for s in seen] != want or not only(launches, k1=hits) or not hits:
+        raise AssertionError(f"serve spheres: frames {seen} (want {want}), {launches}")
+    out["serve spheres"] = {"k1": launches["k1"]}
+
+    pr, seen, seconds, launches, hits, shading = loop(["--scene", world_path, "--port", "0"],
+                                                      5, 3)
+    want = [(1, 4), (2, 16), (3, 32), (4, 4), (5, 16)]
+    gathers = expected_gathers(pr.world_data, shading)
+    _log(f"[serve] stand-in 640x360 spp 16 limit 10, preview 4 spp limit 2: frames (X-Gen, "
+         f"X-Spp, X-Pass-Ms) {seen}, loop {seconds:.3f} s, launches {launches}, row gathers "
+         f"expected {gathers}")
+    if ([s[:2] for s in seen] != want or not launches["k2"]
+            or not only(launches, k2=launches["k2"], **gathers) or not all(gathers.values())):
+        raise AssertionError(f"serve mesh: frames {seen} (want {want}), {launches}")
+    out["serve mesh"] = {k: launches[k] for k in ("k2", "k6a", "k6b")}
+    return out
+
+
+def multichip_only(device, directory):
+    """``--multichip``: the stand-in world built and saved, ``[multichip]``
+    (its world-size-1 cells, then, with more than one card, each cell on
+    every card against them), and ``python -m learn_path_tracing_tpu_torch
+    multichip --nproc <cards> --device cuda`` as a subprocess (must exit
+    0)."""
+    world = standin_world(directory)
+    _build_quiet(world, device=device)
+    path = os.path.join(directory, "standin.world.npy")
+    world.save(path)
+    multichip_phase(device, path)
+    multichip_cli()
+
+
+def multichip_cli():
+    """``python -m learn_path_tracing_tpu_torch multichip --nproc <cards>``
+    as a subprocess from the checkout's root (the dry run, one NCCL rank a
+    card, started by ``parallel.launch``); it must exit 0."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "learn_path_tracing_tpu_torch", "multichip",
+                           "--nproc", str(cards), "--device", "cuda"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=600)
+    _log(f"[multichip cli] --nproc {cards}: exit code {proc.returncode} in "
+         f"{time.time() - t0:.2f} s: {(proc.stdout + proc.stderr).strip()[-2000:]}")
+    if proc.returncode != 0:
+        raise AssertionError("python -m learn_path_tracing_tpu_torch multichip failed")
+
+
 def _timed(table, name, fn):
     """``fn`` wrapped to add its synchronised wall ms and one call to
     ``table[name]``."""
@@ -2168,17 +2574,20 @@ def packet_times(device, directory):
 
 
 def build_kernels():
-    """Build every kernel at once (one nvcc per source, in parallel) and
-    print ptxas's register, memory and spill lines."""
+    """Build every kernel at once (one nvcc per source, in parallel, and the
+    native BVH builder's g++ beside them) and print ptxas's register,
+    memory and spill lines."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from learn_path_tracing_tpu_torch.accel import native
     from learn_path_tracing_tpu_torch.ops import (bounce_megakernel, build, packet_traverse,
                                                   row_gather, sphere_scan)
 
     loaders = {"sphere_scan": sphere_scan.load_kernel,
                "packet_traverse": packet_traverse.load_kernel,
                "bounce_megakernel": bounce_megakernel.load_kernel,
-               "row_gather": row_gather.load_kernel}
+               "row_gather": row_gather.load_kernel,
+               "bvh_builder (g++)": native.load}
     t0 = time.time()
     with ThreadPoolExecutor(len(loaders)) as pool:
         for fut in [pool.submit(fn) for fn in loaders.values()]:
@@ -2195,6 +2604,8 @@ def main(argv=None) -> int:
 
     import torch
 
+    from learn_path_tracing_tpu_torch.accel import native
+
     ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     ap.add_argument("--profile-mesh", action="store_true",
                     help="only profile the stand-in mesh frame (see mesh_profile)")
@@ -2202,6 +2613,9 @@ def main(argv=None) -> int:
                     help="only check and time the packet kernels (see packet_times)")
     ap.add_argument("--packet-version", type=int, choices=(1, 2, 3), default=2,
                     help="the mesh traversal kernel of --profile-mesh (2: K2, 1: K5a, 3: K5b)")
+    ap.add_argument("--multichip", action="store_true",
+                    help="only the sharded cells on every card and the CLI's multichip dry "
+                         "run (see multichip_only)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2211,6 +2625,11 @@ def main(argv=None) -> int:
          f"python {sys.version.split()[0]}, devices {torch.cuda.device_count()}")
     device = "cuda"
     build_kernels()
+    if args.multichip:
+        with tempfile.TemporaryDirectory() as directory:
+            multichip_only(device, directory)
+        print(card)
+        return 0
     if args.profile_mesh or args.packet_times:
         with tempfile.TemporaryDirectory() as directory:
             if args.profile_mesh:
@@ -2227,18 +2646,22 @@ def main(argv=None) -> int:
     check_gpu_vs_cpu(device)
     check_mega_gpu_vs_cpu(device)
     s10_k1 = stage10_cli(device)
+    native_bvh_phase()
     with tempfile.TemporaryDirectory() as directory:
         t0 = time.time()
         mesh_world = standin_world(directory)
+        native.builds = 0
         with warnings.catch_warnings():
             warnings.simplefilter("error")   # its PBR set and EXR must load
             mesh_wd = mesh_world.build(device=device)
         if mesh_wd.env_gradient_h is not None:
             raise AssertionError("the stand-in's EXR environment did not load")
+        if not native.builds:
+            raise AssertionError("the stand-in's BVH was not built by the native builder")
         tri = mesh_wd.meshes[0]
         _log(f"[stand-in] {tri.tex.shape[0]} triangles, {tri.packet[0].shape[0]} wide nodes, "
              f"{tri.packet[2].shape[0]} run rows, stack {tri.stack}; built in "
-             f"{time.time() - t0:.2f} s")
+             f"{time.time() - t0:.2f} s ({native.builds} native BVH build)")
         tri_kernels, tri_device_times = check_packet(mesh_wd, tri.packet, tri.stack, "tri",
                                                      device, seed=7)
         gather_kernels, gather_device_times = check_row_gather(mesh_wd, device)
@@ -2260,9 +2683,14 @@ def main(argv=None) -> int:
         viewer_wavefront(mesh_world, device)
         l13_phase(device, directory)
         # the kernels of each further path, as that path's run counted them
-        paths = {"bench stand-in": bench_standin(mesh_world, device,
-                                                 os.path.join(directory, "standin.world.npy")),
+        world_path = os.path.join(directory, "standin.world.npy")
+        paths = {"bench stand-in": bench_standin(mesh_world, device, world_path),
                  "l15": l15_phase(device, directory)}
+        mc_paths, refs = multichip_phase(device, world_path)
+        paths.update(mc_paths)
+        multichip_split(refs)
+        del refs
+        paths.update(serve_phase(device, world_path))
     paths["stage 10 cli"] = {"k1": s10_k1}
     paths["l11"] = l11_phase(device)
     paths["l12"] = {"k3": l12_phase(device)}
@@ -2282,6 +2710,7 @@ def main(argv=None) -> int:
     sph_device_times()
     gather_device_times()
     cli_smoke()
+    multichip_cli()
 
     print(card)
     print(json.dumps({"kernels": [k1, mesh_kernels["k2"], k3, k4, mesh_kernels["k5a"],

@@ -5,14 +5,18 @@ Commands:
   stages                             list available stages
   smoke                              device smoke test (legacy/test.py analog)
   bench [...]                        run the benchmark (bench_torch.py)
+  multichip --nproc N [--device D]   multi-device dry run (parallel.dryrun)
 
-Every command runs on the card; ``render`` and ``bench`` take ``--device
-cpu`` to run on the CPU instead.
+Every command runs on the card; ``render``, ``bench`` and ``multichip`` take
+``--device cpu`` to run on the CPU instead. ``multichip`` starts one rank a
+card (NCCL) on the card, or N gloo ranks on the CPU.
 """
 
 from __future__ import annotations
 
+import argparse
 import importlib
+import json
 import runpy
 import sys
 from pathlib import Path
@@ -64,6 +68,19 @@ def main(argv=None) -> int:
 
     if cmd == "bench":
         return runpy.run_path(str(BENCH))["main"](argv)
+
+    if cmd == "multichip":
+        from .parallel.dryrun import dryrun_multichip
+
+        p = argparse.ArgumentParser(prog="multichip", description="multi-device dry run")
+        p.add_argument("--nproc", type=int, required=True,
+                       help="ranks; on cuda at most one a card")
+        p.add_argument("--device", default="cuda", help="cuda (NCCL) or cpu (gloo)")
+        a = p.parse_args(argv)
+        report = dryrun_multichip(a.nproc, a.device)
+        print(json.dumps(report))
+        print(f"dryrun_multichip({a.nproc}) ok")
+        return 0
 
     print(f"unknown command {cmd!r}")
     return 2

@@ -1,8 +1,8 @@
-"""Host-side sweep-SAH BVH construction (numpy).
+"""Host-side sweep-SAH BVH construction.
 
-Counterpart of ``learn_path_tracing_tpu.accel.bvh`` on its numpy path (the
-JAX package may also build with native C++ code; its test pins that both give
-identical arrays, so this module reproduces either byte for byte):
+Counterpart of ``learn_path_tracing_tpu.accel.bvh``: the numpy builder here
+and the native C++ builder of ``accel.native`` give the same arrays byte for
+byte (as the JAX package's two builders do):
 
 - per node, per axis: stable argsort of primitive centroids, prefix/suffix
   AABB accumulations, cost = n0*area0 + n1*area1 (half-surface areas),
@@ -79,10 +79,17 @@ def _split_node(idx, plow, phigh, centroid):
 
 
 def build_bvh(plow, phigh, centroid=None, max_depth: int = 16,
-              max_leaf: int = 4) -> FlatBVH:
+              max_leaf: int = 4, backend: str = "auto") -> FlatBVH:
     """Build a FlatBVH over primitives with per-primitive AABBs
     ``plow/phigh: f32[N,3]`` (spheres: center∓radius; triangles: vertex
-    min/max). ``centroid`` defaults to the AABB center."""
+    min/max). ``centroid`` defaults to the AABB center.
+
+    ``backend``: 'native' runs the C++ builder (``accel.native``, built at
+    first use; raises ``RuntimeError`` where it cannot be built), 'numpy'
+    the numpy one, and 'auto' (the JAX package's rule) the native builder
+    where it builds and numpy otherwise. The arrays are the same."""
+    if backend not in ("auto", "numpy", "native"):
+        raise ValueError(f"unknown BVH builder backend: {backend!r}")
     plow = np.asarray(plow, np.float32)
     phigh = np.asarray(phigh, np.float32)
     if centroid is None:
@@ -91,6 +98,20 @@ def build_bvh(plow, phigh, centroid=None, max_depth: int = 16,
     n = plow.shape[0]
     if n == 0:
         raise ValueError("empty primitive set")
+
+    if backend != "numpy":
+        from .native import build_bvh_native
+
+        try:
+            left, right, low, high, data, cut, prim = build_bvh_native(
+                plow, phigh, centroid, max_depth, max_leaf)
+        except RuntimeError:
+            if backend == "native":
+                raise
+        else:
+            return FlatBVH(left=left, right=right, low=low, high=high, data=data, cut=cut,
+                           prim=prim, max_depth=int(max_depth),
+                           max_leaf=int((cut[1:] - cut[:-1]).max(initial=1)))
 
     nodes = []  # [left, right, low, high, data]
     queue = []  # (depth, idx array), aligned with nodes

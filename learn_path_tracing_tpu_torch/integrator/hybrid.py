@@ -47,6 +47,7 @@ from ..bsdf.bsdf import SCATTERERS
 from ..camera.camera import CameraParams, generate_rays_for_pixels
 from ..core import rng
 from ..core.types import Rays
+from .persistent import radiance
 from .wavefront import _scene_fns
 
 _FIXED_ONE = 2.0 ** 32  # fixed-point accumulator units per unit radiance (persistent.py)
@@ -86,26 +87,31 @@ def render_hybrid(world_data, cam: CameraParams, resolution, spp: int,
         raise ValueError("render_hybrid targets legacy mesh scenes; use "
                          "render_persistent for sphere scenes")
     w, h = resolution
-    acc, segments, st = _hybrid_core(world_data, cam, resolution, spp, limit,
-                                     seed, bsdf, camera_model, chunk_spp, cap,
-                                     pool_w, drain_ratio, sample_base)
-    img = ((acc.to(torch.float64) / _FIXED_ONE).to(torch.float32) / spp).reshape(w, h, 3)
+    acc, segments, st = _hybrid_core(world_data, cam, resolution, w * h, 0, sample_base,
+                                     spp, limit, seed, bsdf, camera_model, chunk_spp,
+                                     cap, pool_w, drain_ratio)
+    img = (radiance(acc) / spp).reshape(w, h, 3)
     if stats:
         return img, segments, st
     return img, segments
 
 
-def _hybrid_core(world_data, cam: CameraParams, resolution, spp: int,
-                 limit: int, seed, bsdf: str, camera_model: str,
-                 chunk_spp: int, cap: int, pool_w: int, drain_ratio: int,
-                 sample_base: int):
-    """Hybrid render of every pixel of ``resolution`` for samples
-    ``[sample_base, sample_base + spp)``. Returns ``(acc int64[n, 3]
-    fixed-point radiance sums, segments int, stats dict)``."""
+def _hybrid_core(world_data, cam: CameraParams, resolution, n: int, pixel_base: int,
+                 sample_base: int, spp: int, limit: int, seed, bsdf: str,
+                 camera_model: str, chunk_spp: int, cap: int, pool_w: int,
+                 drain_ratio: int):
+    """Hybrid render over a pixel range and a sample range: samples
+    ``[sample_base, sample_base + spp)`` of pixels ``[pixel_base,
+    pixel_base + n)`` of the ``resolution`` image. Slabs, pool, merges and
+    deposits are local to the range (work item ``wid = local pixel * spp +
+    local sample``; ``acc`` row ``i`` is pixel ``pixel_base + i``; the auto
+    ``chunk_spp``, ``cap`` and ``pool_w`` are sized from ``n``), and the
+    camera and the RNG key on absolute ids, so a range's samples are those
+    of the whole render: ``parallel.mesh`` runs one range a rank. Returns
+    ``(acc int64[n, 3] fixed-point radiance sums, segments int, stats
+    dict)``."""
     from ..scene.legacy_world import shade_from_trace, trace_legacy, trace_shade_compact
 
-    w, h = resolution
-    n = w * h
     dev = cam.device
     if chunk_spp <= 0:
         chunk_spp = 1
@@ -133,8 +139,9 @@ def _hybrid_core(world_data, cam: CameraParams, resolution, spp: int,
         acc.index_add_(0, wid // spp, _fixed(rad))
 
     def regen(wid):
-        """Primary rays of work items ``wid`` (pixel-major: wid = pixel*spp + sample)."""
-        pixel, sample = wid // spp, wid % spp + sample_base
+        """Primary rays of work items ``wid`` (pixel-major: wid = pixel*spp +
+        sample), with their absolute pixel and sample ids."""
+        pixel, sample = wid // spp + pixel_base, wid % spp + sample_base
         return generate_rays_for_pixels(cam, resolution, pixel, seed, sample,
                                         model=camera_model), pixel, sample
 
@@ -166,7 +173,7 @@ def _hybrid_core(world_data, cam: CameraParams, resolution, spp: int,
         escaped = alive & ~hits.hit
         env = background_fn(world_data, rd_c, escaped)
         rad = rad + torch.where(escaped[:, None], env * th, 0.0)
-        pixel = wid // spp
+        pixel = wid // spp + pixel_base
         sample = wid % spp + sample_base
         base = rng.base(rng.stream(seed, sample, bounce, rng.STREAM_BSDF), pixel)
         sc = scatter(Rays(ro=hits.point, rd=rd_c, throughput=th, alive=alive), hits, base)

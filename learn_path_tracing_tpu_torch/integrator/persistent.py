@@ -142,7 +142,7 @@ def item_fn(sched: Schedule, n: int, spp: int, device):
 
 
 def step(world_data, rays, k, bounce, item_of, *, hit, background, scatter, primary,
-         seed, limit: int):
+         seed, limit: int, pixel_base: int = 0, sample_base: int = 0):
     """One bounce pass of a lane wavefront, the one step of both engines.
 
     ``hit(world_data, rays) -> Hits``, ``background(world_data, rd, escaped)
@@ -152,6 +152,10 @@ def step(world_data, rays, k, bounce, item_of, *, hit, background, scatter, prim
     bounce budget) advance to their next work item and start its primary
     ray. Returns ``(rays', k', bounce', pixel, contrib, hits)``: ``contrib``
     is the escaped radiance, due at ``pixel``, the item before the advance.
+
+    ``item_of``'s pixels and samples are local to a range that starts at
+    ``pixel_base`` and ``sample_base``; the BSDF stream keys on the
+    absolute ids (``primary`` takes the local ones and offsets them too).
     """
     _, pixel, sample = item_of(k)
     hits = hit(world_data, rays)
@@ -159,7 +163,8 @@ def step(world_data, rays, k, bounce, item_of, *, hit, background, scatter, prim
     contrib = torch.where(
         escaped[:, None], background(world_data, rays.rd, escaped) * rays.throughput, 0.0)
 
-    base = rng.base(rng.stream(seed, sample, bounce, rng.STREAM_BSDF), pixel)
+    base = rng.base(rng.stream(seed, sample + sample_base, bounce, rng.STREAM_BSDF),
+                    pixel + pixel_base)
     scattered = scatter(rays, hits, base)
     survived = rays.alive & hits.hit & (bounce + 1 < limit)
 
@@ -201,37 +206,50 @@ def render_persistent(world_data, cam: CameraParams, resolution, spp: int,
         acc, segments, st = _render_mega(world_data, cam, resolution, spp, limit, seed)
     elif engine in ("auto", "modular"):
         acc, segments, st = _persistent_core(
-            world_data, cam, resolution, spp, limit, seed, bsdf, camera_model,
-            scene, hit_backend, schedule(w * h, spp))
+            world_data, cam, resolution, w * h, 0, 0, spp, limit, seed, bsdf,
+            camera_model, scene, hit_backend)
     else:
         raise ValueError(f"unknown engine: {engine!r}")
-    img = (acc / spp).reshape(w, h, 3)
+    img = (radiance(acc) / spp).reshape(w, h, 3)
     if stats:
         return img, segments, st
     return img, segments
 
 
-def _persistent_core(world_data, cam: CameraParams, resolution, spp: int,
-                     limit: int, seed, bsdf: str, camera_model: str,
-                     scene: str, hit_backend: str, sched: Schedule):
-    """Persistent render of every pixel and sample of ``resolution``.
-    Returns ``(acc f32[n, 3] radiance sums, segments int, stats dict)``."""
-    w, h = resolution
-    n = w * h
+def radiance(acc):
+    """Radiance sums f32 from a fixed-point accumulator (int64, 2**-32 units),
+    as every engine rounds them."""
+    return (acc.to(torch.float64) / _FIXED_ONE).to(torch.float32)
+
+
+def _persistent_core(world_data, cam: CameraParams, resolution, n: int,
+                     pixel_base: int, sample_base: int, spp: int, limit: int,
+                     seed, bsdf: str, camera_model: str, scene: str,
+                     hit_backend: str):
+    """Persistent render over a pixel range and a sample range: samples
+    ``[sample_base, sample_base + spp)`` of pixels ``[pixel_base,
+    pixel_base + n)`` of the ``resolution`` image. The schedule, the drain
+    cascade and the accumulator are local to the range (``schedule(n,
+    spp)``; ``acc`` row ``i`` is pixel ``pixel_base + i``), and the camera
+    and the RNG key on absolute ids, so a range's samples are those of the
+    whole render: ``parallel.mesh`` runs one range a rank. Returns ``(acc
+    int64[n, 3] fixed-point radiance sums, segments int, stats dict)``."""
+    sched = schedule(n, spp)
     dev = cam.device
     hit_fn, background_fn = _scene_fns(scene)
     item_of = item_fn(sched, n, spp, dev)
     lanes = torch.arange(sched.pool, dtype=torch.int64, device=dev)
 
     def primary(pixel, sample):
-        return generate_rays_for_pixels(cam, resolution, pixel, seed, sample,
-                                        model=camera_model)
+        return generate_rays_for_pixels(cam, resolution, pixel + pixel_base, seed,
+                                        sample + sample_base, model=camera_model)
 
     def hit(wd, rays):
         return hit_fn(wd, rays, hit_backend)
 
     fns = dict(hit=hit, background=background_fn, scatter=SCATTERERS[bsdf],
-               primary=primary, seed=seed, limit=limit)
+               primary=primary, seed=seed, limit=limit, pixel_base=pixel_base,
+               sample_base=sample_base)
 
     acc = torch.zeros((n, 3), dtype=torch.int64, device=dev)
 
@@ -274,8 +292,7 @@ def _persistent_core(world_data, cam: CameraParams, resolution, spp: int,
         segments += segs
         drain_passes.append(lvl_passes)
 
-    acc_f32 = (acc.to(torch.float64) / _FIXED_ONE).to(torch.float32)
-    return acc_f32, segments, {
+    return acc, segments, {
         "pool": sched.pool,
         "passes_full": passes_full,
         "drain_widths": levels,
@@ -302,7 +319,7 @@ def _render_mega(world_data, cam: CameraParams, resolution, spp: int, limit: int
     lives, one ``mega_pass`` over the list of lanes that can still change
     (``ops.bounce_megakernel.LaneList``) advances them in place and deposits
     their escaped radiance into the fixed-point accumulator. Returns
-    ``(acc f32[n,3], segments int, {"passes": int, "listed": [int]})``, where
+    ``(acc int64[n,3], segments int, {"passes": int, "listed": [int]})``, where
     ``listed`` holds the lanes each pass visited."""
     w, h = resolution
     n = w * h
@@ -317,8 +334,7 @@ def _render_mega(world_data, cam: CameraParams, resolution, spp: int, limit: int
         mega_pass(stf, sti, world_data, scalf, seed, resolution, spp, lanes, limit=limit,
                   acc=acc)
         live = lanes.advance()
-    acc_f32 = (acc.to(torch.float64) / _FIXED_ONE).to(torch.float32)
-    return acc_f32, segments, {"passes": len(listed), "listed": listed}
+    return acc, segments, {"passes": len(listed), "listed": listed}
 
 
 def mega_pass(stf, sti, world_data, scalf, seed, resolution, spp: int, lanes,

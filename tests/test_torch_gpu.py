@@ -525,3 +525,50 @@ def test_checked_trace_around_a_card_render(cuda):
     x = torch.ones(8, device=cuda)
     with pytest.raises(FloatingPointError, match="aten.sqrt"):
         checked_trace(lambda v: torch.nan_to_num(torch.sqrt(v - 2.0)), x)
+
+
+def test_nccl_world_size_one_sharded_hybrid_equals_render_hybrid(cuda):
+    """``render_hybrid_multichip`` over an NCCL group of one rank on the
+    card: bit for bit ``render_hybrid``'s frame, the same segments, and the
+    traversal kernel (K2) launched once per traversal call."""
+    import torch.distributed as dist
+
+    from learn_path_tracing_tpu_torch.parallel import launch, mesh
+    from learn_path_tracing_tpu_torch.parallel.dryrun import RES, legacy_mini_world
+
+    world, cam = legacy_mini_world()
+    wd, cp = world.device(cuda), cam.params(cuda)
+    ref, ref_segs = render_hybrid(wd, cp, RES, spp=8, limit=8)
+    launch.init_group(0, 1, cuda, port=launch.free_port())
+    try:
+        m = mesh.make_mesh(1, 1)
+        tpt.traverse.launches.update(dict.fromkeys(tpt.traverse.launches, 0))
+        img, segs = mesh.render_hybrid_multichip(wd, cp, RES, 8, m, limit=8)
+        assert tpt.traverse.launches["k2"] > 0
+    finally:
+        dist.destroy_process_group()
+    assert segs == ref_segs and torch.equal(img, ref)
+
+
+def test_viewer_loop_serves_a_frame_on_the_card(cuda):
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from learn_path_tracing_tpu_torch.viewer import serve
+
+    args = serve.parse_args(["--scene-size", "1", "--width", "64", "--height", "36",
+                             "--spp", "2", "--limit", "4"])
+    pr, cam, _ = serve.setup(args)
+    assert pr.device.type == "cuda"
+    state = serve.ViewerState()
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), serve._make_handler(state))
+    got = []
+
+    def on_frame(frames):
+        r = urllib.request.urlopen(f"http://127.0.0.1:{srv.server_address[1]}/frame.png",
+                                   timeout=10)
+        got.append((r.status, r.headers["X-Gen"], r.read()[:4]))
+
+    tss.intersect_spheres_scan.launches = 0
+    assert serve.serve(pr, cam, srv, state, max_frames=1, on_frame=on_frame) == 1
+    assert got == [(200, "1", b"\x89PNG")] and tss.intersect_spheres_scan.launches > 0

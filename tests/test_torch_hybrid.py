@@ -127,7 +127,8 @@ def test_sample_base_accumulates_exactly(wd):
     cam = _cam().params()
 
     def core(spp, base):
-        return _hybrid_core(wd, cam, RES, spp, 6, 9, "legacy", "thinlens", 0, 0, 0, 2, base)
+        return _hybrid_core(wd, cam, RES, RES[0] * RES[1], 0, base, spp, 6, 9, "legacy",
+                            "thinlens", 0, 0, 0, 2)
 
     full, fsegs, _ = core(4, 0)
     a, sa, _ = core(2, 0)
