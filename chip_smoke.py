@@ -68,7 +68,12 @@ Phases:
    surface and exactly axis-parallel rays (which K5a hits and K2 misses),
    bitwise in ``(t, prim)``, then timed in turns in lane order and in
    coherence-sorted order with their mean pops per ray; K3 on the first
-   four kinds of ray sets over the 8,192 spheres, bitwise; K6a and K6b at
+   four kinds of ray sets over the 8,192 spheres, bitwise; then, after the
+   K3 path of 5., ``[lockstep walks]`` holds K2 and K3 to the port's plain
+   lockstep walks (``accel.traverse.traverse``, ``accel.wide.traverse_wide``)
+   over the trees the tables were packed from, on every 32nd primary ray,
+   at the JAX package's bounds for the packed triangle form, and times each
+   walk with its step count (``lockstep_phase``); K6a and K6b at
    ``scripts/profile_gather2.py``'s shapes (231,424 random and sorted
    indices into f32 [23,425 x 32] and bf16 [1,122,305 x 256]), on the
    stand-in's four gathered tables with one headline shading call's
@@ -1061,6 +1066,21 @@ def _build_quiet(world, **kw):
         return world.build(**kw)
 
 
+def primary_slab(device, stride=1):
+    """The primary slab of render_hybrid's first chunk on the l14 camera
+    (pixel-major), every ``stride``-th ray: ``(rays, pixel, sample)``."""
+    import torch
+
+    from learn_path_tracing_tpu_torch.camera.camera import generate_rays_for_pixels
+
+    n = MESH_RES[0] * MESH_RES[1]
+    lanes = torch.arange(0, n * MESH_CHUNK, stride, dtype=torch.int64, device=device)
+    pixel, sample = lanes // MESH_CHUNK, lanes % MESH_CHUNK
+    cam = l14_camera(MESH_RES).params(device)
+    return (generate_rays_for_pixels(cam, MESH_RES, pixel, 0, sample, model="jitter"),
+            pixel, sample)
+
+
 def traversal_sets(wd, tables, stack, leaf_kind, device, seed):
     """Ray sets for a packet-kernel check, at the mesh path's shapes:
     ``{name: (ro, rd, t_init, active)}``. The bounce set is traced with
@@ -1071,17 +1091,11 @@ def traversal_sets(wd, tables, stack, leaf_kind, device, seed):
     import torch
 
     from learn_path_tracing_tpu_torch.bsdf.bsdf import scatter_legacy
-    from learn_path_tracing_tpu_torch.camera.camera import generate_rays_for_pixels
     from learn_path_tracing_tpu_torch.core import rng
     from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
     from learn_path_tracing_tpu_torch.scene.legacy_world import shade_from_trace
 
-    # the primary slab of render_hybrid's first chunk (pixel-major)
-    n = MESH_RES[0] * MESH_RES[1]
-    lanes = torch.arange(n * MESH_CHUNK, dtype=torch.int64, device=device)
-    pixel, sample = lanes // MESH_CHUNK, lanes % MESH_CHUNK
-    cam = l14_camera(MESH_RES).params(device)
-    prim = generate_rays_for_pixels(cam, MESH_RES, pixel, 0, sample, model="jitter")
+    prim, pixel, sample = primary_slab(device)
     inf = torch.full((prim.count,), float("inf"), device=device)
     sets = {"primary": (prim.ro, prim.rd, inf, prim.alive)}
 
@@ -1170,9 +1184,9 @@ def shading_calls():
         counts["attrs"] += point.shape[0] > 0
         return attrs(world, point, *args)
 
-    def env_counted(world, rd, mask=None):
-        counts["env"] += world.env_gradient_h is None and rd.shape[0] > 0
-        return env(world, rd, mask=mask)
+    def env_counted(envs, env_id, rd, mask=None, gradient_h=None):
+        counts["env"] += gradient_h is None and rd.shape[0] > 0
+        return env(envs, env_id, rd, mask=mask, gradient_h=gradient_h)
 
     lw._attrs_block, lw.environment_color = attrs_counted, env_counted
     try:
@@ -1311,6 +1325,101 @@ def check_packet(wd, tables, stack, leaf_kind, device, seed):
                  f"{e['bound_ms'] / e['device_ms']:.3f} of the bound")
 
     return out, device_times
+
+
+LOCKSTEP_STRIDE = 32   # the walks' rays: every 32nd of the primary slab, 57,600
+
+
+def lockstep_phase(mesh_wd, sph_wd, device):
+    """``[lockstep walks]``: the port's plain lockstep walks
+    (``accel.traverse.traverse`` and ``accel.wide.traverse_wide``, no
+    kernel) over the trees the stand-in mesh's and the sphere world's
+    tables were packed from (the device data's ``bvh`` and ``wide``), with
+    the geometry leaf tests, on every ``LOCKSTEP_STRIDE``-th ray of the
+    primary slab. They share no table or arithmetic with K2/K3, so they are
+    an independent check of them (each run once more here; those launches
+    are not the path's):
+
+    - K2 against each walk: hit masks equal, ``t`` within rtol 1e-4 / atol
+      1e-5, ``prim`` equal on at least 95 % of hits (the packed coefficients
+      against ``triangle_t``, ``tests/test_packet_traverse.py:62-65``); rays
+      with a zero direction component are left out (K2's hoisted slab form
+      misses them on purpose);
+    - K3 against each walk: hit masks equal, ``t`` within rtol 1e-5 / atol
+      1e-6, ``prim`` equal except on ties (the two spheres' ``t`` within
+      that bound);
+    - the binary walk against the wide one: ``tests/test_wide_bvh.py:58-61``'s
+      bounds (rtol 1e-6 / atol 1e-7, ``prim`` equal) except on exact ties
+      (the two primitives' ``t`` equal: the walks take the first found).
+
+    Prints each walk's CUDA-event time and step count; raises on a bound."""
+    import torch
+
+    from learn_path_tracing_tpu_torch.accel.traverse import (make_sphere_leaf_test,
+                                                             make_triangle_leaf_test, traverse)
+    from learn_path_tracing_tpu_torch.accel.wide import collapse, traverse_wide
+    from learn_path_tracing_tpu_torch.geometry.sphere import sphere_t
+    from learn_path_tracing_tpu_torch.geometry.triangle import triangle_t
+    from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
+
+    prim, _, _ = primary_slab(device, LOCKSTEP_STRIDE)
+    mesh, sph = mesh_wd.meshes[0], sph_wd.spheres
+    cases = (
+        ("k2", "tri", mesh, mesh.wide, make_triangle_leaf_test(mesh.v0, mesh.v1, mesh.v2),
+         lambda i, o, d: triangle_t(mesh.v0[i], mesh.v1[i], mesh.v2[i], o, d),
+         (1e-4, 1e-5)),
+        ("k3", "sphere", sph, collapse(sph.bvh),
+         make_sphere_leaf_test(sph.center, sph.radius, sph.transparency),
+         lambda i, o, d: sphere_t(sph.center[i], sph.radius[i], sph.transparency[i], o, d),
+         (1e-5, 1e-6)))
+    for kernel, kind, data, wide, leaf_test, pair_t, (rtol, atol) in cases:
+        ro, rd = prim.ro, prim.rd
+        if kind == "tri":
+            keep = (rd != 0).all(dim=1)
+            ro, rd = ro[keep].contiguous(), rd[keep].contiguous()
+        n = ro.shape[0]
+        inf = torch.full((n,), float("inf"), device=device)
+        t_k, p_k, _ = pt.traverse(*data.packet, ro, rd, inf, torch.ones_like(inf, dtype=bool),
+                                  leaf_kind=kind, stack=data.stack)
+        hit = p_k >= 0
+
+        def tied(p_a, p_b, rtol=rtol, atol=atol):
+            """Rays whose two primitives' ``t`` agree within the bounds."""
+            a, b = (pair_t(torch.clamp_min(p, 0).long(), ro, rd) for p in (p_a, p_b))
+            return torch.isclose(a, b, rtol=rtol, atol=atol)
+
+        walks = {}
+        for name, fn, tree in (("traverse", traverse, data.bvh),
+                               ("traverse_wide", traverse_wide, wide)):
+            t_w, p_w, steps = fn(tree, ro, rd, leaf_test, stats=True)
+            ms = cuda_ms(lambda fn=fn, tree=tree: fn(tree, ro, rd, leaf_test), iters=3,
+                         warmup=1)
+            walks[name] = (t_w, p_w)
+            both = hit & torch.isfinite(t_w)
+            masks = int((hit != torch.isfinite(t_w)).sum())
+            t_ok = bool(torch.allclose(t_w[both], t_k[both], rtol=rtol, atol=atol))
+            err = float((t_w[both] - t_k[both]).abs().max()) if bool(both.any()) else 0.0
+            differ = both & (p_w != p_k)
+            untied = int((differ & ~tied(p_w, p_k)).sum())
+            agree = 1.0 - int(differ.sum()) / max(int(both.sum()), 1)
+            _log(f"[lockstep walks] {kind}: {name} over {tree.prim.shape[0]} primitives, "
+                 f"{n} primary rays: {ms:.3f} ms (CUDA events, median of 3), {steps} "
+                 f"lockstep steps; against {kernel}: hit rate {float(hit.float().mean()):.4f}, "
+                 f"hit/miss mismatches {masks}, max |dt| {err:.3g} (within rtol {rtol:g} / "
+                 f"atol {atol:g}: {t_ok}), prim agreement {agree:.6f} ({untied} off ties)")
+            prim_ok = agree >= 0.95 if kind == "tri" else untied == 0
+            if masks or not t_ok or not prim_ok:
+                raise AssertionError(f"{kernel} and the {name} walk disagree ({kind})")
+        (t_b, p_b), (t_w, p_w) = walks["traverse"], walks["traverse_wide"]
+        both = torch.isfinite(t_b)
+        masks = int((both != torch.isfinite(t_w)).sum())
+        t_ok = bool(torch.allclose(t_b[both], t_w[both], rtol=1e-6, atol=1e-7))
+        untied = int((both & (p_b != p_w) & ~tied(p_b, p_w, 0.0, 0.0)).sum())
+        _log(f"[lockstep walks] {kind}: traverse against traverse_wide: hit/miss mismatches "
+             f"{masks}, t within rtol 1e-6 / atol 1e-7: {t_ok}, prim mismatches "
+             f"{int((both & (p_b != p_w)).sum())} ({untied} off ties)")
+        if masks or not t_ok or untied:
+            raise AssertionError(f"the binary and wide walks disagree ({kind})")
 
 
 def check_mesh_gpu_vs_cpu(device, directory):
@@ -2676,6 +2785,7 @@ def main(argv=None) -> int:
                                                      device, seed=8)
         k3 = sph_kernels["k3"]
         k3["launches"] = sphere_path(sph_wd, device)
+        lockstep_phase(mesh_wd, sph_wd, device)
 
         check_mesh_gpu_vs_cpu(device, directory)
         for kernel, launches in mesh_headline(mesh_world, device, directory).items():

@@ -40,6 +40,10 @@ class FlatBVH:
     max_depth: int
     max_leaf: int
 
+    @property
+    def n_nodes(self) -> int:
+        return self.left.shape[0]
+
 
 def _half_area(low, high):
     size = np.maximum(high - low, 0.0)

@@ -80,6 +80,16 @@ def load() -> ctypes.CDLL:
         return lib
 
 
+def native_available() -> bool:
+    """True when the builder library loads (compiling it if needed). A
+    ``False`` here leaves ``build_bvh(backend='native')`` raising as it did."""
+    try:
+        load()
+    except (RuntimeError, OSError, subprocess.TimeoutExpired):
+        return False
+    return True
+
+
 def build_bvh_native(plow, phigh, centroid, max_depth: int, max_leaf: int):
     """Run the C++ builder; returns ``(left, right, low, high, data, cut,
     prim)`` as the numpy builder lays them out. Raises ``RuntimeError`` if

@@ -10,8 +10,9 @@ into continuation nodes through its last slot.
 Slot entries: a wide-node index (``>= 0``), a leaf run
 ``-(start * 64 + count + 1)``, or ``_PAD``. The packers of
 ``ops.packet_traverse`` turn this layout into the traversal kernel's tables.
-The JAX package's lockstep XLA walk over it (``traverse_wide``) has no
-counterpart here: the port's plain traversal walks the packed tables.
+``traverse_wide`` is the JAX package's lockstep walk over this layout with
+a caller-supplied leaf test (``accel.traverse``'s contract), in plain
+PyTorch on the rays' device.
 """
 
 from __future__ import annotations
@@ -19,7 +20,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
+from ..geometry.aabb import EPSILON
 from .bvh import FlatBVH
 
 WIDTH = 8
@@ -181,3 +184,106 @@ def collapse(flat: FlatBVH, max_run: int = DEFAULT_MAX_RUN) -> WideBVH:
         depth=int(max_depth) + 1 + int(extra_depth) + 1,
         max_leaf=int(actual_max_run),
     )
+
+
+# Batcher odd-even merge network for 8 elements (19 compare-exchanges).
+_SORT8 = [(0, 1), (2, 3), (4, 5), (6, 7), (0, 2), (1, 3), (4, 6), (5, 7),
+          (1, 2), (5, 6), (0, 4), (1, 5), (2, 6), (3, 7), (2, 4), (3, 5),
+          (1, 2), (3, 4), (5, 6)]
+
+
+def _sort8_by_key(key, val):
+    """Sort 8 ``(key, val)`` columns of ``[N, 8]`` ascending by key with the
+    JAX package's sorting network (so equal keys keep its order)."""
+    key, val = key.clone(), val.clone()
+    for a, b in _SORT8:
+        swap = key[:, a] > key[:, b]
+        ka, kb = key[:, a], key[:, b]
+        va, vb = val[:, a], val[:, b]
+        key[:, a], key[:, b] = torch.where(swap, kb, ka), torch.where(swap, ka, kb)
+        val[:, a], val[:, b] = torch.where(swap, vb, va), torch.where(swap, va, vb)
+    return key, val
+
+
+def traverse_wide(wbvh: WideBVH, ro, rd, leaf_test, eps: float = EPSILON,
+                  t_init=None, *, stats: bool = False):
+    """Nearest hit over a ``WideBVH``; the contract of
+    ``accel.traverse.traverse`` (``leaf_test``, ``t_init``, ``stats``).
+
+    An ordered walk: the children a ray enters are pushed near to far (the
+    8-wide sorting network on their slab entry distances) with their entry
+    distance on a parallel f32 stack, and a popped entry whose distance can
+    no longer beat the best hit is dropped without a fetch. Hits are those
+    of the unordered walk (the pruning only skips subtrees that cannot
+    improve). Raises ``RuntimeError`` if the walk outlasts ``8 * M + 64``
+    steps for ``M`` wide nodes, which no well-formed tree needs (every entry
+    is pushed at most once a ray).
+    """
+    from .traverse import _t_init, stack_read, stack_write
+
+    n, dev = ro.shape[0], ro.device
+    cap = wbvh.depth * (WIDTH - 1) + 3
+    n_prim = wbvh.prim.shape[0]
+    m = wbvh.child_entry.shape[0]
+    clow = torch.as_tensor(wbvh.child_low, device=dev)
+    chigh = torch.as_tensor(wbvh.child_high, device=dev)
+    centry = torch.as_tensor(wbvh.child_entry, device=dev)
+    prim = torch.as_tensor(wbvh.prim, device=dev)
+    pad = int(_PAD)
+    inv = 1.0 / rd
+
+    stack = torch.full((n, cap), pad, dtype=torch.int32, device=dev)
+    stack[:, 0] = 0
+    stack_t = torch.zeros((n, cap), dtype=torch.float32, device=dev)  # root: 0
+    sp = torch.zeros((n,), dtype=torch.int32, device=dev)
+    t_best = _t_init(t_init, n, dev)
+    prim_best = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    steps = 0
+    while bool((sp >= 0).any()):
+        if steps == 8 * m + 64:
+            raise RuntimeError("traverse_wide: iteration backstop reached (corrupt tree?)")
+        steps += 1
+        active = sp >= 0
+        slot = torch.clamp(sp, 0, cap - 1)
+        cur = stack_read(stack, slot)
+        fresh = active & (stack_read(stack_t, slot) < t_best + eps)  # stale: pop
+        is_node = fresh & (cur >= 0)
+        is_leaf = fresh & (cur < 0) & (cur != pad)
+
+        # leaf runs: up to max_leaf primitive tests
+        start, count = decode_leaf(torch.where(is_leaf, cur, -1))
+        for k in range(wbvh.max_leaf):
+            pidx = prim[torch.clamp(start + k, 0, max(n_prim - 1, 0)).to(torch.int64)]
+            valid = is_leaf & (k < count)
+            t = leaf_test(pidx, valid, ro, rd)
+            better = valid & (t < t_best)
+            t_best = torch.where(better, t, t_best)
+            prim_best = torch.where(better, pidx, prim_best)
+
+        # wide nodes: test the 8 child boxes, push the entered ones
+        node = torch.clamp_min(cur, 0).to(torch.int64)
+        entry = centry[node]                                        # [N,8]
+        ti = (clow[node] - ro[:, None, :]) * inv[:, None, :]
+        to = (chigh[node] - ro[:, None, :]) * inv[:, None, :]
+        t1 = torch.amin(torch.maximum(ti, to), dim=-1)
+        t0 = torch.amax(torch.minimum(ti, to), dim=-1)
+        hit8 = ((t1 > t0 - eps) & (t1 > 0.0) & (entry != pad)
+                & (t0 < t_best[:, None] + eps) & is_node[:, None])
+
+        # near to far: missed slots get +inf keys and sink to the tail
+        key = torch.where(hit8, torch.clamp_min(t0, 0.0), float("inf"))
+        key, entry = _sort8_by_key(key, entry)
+        hit = torch.isfinite(key)
+        pushed = hit.sum(dim=1, dtype=torch.int32)
+        new_sp = torch.where(active, sp - 1 + torch.where(is_node, pushed, 0), sp)
+        # slot k lands at sp - 1 + (entered slots at or after k), so slot 0
+        # (the nearest) ends on top
+        suffix = torch.flip(torch.cumsum(torch.flip(hit, [1]), 1, dtype=torch.int32), [1])
+        for k in range(WIDTH):
+            pos = torch.clamp(sp - 1 + suffix[:, k], 0, cap - 1)
+            stack = stack_write(stack, pos, entry[:, k], hit[:, k])
+            stack_t = stack_write(stack_t, pos, key[:, k], hit[:, k])
+        sp = new_sp
+    if stats:
+        return t_best, prim_best, steps
+    return t_best, prim_best

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .accel.bvh import FlatBVH
+from .accel.wide import WideBVH
 from .camera.camera import CameraParams
 from .core.types import Materials
 from .io.texture import StripAtlas
@@ -75,6 +77,23 @@ def _strip_atlas(atlas, device) -> StripAtlas:
                          for k in ("info_low", "info_high", "base", "spr", "info")})
 
 
+def _flat_bvh(b) -> FlatBVH:
+    """The port's ``FlatBVH`` from the JAX package's (numpy leaves)."""
+    return FlatBVH(**{k: np.asarray(getattr(b, k), np.int32)
+                      for k in ("left", "right", "data", "cut", "prim")},
+                   low=np.asarray(b.low, np.float32), high=np.asarray(b.high, np.float32),
+                   max_depth=int(b.max_depth), max_leaf=int(b.max_leaf))
+
+
+def _wide_bvh(w) -> WideBVH:
+    """The port's ``WideBVH`` from the JAX package's (numpy leaves)."""
+    return WideBVH(child_low=np.asarray(w.child_low, np.float32),
+                   child_high=np.asarray(w.child_high, np.float32),
+                   child_entry=np.asarray(w.child_entry, np.int32),
+                   prim=np.asarray(w.prim, np.int32), depth=int(w.depth),
+                   max_leaf=int(w.max_leaf))
+
+
 def legacy_world_from_numpy(world, device=None, packet_version: int = 2) -> LegacyWorldData:
     """A ``LegacyWorldData`` from the JAX package's ``LegacyWorldData`` with
     every leaf a numpy array (e.g. ``jax.tree_util.tree_map(np.asarray,
@@ -92,7 +111,8 @@ def legacy_world_from_numpy(world, device=None, packet_version: int = 2) -> Lega
         meshes.append(MeshDeviceData(
             **{k: t(getattr(m, k)) for k in
                ("v0", "v1", "v2", "n0", "n1", "n2", "uv0", "uv1", "uv2")},
-            tex=t(m.tex, np.int32),
+            tex=t(m.tex, np.int32), bvh=_flat_bvh(m.bvh),
+            wide=_wide_bvh(m.wide),
             packet=(t(nodes), t(entries, np.int32), t(runs)),
             treelets=(t(m.treelets[0]), t(m.treelets[1])),
             stack=stack_cap(np.asarray(entries))))
@@ -109,7 +129,7 @@ def legacy_world_from_numpy(world, device=None, packet_version: int = 2) -> Lega
             stack = stack_cap(np.asarray(entries))
         spheres = SphereDeviceData(
             center=c, radius=r, transparency=tr, tex=t(s.tex, np.int32),
-            scan_table=pack_spheres(c, r, tr),
+            bvh=_flat_bvh(s.bvh), scan_table=pack_spheres(c, r, tr),
             scan_attrs=torch.zeros((c.shape[0], 16), dtype=torch.float32, device=device),
             packet=packet, treelets=treelets, stack=stack)
     return LegacyWorldData(

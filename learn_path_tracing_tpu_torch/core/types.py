@@ -58,6 +58,22 @@ class Materials:
             absorptivity=f32([m.absorptivity for m in mats]),
         )
 
+    def gather(self, idx) -> "Materials":
+        """Per-ray materials by object index ``idx i32[N]``, with
+        ``jnp.take``'s rule: a negative index counts from the end, and one
+        outside ``[-S, S)`` gives NaN."""
+        s = self.roughness.shape[0]
+        i = idx.to(torch.int64)
+        i = torch.where(i < 0, i + s, i)
+        ok = (i >= 0) & (i < s)
+        i = torch.where(ok, i, 0)
+
+        def take(a):
+            keep = ok.reshape(ok.shape + (1,) * (a.dim() - 1))
+            return torch.where(keep, a[i], float("nan"))
+
+        return _map(take, self)
+
     def to(self, device) -> "Materials":
         return _map(lambda a: a.to(device), self)
 

@@ -13,6 +13,10 @@ conditioned.
 Semantics: nearest hit with ``t >= t_min``; the first sphere wins ties; a
 transparent sphere whose near root is below ``t_min`` yields its far root;
 spheres with radius <= 0 never hit.
+
+``sphere_t`` is the pairwise test in the ``oc = ro - c`` form (the leaf
+test of the lockstep walks in ``accel.traverse``), as ``triangle_t`` is
+for triangles.
 """
 
 from __future__ import annotations
@@ -55,6 +59,22 @@ def intersect_spheres(ro, rd, centers, radii, transparency, t_min: float = T_MIN
     # torch.min over a dim returns the first index of the minimum
     t_best, idx = torch.min(t, dim=-1)
     return t_best, idx.to(torch.int32)
+
+
+def sphere_t(center, radius, transparency, ro, rd, eps: float = T_MIN):
+    """Intersection distance of rays against spheres, pairwise (shapes
+    broadcast: ``center, ro, rd f32[...,3]``, ``radius, transparency
+    f32[...]``); +inf where there is no hit. The near root, or the far root
+    when the near one is below ``eps`` and the sphere is transparent; a hit
+    needs ``t > eps``."""
+    oc = ro - center
+    half_b = sum3(oc * rd)[..., 0]
+    cterm = sum3(oc * oc)[..., 0] - radius * radius
+    disc = half_b * half_b - cterm
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    t_near = -half_b - sq
+    t = torch.where((t_near < eps) & (transparency > 0.0), -half_b + sq, t_near)
+    return torch.where((disc >= 0.0) & (t > eps), t, INF)
 
 
 def sphere_normal(point, center, radius):

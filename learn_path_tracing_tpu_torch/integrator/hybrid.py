@@ -53,6 +53,16 @@ from .wavefront import _scene_fns
 _FIXED_ONE = 2.0 ** 32  # fixed-point accumulator units per unit radiance (persistent.py)
 POOL_CAP = 1 << 20      # auto pool width cap (lanes)
 FILL_ALIGN = 1024       # splice offsets advance in whole blocks of this many rows
+# hit backend names the hybrid accepts: the JAX package's ``scene.world.hit``
+# names ('pallas' there is the TPU kernel) plus the port's 'cuda'
+HIT_BACKENDS = ("auto", "cuda", "xla", "pallas", "bvh")
+
+
+def check_hit_backend(hit_backend: str) -> None:
+    """``ValueError`` unless ``hit_backend`` is one of ``HIT_BACKENDS``."""
+    if hit_backend not in HIT_BACKENDS:
+        raise ValueError(f"unknown hit_backend {hit_backend!r} "
+                         f"(one of {', '.join(HIT_BACKENDS)})")
 
 
 def _r256(v):
@@ -67,8 +77,8 @@ def _fixed(x):
 def render_hybrid(world_data, cam: CameraParams, resolution, spp: int,
                   limit: int = 32, seed=0, bsdf: str = "legacy",
                   camera_model: str = "jitter", scene: str = "legacy",
-                  chunk_spp: int = 0, cap: int = 0, pool_w: int = 0,
-                  drain_ratio: int = 2, sample_base: int = 0,
+                  hit_backend: str = "auto", chunk_spp: int = 0, cap: int = 0,
+                  pool_w: int = 0, drain_ratio: int = 2, sample_base: int = 0,
                   stats: bool = False):
     """Returns ``(image f32[W,H,3], segments int)`` (plus a stats dict when
     ``stats``): the same sample values as the persistent and wavefront
@@ -82,10 +92,14 @@ def render_hybrid(world_data, cam: CameraParams, resolution, spp: int,
     lanes). ``drain_ratio``: narrowing ratio of the end-of-render cascade.
     ``sample_base``: absolute index of this call's first sample, so
     progressive accumulation draws the one-shot render's RNG counters.
+    ``hit_backend``: any name of ``HIT_BACKENDS``, and none changes the
+    render (the JAX package takes it and never reads it either: both walk
+    the legacy world's packet tables); another name raises ``ValueError``.
     """
     if scene != "legacy":
         raise ValueError("render_hybrid targets legacy mesh scenes; use "
                          "render_persistent for sphere scenes")
+    check_hit_backend(hit_backend)
     w, h = resolution
     acc, segments, st = _hybrid_core(world_data, cam, resolution, w * h, 0, sample_base,
                                      spp, limit, seed, bsdf, camera_model, chunk_spp,

@@ -7,7 +7,9 @@ bounce budget; paths that exhaust the budget contribute nothing.
 
 ``render``, ``render_accumulate`` (the progressive viewer's wavefront
 engine) and ``render_chunked`` add samples in the same order, so for the
-same samples they give the same bits.
+same samples they give the same bits. Each takes the JAX package's
+``early_exit``: True stops the bounce loop once no lane is live, False runs
+all ``limit`` passes; both give the same bits.
 """
 
 from __future__ import annotations
@@ -43,20 +45,24 @@ def _scene_fns(scene: str):
         from ..scene.legacy_world import environment_color, hit_legacy
 
         return (lambda w, r, hb: hit_legacy(w, r),
-                lambda w, rd, mask=None: environment_color(w, rd, mask=mask))
+                lambda w, rd, mask=None: environment_color(
+                    w.envs, w.env_id, rd, mask=mask, gradient_h=w.env_gradient_h))
     raise ValueError(f"unknown scene kind: {scene!r}")
 
 
 def trace_sample_pixels(world_data, cam: CameraParams, resolution, pixel_ids,
                         seed, sample, limit: int, bsdf: str = "modern",
                         camera_model: str = "thinlens",
-                        scene: str = "spheres", hit_backend: str = "auto"):
+                        scene: str = "spheres", hit_backend: str = "auto",
+                        early_exit: bool = True):
     """Trace one sample for each absolute pixel id; returns
     (radiance f32[N,3], segments int). RNG keys on absolute pixel ids.
 
-    The bounce loop stops as soon as every lane is dead (one host read per
-    pass); the skipped passes would be all-masked no-ops, so the radiance
-    equals that of the JAX package's fixed ``limit``-pass scan.
+    ``early_exit=True`` stops the bounce loop as soon as every lane is dead
+    (one host read per pass); ``False`` runs all ``limit`` passes and reads
+    nothing back until the segment count at the end. The skipped passes are
+    all-masked no-ops, so both give the same radiance, that of the JAX
+    package's fixed ``limit``-pass scan.
     """
     rays = generate_rays_for_pixels(cam, resolution, pixel_ids, seed, sample,
                                     model=camera_model)
@@ -65,12 +71,12 @@ def trace_sample_pixels(world_data, cam: CameraParams, resolution, pixel_ids,
     hit_fn, background_fn = _scene_fns(scene)
     pix = pixel_ids.to(torch.int64)
     radiance = torch.zeros((n, 3), dtype=torch.float32, device=pix.device)
-    segments = 0
+    segments = torch.zeros((), dtype=torch.int64, device=pix.device)
     for b in range(limit):
-        if not bool(rays.alive.any()):
+        if early_exit and not bool(rays.alive.any()):
             break
         hits = hit_fn(world_data, rays, hit_backend)
-        segments += int(rays.alive.sum())
+        segments = segments + rays.alive.sum()
 
         escaped = rays.alive & ~hits.hit
         radiance = radiance + torch.where(
@@ -83,23 +89,25 @@ def trace_sample_pixels(world_data, cam: CameraParams, resolution, pixel_ids,
         scattered = scatter(rays, hits, base)
         survived = rays.alive & hits.hit
         rays = tree_where(survived, scattered, rays).with_alive(survived)
-    return radiance, segments
+    return radiance, int(segments)
 
 
 def trace_sample(world_data, cam: CameraParams, resolution, seed, sample,
                  limit: int, bsdf: str = "modern", camera_model: str = "thinlens",
-                 scene: str = "spheres", hit_backend: str = "auto"):
+                 scene: str = "spheres", hit_backend: str = "auto",
+                 early_exit: bool = True):
     """Trace one sample per pixel over the full pixel grid."""
     return trace_sample_pixels(
         world_data, cam, resolution, pixel_grid(resolution, cam.device), seed,
         sample, limit, bsdf=bsdf, camera_model=camera_model, scene=scene,
-        hit_backend=hit_backend,
+        hit_backend=hit_backend, early_exit=early_exit,
     )
 
 
 def render(world_data, cam: CameraParams, resolution, spp: int, limit: int = 32,
            seed=0, bsdf: str = "modern", camera_model: str = "thinlens",
-           scene: str = "spheres", hit_backend: str = "auto"):
+           scene: str = "spheres", hit_backend: str = "auto",
+           early_exit: bool = True):
     """Render ``spp`` samples/pixel; returns (image f32[W,H,3], segments).
 
     The image is mean linear radiance. ``segments`` counts live ray segments
@@ -107,13 +115,14 @@ def render(world_data, cam: CameraParams, resolution, spp: int, limit: int = 32,
     """
     return render_chunked(world_data, cam, resolution, spp, limit=limit, seed=seed,
                           chunk_spp=max(spp, 1), bsdf=bsdf, camera_model=camera_model,
-                          scene=scene, hit_backend=hit_backend)
+                          scene=scene, hit_backend=hit_backend, early_exit=early_exit)
 
 
 def render_accumulate(world_data, cam: CameraParams, acc, sample_start: int,
                       resolution, spp_per_call: int, limit: int = 32, seed=0,
                       bsdf: str = "modern", camera_model: str = "thinlens",
-                      scene: str = "spheres", hit_backend: str = "auto"):
+                      scene: str = "spheres", hit_backend: str = "auto",
+                      early_exit: bool = True):
     """Progressive step: add samples ``sample_start + k`` for ``k <
     spp_per_call`` into ``acc f32[N,3]`` (radiance sums, one row per
     pixel). Returns ``(acc, segments int)``: a new tensor, ``acc`` itself
@@ -123,7 +132,7 @@ def render_accumulate(world_data, cam: CameraParams, acc, sample_start: int,
         radiance, segments = trace_sample(
             world_data, cam, resolution, seed, sample_start + k, limit,
             bsdf=bsdf, camera_model=camera_model, scene=scene,
-            hit_backend=hit_backend,
+            hit_backend=hit_backend, early_exit=early_exit,
         )
         acc = acc + radiance
         segs += segments
@@ -133,7 +142,8 @@ def render_accumulate(world_data, cam: CameraParams, acc, sample_start: int,
 def render_chunked(world_data, cam: CameraParams, resolution, spp: int,
                    limit: int = 32, seed=0, chunk_spp: int = 8,
                    bsdf: str = "modern", camera_model: str = "thinlens",
-                   scene: str = "spheres", hit_backend: str = "auto"):
+                   scene: str = "spheres", hit_backend: str = "auto",
+                   early_exit: bool = True):
     """``render`` dispatched as ``render_accumulate`` calls of ``chunk_spp``
     samples (the same RNG counters and order of adds, so the same image).
     Returns (image f32[W,H,3], segments int)."""
@@ -144,6 +154,6 @@ def render_chunked(world_data, cam: CameraParams, resolution, spp: int,
         acc, segments = render_accumulate(
             world_data, cam, acc, s0, resolution, min(chunk_spp, spp - s0),
             limit=limit, seed=seed, bsdf=bsdf, camera_model=camera_model,
-            scene=scene, hit_backend=hit_backend)
+            scene=scene, hit_backend=hit_backend, early_exit=early_exit)
         segs += segments
     return (acc / spp).reshape(w, h, 3), segs

@@ -54,6 +54,9 @@ class TextureManager:
                              "size": (int(size[0]), int(size[1])),
                              "id": int(id)})
 
+    def clear(self):
+        self.configs = []
+
     def _place(self, w, h):
         """First-fit placement; splits the chosen region into a right
         sliver (same height band, scanned first) and the band above."""
@@ -218,11 +221,14 @@ def build_environment_atlas(configs, atlas_size, path_map=None):
     return atlas, frozenset(gradient_ids)
 
 
-def make_info_arrays(configs):
+def make_info_arrays(configs, max_id=None):
     """Pack configs' areas into dense ``i32[K,2]`` low/high arrays indexed
-    by id (numpy)."""
+    by id (numpy), with at least ``max_id + 1`` rows when ``max_id`` is
+    given (ids without a config get ``low = 0``, ``high = 1``)."""
     ids = [cfg["id"] for cfg in configs]
     k = (max(ids) + 1) if ids else 1
+    if max_id is not None:
+        k = max(k, max_id + 1)
     low = np.zeros((k, 2), np.int32)
     high = np.ones((k, 2), np.int32)
     for cfg in configs:

@@ -366,27 +366,39 @@ def traverse(nodes, entries, runs, ro, rd, t_init, active, eps: float = 1e-4,
 traverse.launches = {kernel: 0 for kernel in KERNELS.values()}
 
 
+def _treelets(nodes, entries, device):
+    return tuple(torch.as_tensor(x, device=device) for x in
+                 treelet_boxes(nodes.cpu().numpy(), entries.cpu().numpy()))
+
+
 def packet_traverse(nodes, entries, runs, ro, rd, t_init, active,
-                    eps: float = 1e-4, leaf_kind: str = "tri",
-                    stack: int | None = None, version: int = 2,
-                    sort_rays: bool = False, treelets=None):
+                    eps: float = 1e-4, sort_rays: bool = False,
+                    with_stats: bool = False, version: int = 2, treelets=None,
+                    leaf_kind: str = "tri", stack: int | None = None):
     """Nearest-hit traversal in caller lane order: ``(t, prim)``. ``t`` is
     ``t_init`` where nothing beats it (inactive rays included) and ``prim``
-    is -1 there.
+    is -1 there. The parameters take the JAX package's order.
 
     ``sort_rays``: the JAX package's coherence sort around the kernel
     (``_sort_fwd``/``_sort_inv``): rays are stably sorted by the treelet
     key (``treelets``: the tables' ``treelet_boxes``, computed when None),
     traversed, and put back in lane order. A packet kernel's cost is its
     packet's node union, which the sort shrinks; the result is the same
-    either way (a permutation, and an order-free tie rule)."""
+    either way (a permutation, and an order-free tie rule). The JAX
+    package sorts by default; the port does not (version 2's sort cost
+    more than it saved on the card).
+
+    ``with_stats``: also return the walk's ``iters i32[N]``, the node pops
+    of each ray (of its warp for versions 1 and 3; the JAX package gives
+    one count a packet). It needs ``sort_rays=False``, as there."""
+    if with_stats and sort_rays:
+        raise ValueError("with_stats requires sort_rays=False to keep lane identity")
     if not sort_rays:
-        t, prim, _ = traverse(nodes, entries, runs, ro, rd, t_init, active, eps=eps,
-                              leaf_kind=leaf_kind, stack=stack, version=version)
-        return t, prim
+        t, prim, iters = traverse(nodes, entries, runs, ro, rd, t_init, active, eps=eps,
+                                  leaf_kind=leaf_kind, stack=stack, version=version)
+        return (t, prim, iters) if with_stats else (t, prim)
     if treelets is None:
-        treelets = tuple(torch.as_tensor(x, device=ro.device) for x in
-                         treelet_boxes(nodes.cpu().numpy(), entries.cpu().numpy()))
+        treelets = _treelets(nodes, entries, ro.device)
     order = torch.argsort(_coherence_key(nodes, ro, rd, treelets), stable=True)
     t_s, p_s, _ = traverse(nodes, entries, runs, ro[order], rd[order], t_init[order],
                            active[order], eps=eps, leaf_kind=leaf_kind, stack=stack,
@@ -397,16 +409,17 @@ def packet_traverse(nodes, entries, runs, ro, rd, t_init, active,
     return t, prim
 
 
-def packet_traverse_sorted(nodes, entries, runs, ro, rd, active, treelets,
-                           eps: float = 1e-4, stack: int | None = None,
-                           payload=(), version: int = 2):
+def packet_traverse_sorted(nodes, entries, runs, ro, rd, active,
+                           eps: float = 1e-4, treelets=None, version: int = 2,
+                           payload=(), stack: int | None = None):
     """Coherence-sorted traversal: the JAX package's entry for fused hit
     shading on single-structure worlds (``t_init`` is +inf).
     ``scene.legacy_world.trace_shade_compact`` takes it for versions 1 and
     3 (packet kernels), as the JAX package does; version 2 walks in lane
     order (the sort cost more than it saved there).
 
-    Rays are stably sorted by the treelet coherence key, inactive rays last
+    Rays are stably sorted by the treelet coherence key (``treelets``: the
+    tables' ``treelet_boxes``, computed when None), inactive rays last
     (``_KEY_INACTIVE``), and traversed in that order. Returns ``(t_s,
     prim_s, ro_s, rd_s, entered_n, order_idx)`` in sorted order: ``t_s`` is
     +inf where nothing was hit, ``entered_n`` (0-dim tensor) counts the
@@ -415,6 +428,8 @@ def packet_traverse_sorted(nodes, entries, runs, ro, rd, active, treelets,
     ``payload``: extra ``[N, ...]`` tensors carried through the sort; when
     given, the result gains a 7th element, the payload in sorted order.
     """
+    if treelets is None:
+        treelets = _treelets(nodes, entries, ro.device)
     key = _coherence_key(nodes, ro, rd, treelets, eps=eps)
     key = torch.where(active, key, _KEY_INACTIVE)
     order_idx = torch.argsort(key, stable=True)

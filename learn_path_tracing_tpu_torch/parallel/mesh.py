@@ -35,7 +35,7 @@ import torch
 import torch.distributed as dist
 
 from ..camera.camera import CameraParams
-from ..integrator.hybrid import _hybrid_core
+from ..integrator.hybrid import _hybrid_core, check_hit_backend
 from ..integrator.persistent import _persistent_core, radiance
 from ..integrator.wavefront import trace_sample_pixels
 
@@ -183,14 +183,12 @@ def render_hybrid_multichip(world_data, cam: CameraParams, resolution, spp: int,
     f32[W,H,3], segments int)`` on every rank: the single-device
     ``render_hybrid`` image bit for bit and its segment count. Raises
     ``ValueError`` unless the tile axis divides ``W·H`` and the spp axis
-    ``spp``, for a scene other than 'legacy', and for any ``hit_backend``
-    but 'auto' (``render_hybrid`` takes none)."""
+    ``spp``, for a scene other than 'legacy', and for a ``hit_backend``
+    that ``render_hybrid`` does not take (it reads none of them)."""
     if scene != "legacy":
         raise ValueError("render_hybrid_multichip targets legacy mesh scenes; use "
                          "render_persistent_multichip for sphere scenes")
-    if hit_backend != "auto":
-        raise ValueError(f"render_hybrid_multichip takes only hit_backend='auto' "
-                         f"(render_hybrid has none), got {hit_backend!r}")
+    check_hit_backend(hit_backend)
     w, h = resolution
     n_local, spp_local = _split(w * h, spp, mesh, "hybrid", exact_tiles=True)
     acc, segments, _ = _hybrid_core(

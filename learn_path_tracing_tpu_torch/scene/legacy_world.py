@@ -58,7 +58,7 @@ import numpy as np
 import torch
 
 from ..accel.bvh import FlatBVH, build_bvh
-from ..accel.wide import collapse
+from ..accel.wide import WideBVH, collapse
 from ..core.types import Hits, Materials, Rays
 from ..io.obj import MeshData
 from ..io.texture import (
@@ -119,6 +119,8 @@ class MeshDeviceData:
     uv1: torch.Tensor
     uv2: torch.Tensor
     tex: torch.Tensor  # i32[T]
+    bvh: FlatBVH       # host (numpy) trees the tables were packed from, for
+    wide: WideBVH      # accel.traverse.traverse / accel.wide.traverse_wide
     packet: tuple      # (nodes, entries, runs) traversal tables
     treelets: tuple    # (lo f32[64,3], hi f32[64,3]) depth-2 subtree boxes,
                        # the coherence key of versions 1 and 3
@@ -131,10 +133,11 @@ class SphereDeviceData:
     radius: torch.Tensor        # f32[S]
     transparency: torch.Tensor  # f32[S]
     tex: torch.Tensor           # i32[S]
+    bvh: FlatBVH                # host (numpy) tree, for accel.traverse.traverse
+    packet: tuple | None        # (nodes, entries, runs) for K3, past the ceiling
+    treelets: tuple | None
     scan_table: torch.Tensor    # f32[S,8] sphere-scan (K1) table
     scan_attrs: torch.Tensor    # f32[S,16] K1 epilogue rows (unused: zeros)
-    packet: tuple | None = None    # (nodes, entries, runs) for K3, past the ceiling
-    treelets: tuple | None = None
     stack: int = 0
 
 
@@ -178,12 +181,13 @@ def _mesh_device(positions, normals, uvs, face_p, face_n, face_t, face_tex,
     p = np.asarray(positions, np.float32)[np.asarray(face_p)]   # [T,3,3]
     n = np.asarray(normals, np.float32)[np.asarray(face_n)]
     t = np.asarray(uvs, np.float32)[np.asarray(face_t)]
-    packet = pack_packet_tables(collapse(bvh), p[:, 0], p[:, 1], p[:, 2])
+    wide = collapse(bvh)
+    packet = pack_packet_tables(wide, p[:, 0], p[:, 1], p[:, 2])
     return MeshDeviceData(
         v0=_t(p[:, 0]), v1=_t(p[:, 1]), v2=_t(p[:, 2]),
         n0=_t(n[:, 0]), n1=_t(n[:, 1]), n2=_t(n[:, 2]),
         uv0=_t(t[:, 0]), uv1=_t(t[:, 1]), uv2=_t(t[:, 2]),
-        tex=_t(face_tex, np.int32),
+        tex=_t(face_tex, np.int32), bvh=bvh, wide=wide,
         packet=tuple(_t(x) for x in packet),
         treelets=tuple(_t(x) for x in treelet_boxes(packet[0], packet[1])),
         stack=stack_cap(packet[1]),
@@ -208,7 +212,7 @@ def _sphere_device(centers, radii, transp, tex, bvh,
         stack = stack_cap(tables[1])
     c, r, tr = _t(centers), _t(radii), _t(transp)
     return SphereDeviceData(
-        center=c, radius=r, transparency=tr, tex=_t(tex, np.int32),
+        center=c, radius=r, transparency=tr, tex=_t(tex, np.int32), bvh=bvh,
         scan_table=pack_spheres(c, r, tr),
         scan_attrs=torch.zeros((c.shape[0], 16), dtype=torch.float32),
         packet=packet, treelets=treelets, stack=stack)
@@ -803,8 +807,8 @@ def trace_shade_compact(world: LegacyWorldData, ro, rd, alive, payload,
             and len(world.meshes) == 1 and n >= 4096):
         mesh = world.meshes[0]
         t_s, prim_s, ro, rd, _, _, payload = packet_traverse_sorted(
-            *mesh.packet, ro, rd, alive, mesh.treelets, eps=eps, stack=mesh.stack,
-            payload=payload, version=world.packet_version)
+            *mesh.packet, ro, rd, alive, eps=eps, treelets=mesh.treelets,
+            stack=mesh.stack, payload=payload, version=world.packet_version)
         src_s = torch.where(prim_s >= 0, 1, -1).to(torch.int32)
     else:
         rays = Rays(ro=ro, rd=rd, throughput=torch.ones_like(ro), alive=alive)
@@ -830,19 +834,21 @@ def trace_shade_compact(world: LegacyWorldData, ro, rd, alive, payload,
 _GRAD_DELTA = tuple(float(np.float32(t) - np.float32(1.0)) for t in (0.5, 0.7, 1.0))
 
 
-def environment_color(world: LegacyWorldData, rd, mask=None):
-    """Equirect IBL lookup (15_module.py:970-977).
+def environment_color(envs: StripAtlas, env_id, rd, mask=None,
+                      gradient_h: int | None = None):
+    """Equirect IBL lookup (15_module.py:970-977) of environment ``env_id``
+    in the strip-packed ``envs`` (a world's ``envs`` and ``env_id``).
 
     ``mask`` (bool[N], optional): lanes whose result is unused; their tap
-    coordinates collapse to one texel. When the active environment is the
-    baked sky-gradient fallback (``world.env_gradient_h``), the tap is
-    evaluated in closed form: the rect is constant along u and linear in v,
-    so the bilinear blend reduces to ``vv / (h-1)`` inside and ``h - vv`` on
-    the wrap row.
+    coordinates collapse to one texel. ``gradient_h`` (a world's
+    ``env_gradient_h``): when the active environment is the baked
+    sky-gradient fallback, the tap is evaluated in closed form: the rect is
+    constant along u and linear in v, so the bilinear blend reduces to
+    ``vv / (h-1)`` inside and ``h - vv`` on the wrap row.
     """
     phi = torch.asin(torch.clamp(rd[:, 1], -1.0, 1.0))
     v = phi / torch.pi + 0.5
-    h = world.env_gradient_h
+    h = gradient_h
     if h is not None:
         vv = v * float(h) - 0.5
         f = torch.where(vv < h - 1, vv / float(max(h - 1, 1)), h - vv)
@@ -852,5 +858,5 @@ def environment_color(world: LegacyWorldData, rd, mask=None):
     if mask is not None:
         u = torch.where(mask, u, 0.5)
         v = torch.where(mask, v, 0.5)
-    ids = torch.full(u.shape, world.env_id, dtype=torch.int64, device=u.device)
-    return sample_bilinear_strips(world.envs, ids, u, v, channels=3)
+    ids = torch.full(u.shape, int(env_id), dtype=torch.int64, device=u.device)
+    return sample_bilinear_strips(envs, ids, u, v, channels=3)

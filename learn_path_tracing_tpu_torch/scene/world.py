@@ -109,7 +109,12 @@ class World:
         the unpadded spheres' boxes, ``max_depth=8``, ``max_leaf=4``),
         collapsed to 8-wide nodes and packed into K3's tables, which
         ``hit(..., backend='bvh')`` walks. A cached world built without it
-        is rebuilt with it."""
+        is rebuilt with it. The device comes first (the JAX package's
+        ``device(use_bvh)`` has none), so a bool there raises ``TypeError``
+        rather than being read as ``use_bvh``."""
+        if isinstance(device, bool):
+            raise TypeError("World.device takes the torch device first; "
+                            "pass use_bvh by keyword")
         key = str(torch.device(device or "cpu"))
         cached = self._cache.get(key)
         if cached is None or (use_bvh and cached.bvh is None):

@@ -85,7 +85,7 @@ def main(argv=None):
         start = time.time()
         img, segs = render(wd, cam.params(args.device), res, spp=args.spp,
                            limit=min(args.limit, 10), seed=args.seed + i, bsdf="legacy",
-                           hit_backend=args.hit_backend)
+                           hit_backend=args.hit_backend, early_exit=args.early_exit)
         _sync(args.device)
         elapsed = time.time() - start
         mrays = segs / max(elapsed, 1e-9) / 1e6

@@ -63,7 +63,8 @@ def main(argv=None):
     _sync(args.device)
     start = time.time()
     img, segs = render(wd, cam.params(args.device), res, spp=args.spp, limit=args.limit,
-                       seed=args.seed, bsdf=args.bsdf, scene="legacy")
+                       seed=args.seed, bsdf=args.bsdf, scene="legacy",
+                       early_exit=args.early_exit)
     _sync(args.device)
     elapsed = time.time() - start
     launches = {k: n - before[k] for k, n in gather.launches.items() if n != before[k]}

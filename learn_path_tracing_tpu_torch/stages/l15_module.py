@@ -45,7 +45,12 @@ def build_yoimiya_world(asset_root=DEFAULT_ASSET_ROOT, obj_path=None, exr_path=E
     turned 180° about +y with ``flip_z`` and ``flip_textcoord``, its
     materials' textures, and the EXR environment (a './…' path resolves
     against ``asset_root``); saved to ``save_path`` when given. Raises
-    ``FileNotFoundError`` naming the first missing asset."""
+    ``FileNotFoundError`` naming the first missing asset, and
+    ``ValueError`` for a ``.npy`` path as ``asset_root`` (the JAX package's
+    first parameter is ``save_path``)."""
+    if str(asset_root).endswith(".npy"):
+        raise ValueError(f"build_yoimiya_world takes the asset root first, got "
+                         f"{asset_root!r}; pass save_path by keyword")
     path_map = make_asset_path_map(asset_root)
     obj_path = obj_path or os.path.join(asset_root, OBJ)
     _require(obj_path)

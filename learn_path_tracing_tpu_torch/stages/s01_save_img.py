@@ -9,11 +9,12 @@ from .common import parse_args
 from ..utils.config import STAGE_CONFIGS
 
 
-def shader(width, height, device=None):
-    i = torch.arange(width, dtype=torch.float32, device=device)[:, None]
-    j = torch.arange(height, dtype=torch.float32, device=device)[None, :]
-    r = (i / width).expand(width, height)
-    g = (j / height).expand(width, height)
+def shader(resolution_w, resolution_h, device=None):
+    w, h = resolution_w, resolution_h
+    i = torch.arange(w, dtype=torch.float32, device=device)[:, None]
+    j = torch.arange(h, dtype=torch.float32, device=device)[None, :]
+    r = (i / w).expand(w, h)
+    g = (j / h).expand(w, h)
     return torch.stack([r, g, torch.zeros_like(r)], dim=-1)
 
 

@@ -1,8 +1,11 @@
 """Render configuration (the reference's module-level constants, as data).
 
 Counterpart of ``learn_path_tracing_tpu.utils.config`` for the modern stages
-1-10 and the legacy stages 11-15: resolution / spp / propagate_limit / seed
-plus the integrator options and the torch device. The port reads no
+1-10 and the legacy stages 11-15: resolution / spp / batch /
+propagate_limit / epsilon / seed plus the integrator options and the torch
+device, with the JAX package's fields in its order (``batch`` and
+``epsilon`` are carried as there, where no stage reads them either;
+``early_exit`` reaches the stages' wavefront renders). The port reads no
 environment variables, so what the JAX package takes from them is data
 here: ``packet_version`` is its ``LPT_PACKET_VERSION``
 (``learn_path_tracing_tpu/ops/packet_traverse.py:48-50``), the mesh
@@ -25,12 +28,15 @@ class RenderConfig:
     width: int = 1280
     height: int = 720
     spp: int = 128
+    batch: int = 1                # samples per progressive pass
     propagate_limit: int = 32
+    epsilon: float = 1e-4
     seed: int = 0
     bsdf: str = "modern"          # diffuse | modern | legacy
     scene: str = "spheres"        # spheres | legacy
     camera_model: str = "thinlens"
     hit_backend: str = "auto"     # auto | cuda | xla | bvh
+    early_exit: bool = True       # wavefront bounce loop (integrator.wavefront)
     out: str | None = None        # output path override (stages/CLI)
     device: str = "cuda"          # torch device the render runs on
     packet_version: int = 2       # mesh traversal kernel (LPT_PACKET_VERSION)

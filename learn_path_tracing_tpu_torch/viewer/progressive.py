@@ -39,9 +39,10 @@ class ProgressiveRenderer:
         preview and restarts clean accumulation at full quality.
 
         ``engine``: 'hybrid' renders with ``integrator.hybrid.render_hybrid``
-        (legacy scenes only; it takes no ``hit_backend``), 'wavefront' with
-        ``integrator.wavefront.render_accumulate``, and 'auto' with the
-        hybrid integrator for legacy scenes and the wavefront otherwise."""
+        (legacy scenes only; it takes ``hit_backend`` and reads none),
+        'wavefront' with ``integrator.wavefront.render_accumulate``, and
+        'auto' with the hybrid integrator for legacy scenes and the
+        wavefront otherwise."""
         if engine not in ("auto", "hybrid", "wavefront"):
             raise ValueError(f"unknown engine: {engine!r}")
         self.world_data = world_data
@@ -86,7 +87,7 @@ class ProgressiveRenderer:
             self.world_data, cam, self.resolution,
             spp=spp, limit=limit, seed=self.seed, bsdf=self.bsdf,
             camera_model=self.camera_model, scene=self.scene,
-            sample_base=sample_start, stats=True)
+            hit_backend=self.hit_backend, sample_base=sample_start, stats=True)
         self.last_stats = dict(st, segments=segments, spp=spp)
         w, h = self.resolution
         return acc + img.reshape(w * h, 3) * float(spp)

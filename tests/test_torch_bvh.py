@@ -72,6 +72,7 @@ def test_bvh_and_collapse_byte_identical(t_count, max_depth, max_leaf):
     for k in FLAT:
         assert _same_bytes(getattr(jf, k), getattr(tf, k)), k
     assert (jf.max_depth, jf.max_leaf) == (tf.max_depth, tf.max_leaf)
+    assert tf.n_nodes == jf.n_nodes == tf.left.shape[0]
     assert j_bvh_stats(jf) == bvh_stats(tf)
     jw, tw = j_collapse(jf), collapse(tf)
     for k in WIDE:

@@ -572,3 +572,43 @@ def test_viewer_loop_serves_a_frame_on_the_card(cuda):
     tss.intersect_spheres_scan.launches = 0
     assert serve.serve(pr, cam, srv, state, max_frames=1, on_frame=on_frame) == 1
     assert got == [(200, "1", b"\x89PNG")] and tss.intersect_spheres_scan.launches > 0
+
+
+@pytest.mark.parametrize("walk", ["traverse", "traverse_wide"])
+def test_lockstep_walk_on_the_card_matches_cpu(cuda, walk):
+    """``accel.traverse.traverse`` / ``accel.wide.traverse_wide`` with the
+    triangle leaf test on ``cuda`` tensors against the same call on the
+    CPU, on a small triangle soup: hit masks equal, ``t`` within rtol 1e-5
+    / atol 1e-6 (the devices' f32 roundings may differ by an ulp), ``prim``
+    equal where the two nearest triangles are not tied within that bound.
+    The walks are plain PyTorch on either device: no kernel counts."""
+    from learn_path_tracing_tpu_torch.accel.traverse import make_triangle_leaf_test, traverse
+    from learn_path_tracing_tpu_torch.accel.wide import traverse_wide
+    from learn_path_tracing_tpu_torch.geometry.triangle import triangle_t
+
+    r = np.random.default_rng(31)
+    v = [r.normal(size=(400, 3)).astype(np.float32) * 4]
+    v += [v[0] + r.normal(size=(400, 3)).astype(np.float32) for _ in range(2)]
+    ro = (r.normal(size=(3000, 3)) * 4).astype(np.float32)
+    rd = (v[0][r.integers(0, 400, 3000)] + r.normal(size=(3000, 3)) - ro).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    flat = build_bvh(np.minimum(np.minimum(*v[:2]), v[2]), np.maximum(np.maximum(*v[:2]), v[2]),
+                     centroid=(v[0] + v[1] + v[2]) / 3, max_depth=12, max_leaf=4)
+    fn, tree = (traverse, flat) if walk == "traverse" else (traverse_wide, collapse(flat))
+    before = dict(tpt.traverse.launches)
+    out = {}
+    for dev in ("cpu", cuda):
+        vt = [torch.as_tensor(x, device=dev) for x in v]
+        t, p = fn(tree, torch.as_tensor(ro, device=dev), torch.as_tensor(rd, device=dev),
+                  make_triangle_leaf_test(*vt))
+        out[dev] = (t.cpu(), p.cpu())
+    assert tpt.traverse.launches == before
+    (t_c, p_c), (t_g, p_g) = out["cpu"], out[cuda]
+    hit = torch.isfinite(t_c)
+    assert torch.equal(torch.isfinite(t_g), hit) and int(hit.sum()) > 300
+    assert torch.allclose(t_g[hit], t_c[hit], rtol=1e-5, atol=1e-6)
+    t_all = triangle_t(*(torch.as_tensor(x)[None] for x in v), torch.as_tensor(ro)[:, None],
+                       torch.as_tensor(rd)[:, None])
+    second = torch.sort(t_all, dim=1).values[:, 1]
+    untied = hit & ~torch.isclose(second, t_c, rtol=1e-5, atol=1e-6)
+    assert torch.equal(p_g[untied], p_c[untied]) and torch.equal(p_g[~hit], p_c[~hit])

@@ -141,13 +141,31 @@ def test_sample_base_accumulates_exactly(wd):
 
 
 def test_hybrid_matches_jax_render_hybrid(wd):
+    """Both packages called alike, positionally up to ``hit_backend`` (JAX's
+    10th parameter; 'pallas', the name of JAX's TPU kernel, read by
+    neither)."""
+    args = (RES, 4, 8, 3, "legacy", "thinlens", "legacy", "pallas")
     jwd = _mini_world(JLegacyWorld, JMeshData)
-    j_img, j_segs = j_render_hybrid(jwd, _cam(JCamera).params(), RES, spp=4, limit=8, seed=3,
-                                    bsdf="legacy", scene="legacy", camera_model="thinlens")
-    img, segs, _ = _hybrid(wd)
+    j_img, j_segs = j_render_hybrid(jwd, _cam(JCamera).params(), *args)
+    img, segs = render_hybrid(wd, _cam().params(), *args)
     rep = render_agreement(img.numpy(), np.asarray(j_img), segs, float(j_segs))
     print(rep)
     assert rep["ok"], rep
+
+
+@pytest.mark.parametrize("backend", ["auto", "xla", "pallas", "bvh"])
+def test_hit_backend_in_jax_position(wd, backend):
+    """JAX's positional call, ``hit_backend`` 10th and ``chunk_spp`` 11th:
+    every backend name JAX takes is accepted and read by neither package
+    (the same bits as the keyword call's default; JAX's own call is held
+    to it in ``test_hybrid_matches_jax_render_hybrid``); a name outside
+    that set raises."""
+    args = (RES, 4, 8, 3, "legacy", "thinlens", "legacy", backend, 2)
+    img, segs = render_hybrid(wd, _cam().params(), *args)
+    ref, ref_segs, _ = _hybrid(wd, chunk_spp=2)
+    assert segs == ref_segs and torch.equal(img, ref)
+    with pytest.raises(ValueError, match="hit_backend"):
+        render_hybrid(wd, _cam().params(), *args[:7], "nope")
 
 
 def test_scene_must_be_legacy(wd):

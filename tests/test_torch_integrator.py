@@ -166,3 +166,76 @@ def test_render_accumulate_and_chunked_match_jax():
     jc_img, jc_segs = j_chunked(jwd, jcam, RES, 4, limit=8, chunk_spp=3)
     rep = render_agreement(c_img.numpy(), np.asarray(jc_img), c_segs, float(jc_segs))
     assert rep["ok"], rep
+
+
+@pytest.mark.parametrize("fn", ["trace_sample_pixels", "render", "render_accumulate",
+                                "render_chunked"])
+def test_early_exit_false_is_the_same_bits(fn):
+    """``early_exit=False`` runs every one of the ``limit`` passes and gives
+    the bits of ``early_exit=True`` (JAX's ``tests/test_early_exit.py``), and
+    both agree with JAX's ``early_exit=False`` by ``render_agreement``."""
+    import jax.numpy as jnp
+
+    from learn_path_tracing_tpu.camera import Camera as JCamera
+    from learn_path_tracing_tpu.camera.camera import pixel_grid as j_pixel_grid
+    from learn_path_tracing_tpu.integrator import wavefront as jwf
+    from learn_path_tracing_tpu.models import stage8_scene as j_stage8_scene
+    from learn_path_tracing_tpu_torch.camera.camera import pixel_grid
+    from learn_path_tracing_tpu_torch.integrator import wavefront as twf
+
+    res, n = (32, 20), 32 * 20
+    cams = [cls(res) for cls in (Camera, JCamera)]
+    for c in cams:
+        c.set_position((0, 0.4, 4))
+    wd, cam = stage8_scene().device("cpu"), cams[0].params("cpu")
+    jwd, jcam = j_stage8_scene().device(), cams[1].params()
+    calls = {
+        "trace_sample_pixels": (lambda m, w, c, **kw: m.trace_sample_pixels(
+            w, c, res, pixel_grid(res) if m is twf else j_pixel_grid(res), 3, 1, 16, **kw)),
+        "render": lambda m, w, c, **kw: m.render(w, c, res, 2, limit=16, **kw),
+        "render_accumulate": (lambda m, w, c, **kw: m.render_accumulate(
+            w, c, torch.zeros((n, 3)) if m is twf else jnp.zeros((n, 3), jnp.float32), 0, res,
+            2, limit=16, **kw)),
+        "render_chunked": (lambda m, w, c, **kw: m.render_chunked(
+            w, c, res, 3, limit=16, chunk_spp=2, **kw)),
+    }
+    call = calls[fn]
+    (a, sa), (b, sb) = (call(twf, wd, cam, early_exit=e) for e in (True, False))
+    assert torch.equal(a, b) and sa == sb
+    j, sj = call(jwf, jwd, jcam, early_exit=False)
+    rep = render_agreement(b.reshape(-1, 3).numpy(), np.asarray(j).reshape(-1, 3), sb,
+                           float(sj))
+    assert rep["ok"], rep
+
+
+def test_render_config_has_jax_fields(monkeypatch, tmp_path):
+    """``RenderConfig`` takes JAX's fields in JAX's order, with its
+    defaults, and a preset's ``early_exit`` reaches the stage's wavefront
+    render."""
+    import dataclasses
+
+    from learn_path_tracing_tpu.utils.config import RenderConfig as JRenderConfig
+    from learn_path_tracing_tpu_torch.stages import l11_bvh
+    from learn_path_tracing_tpu_torch.utils.config import RenderConfig
+
+    jf = [(f.name, f.default) for f in dataclasses.fields(JRenderConfig)]
+    tf = [(f.name, f.default) for f in dataclasses.fields(RenderConfig)]
+    assert tf[:len(jf)] == jf
+    args = (64, 36, 8, 2, 6, 1e-3, 7, "legacy", "spheres", "pinhole", "bvh", False, "x.png")
+    assert dataclasses.asdict(RenderConfig(*args)) == {
+        **dataclasses.asdict(JRenderConfig(*args)), "device": "cuda", "packet_version": 2}
+
+    seen = []
+    real = l11_bvh.render
+
+    def spy(*a, **kw):
+        seen.append(kw["early_exit"])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(l11_bvh, "render", spy)
+    monkeypatch.setattr(l11_bvh, "FRAMES", 1)
+    monkeypatch.setitem(l11_bvh.STAGE_CONFIGS, "l11",
+                        l11_bvh.STAGE_CONFIGS["l11"].with_(early_exit=False))
+    l11_bvh.main(["--device", "cpu", "--width", "8", "--height", "6", "--spp", "1",
+                  "--limit", "2", "--out", str(tmp_path / "l11.png")])
+    assert seen == [False]

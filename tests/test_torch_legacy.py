@@ -281,6 +281,15 @@ def test_world_tables_match_jax_and_convert(tmp_path, kind, kw):
         if s.packet is not None:
             for a, b in zip(s.packet, js.packet):
                 assert _same(a, b)
+        # the host trees the tables were packed from (legacy_world.py:962)
+        for m, jm in zip(wd.to("cpu").meshes + (s,), jwd.meshes + (js,)):
+            for k in ("left", "right", "low", "high", "data", "cut", "prim"):
+                assert _same(getattr(m.bvh, k), getattr(jm.bvh, k)), k
+            assert m.bvh.n_nodes == jm.bvh.n_nodes
+        for m, jm in zip(wd.meshes, jwd.meshes):
+            for k in ("child_low", "child_high", "child_entry", "prim"):
+                assert _same(getattr(m.wide, k), getattr(jm.wide, k)), k
+            assert (m.wide.depth, m.wide.max_leaf) == (jm.wide.depth, jm.wide.max_leaf)
         assert wd.env_id == int(jwd.env_id) and wd.env_gradient_h == jwd.env_gradient_h
     for a, b in zip(cwd.meshes + (cwd.spheres,), twd.meshes + (twd.spheres,)):
         assert a.stack == b.stack
@@ -291,6 +300,44 @@ def test_world_tables_match_jax_and_convert(tmp_path, kind, kw):
             assert _bits(mine) == _bits(conv) == ref.tobytes(), (k, f)
             assert mine.dtype == conv.dtype and tuple(mine.shape) == ref.shape, (k, f)
     assert twd.atlas.table.dtype == torch.bfloat16 and twd.envs.table.dtype == torch.float32
+
+
+def test_device_data_trees_walk_as_in_jax(tmp_path):
+    """The JAX package's walks over a world's own trees
+    (``legacy_world.py:962``): ``traverse_wide(mesh.wide, ...)`` over a mesh
+    and ``traverse(spheres.bvh, ...)`` over the sphere set, each with the
+    leaf test of the device data's own primitives, against JAX's (hit masks
+    equal, ``t`` within rtol 1e-5, ``prim`` equal away from ties: where no
+    other primitive's ``t`` is within that bound of the nearest)."""
+    from learn_path_tracing_tpu.accel import traverse as jtr
+    from learn_path_tracing_tpu.accel import wide as jwide
+    from learn_path_tracing_tpu_torch.accel import traverse as ttr
+    from learn_path_tracing_tpu_torch.accel import wide as twide
+    from learn_path_tracing_tpu_torch.geometry.sphere import sphere_t
+    from learn_path_tracing_tpu_torch.geometry.triangle import triangle_t
+
+    _, jwd, _, twd = _build_both(tmp_path, "two", merge_meshes=False)
+    ro, rd, _ = _rays_at(600, 21)
+    jro, jrd, tro, trd = jnp.asarray(ro), jnp.asarray(rd), torch.tensor(ro), torch.tensor(rd)
+    jm, tm, js, ts = jwd.meshes[1], twd.meshes[1], jwd.spheres, twd.spheres
+    pair = (tro[:, None], trd[:, None])
+    t_all = [triangle_t(tm.v0[None], tm.v1[None], tm.v2[None], *pair),
+             sphere_t(ts.center[None], ts.radius[None], ts.transparency[None], *pair)]
+    walks = [
+        (jwide.traverse_wide(jm.wide, jro, jrd, jtr.make_triangle_leaf_test(jm.v0, jm.v1, jm.v2)),
+         twide.traverse_wide(tm.wide, tro, trd, ttr.make_triangle_leaf_test(tm.v0, tm.v1, tm.v2))),
+        (jtr.traverse(js.bvh, jro, jrd,
+                      jtr.make_sphere_leaf_test(js.center, js.radius, js.transparency)),
+         ttr.traverse(ts.bvh, tro, trd,
+                      ttr.make_sphere_leaf_test(ts.center, ts.radius, ts.transparency)))]
+    for ((jt, jp), (tt, tp)), ta in zip(walks, t_all):
+        jt, jp, tt, tp = np.asarray(jt), np.asarray(jp), tt.numpy(), tp.numpy()
+        hit = np.isfinite(jt)
+        assert np.array_equal(np.isfinite(tt), hit) and hit.sum() > 50
+        np.testing.assert_allclose(tt[hit], jt[hit], rtol=1e-5)
+        second = torch.sort(ta, dim=1).values[:, 1].numpy()
+        untied = hit & ~np.isclose(second, tt, rtol=1e-5)
+        assert untied.sum() > 0.9 * hit.sum() and np.array_equal(tp[untied], jp[untied])
 
 
 # ------------------------------------------------------------------- hits --
@@ -435,7 +482,7 @@ def test_fused_and_compact_equal_composed(tmp_path, kind):
     rays = _t_rays(ro, rd, alive)
     mesh = twd.meshes[0]
     t_s, prim_s, _, _, _, order = tpt.packet_traverse_sorted(
-        *mesh.packet, rays.ro, rays.rd, rays.alive, mesh.treelets, stack=mesh.stack)
+        *mesh.packet, rays.ro, rays.rd, rays.alive, treelets=mesh.treelets, stack=mesh.stack)
     t_l, prim_l = tpt.packet_traverse(*mesh.packet, rays.ro, rays.rd,
                                       torch.full((1500,), float("inf")), rays.alive,
                                       stack=mesh.stack)
@@ -553,7 +600,9 @@ def test_environment_color_matches_jax(tmp_path, gradient):
     jc = np.asarray(jlw.environment_color(jwd.envs, jwd.env_id, jnp.asarray(rd),
                                           mask=jnp.asarray(mask),
                                           gradient_h=jwd.env_gradient_h))
-    tc = tlw.environment_color(twd, torch.tensor(rd), mask=torch.tensor(mask)).numpy()
+    # JAX's call form, positionally: (envs, env_id, rd, mask, gradient_h)
+    tc = tlw.environment_color(twd.envs, twd.env_id, torch.tensor(rd), torch.tensor(mask),
+                               twd.env_gradient_h).numpy()
     np.testing.assert_allclose(tc[mask], jc[mask], rtol=1e-5, atol=1e-6)
     assert tc.std() > 0.01
 

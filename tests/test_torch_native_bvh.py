@@ -58,12 +58,21 @@ def test_auto_takes_the_native_builder():
     assert native.builds == before + 1
 
 
+def test_native_available_matches_jax():
+    """The JAX package's answer (``tests/test_native_bvh.py`` skips on its
+    False): both build with the system's ``g++``."""
+    from learn_path_tracing_tpu.accel.native import native_available as j_native_available
+
+    assert native.native_available() is j_native_available()
+
+
 def test_native_raises_without_the_compiler(monkeypatch, tmp_path):
-    """With no compiler and no built library, 'native' raises and 'auto'
-    falls back to the numpy builder."""
+    """With no compiler and no built library, ``native_available()`` is
+    False, 'native' raises and 'auto' falls back to the numpy builder."""
     monkeypatch.setattr(native, "CXX", "no-such-compiler-g++")
     monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(native, "_lib", None)
+    assert native.native_available() is False
     plow, phigh = _random_prims(100, seed=2)
     with pytest.raises(RuntimeError, match="no-such-compiler-g\\+\\+"):
         build_bvh(plow, phigh, backend="native")

@@ -211,6 +211,21 @@ def test_sorted_lane_order_entry_is_lane_exact(version):
     np.testing.assert_array_equal(t1.view(np.int32), t0.view(np.int32))
 
 
+def test_with_stats_in_jax_positions():
+    """JAX's positional order (``eps, sort_rays, with_stats``): with stats
+    the call adds each ray's node pops (the walk's ``iters``; JAX gives one
+    count a packet) to the same ``(t, prim)``, and, as in JAX, refuses
+    ``sort_rays``. ``(t, prim)`` are held to JAX's Pallas kernel above."""
+    _, tables = _tri_tables(2, 250, 8)
+    args = [torch.as_tensor(x) for x in (*tables, *_rays(41, 600, t_init=True, inactive=True))]
+    t0, p0 = tpt.packet_traverse(*args)
+    t1, p1, iters = tpt.packet_traverse(*args, 1e-4, False, True)
+    assert torch.equal(t1, t0) and torch.equal(p1, p0)
+    assert torch.equal(iters, tpt.packet_traverse_plain(*args)[2]) and int(iters.max()) > 1
+    with pytest.raises(ValueError, match="sort_rays=False"):
+        tpt.packet_traverse(*args, 1e-4, True, True)
+
+
 def test_versions_and_leaf_kinds():
     """Sphere leaves take version 2 only, versions are 1, 2 or 3, and each
     (leaf kind, version) has its own launch count."""
@@ -297,7 +312,8 @@ def test_sorted_matches_jax():
         jnp.asarray(active), interpret=True, treelets=treelets, payload=(jnp.asarray(tag),))
     out = tpt.packet_traverse_sorted(
         *(torch.as_tensor(x) for x in tables), torch.as_tensor(ro), torch.as_tensor(rd),
-        torch.as_tensor(active), tuple(torch.as_tensor(np.asarray(x)) for x in treelets),
+        torch.as_tensor(active),
+        treelets=tuple(torch.as_tensor(np.asarray(x)) for x in treelets),
         payload=(torch.as_tensor(tag.astype(np.int64)),))
     tt_s, tp_s, tro, _, tn, torder, (ttag,) = out
     np.testing.assert_array_equal(torder.numpy(), np.asarray(jorder))

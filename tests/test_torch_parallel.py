@@ -97,7 +97,9 @@ def _calls(world_path):
         "persistent spp": (pe, (*s, RES, 3), run, (2, 2)),
         "hybrid tiles": (hy, (*l, (41, 7), SPP), run, (4, 1)),
         "hybrid spp": (hy, (*l, RES, 3), run, (2, 2)),
-        "hybrid backend": (hy, (*l, RES, SPP), {**run, "hit_backend": "xla"}, (4, 1)),
+        "hybrid backend": (hy, (*l, RES, SPP), {**run, "hit_backend": "nope"}, (4, 1)),
+        "hybrid backend pallas": (hy, (*l, RES, SPP), {**run, "hit_backend": "pallas"},
+                                  (4, 1)),
         "bench cells": (bench_torch.sharded_cells,
                         (BENCH_CELLS, BENCH_LIMIT, "cpu", world_path,
                          os.path.dirname(world_path)), {}, None),
@@ -157,6 +159,14 @@ def test_legacy_tile_split_is_single_device_bitwise(sharded, engine):
     img, segs = _ok(sharded, f"{engine} legacy 4x1")
     fn = render if engine == "wavefront" else render_persistent
     ref, ref_segs = fn(*_legacy(), RES, SPP, limit=LIMIT, seed=SEED, **LEGACY)
+    assert segs == ref_segs and torch.equal(img, ref)
+
+
+def test_hybrid_sharded_takes_jax_hit_backends(sharded):
+    """A backend name the JAX package takes ('pallas', its TPU kernel) is
+    accepted and read by neither package: the render is the default one."""
+    img, segs = _ok(sharded, "hybrid backend pallas")
+    ref, ref_segs = _single("hybrid")
     assert segs == ref_segs and torch.equal(img, ref)
 
 

@@ -49,6 +49,20 @@ def test_scene_tables_equal_jax(name):
         np.testing.assert_array_equal(got, want)
 
 
+def test_materials_gather_matches_jax():
+    """``Materials.gather`` with ``jnp.take``'s rule: in-range, negative
+    (from the end) and out-of-range (NaN) indices."""
+    jm = jmodels.random_scene(seed=20230328).device().materials
+    tm = tmodels.random_scene(seed=20230328).device("cpu").materials
+    idx = np.random.default_rng(3).integers(-600, 600, size=300).astype(np.int32)
+    jg, tg = jm.gather(jnp.asarray(idx)), tm.gather(torch.as_tensor(idx))
+    assert type(tg) is type(tm)
+    for f in FIELDS:
+        got, want = getattr(tg, f).numpy(), np.asarray(getattr(jg, f))
+        assert got.shape == want.shape and np.isnan(want).any()
+        np.testing.assert_array_equal(got, want)
+
+
 def test_cover_scene_shape():
     wd = tmodels.random_scene(seed=20230328).device("cpu")
     assert tmodels.random_scene(seed=20230328).size == 485

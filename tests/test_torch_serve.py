@@ -176,25 +176,29 @@ def test_render_loop_in_process():
 
 
 def test_viewer_subprocess_serves_a_png():
+    """The viewer as its own process. It runs torch on one thread (beside
+    the other test processes on the same cores), and the whole exchange has
+    one deadline sized for a loaded machine."""
+    deadline = time.time() + 240
     proc = subprocess.Popen(
         [sys.executable, "-m", "learn_path_tracing_tpu_torch.viewer.serve", "--device", "cpu",
          "--scene-size", "1", "--width", "32", "--height", "18", "--max-frames", "3",
          "--frame-interval", "1.0", "--port", "0"],
-        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"})
     try:
-        ready, _, _ = select.select([proc.stdout], [], [], 60)
+        ready, _, _ = select.select([proc.stdout], [], [], deadline - time.time())
         assert ready, "the viewer printed no address"
         line = proc.stdout.readline()
         assert line.startswith("viewer: http://localhost:"), line
         base = "http://127.0.0.1:" + line.split("localhost:")[1].split("/")[0]
-        deadline = time.time() + 60
         while time.time() < deadline:
             status, headers, body = _get(base + "/frame.png")
             if status == 200:
                 break
             time.sleep(0.1)
         assert status == 200 and body[:4] == b"\x89PNG" and int(headers["X-Gen"]) >= 1
-        assert proc.wait(timeout=60) == 0
+        assert proc.wait(timeout=max(deadline - time.time(), 1)) == 0
     finally:
         proc.kill()
         proc.wait()

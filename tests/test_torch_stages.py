@@ -95,7 +95,7 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 import chip_smoke, bench_torch
 import learn_path_tracing_tpu_torch.__main__
 for name in ("parallel.mesh", "parallel.launch", "parallel.dryrun", "viewer.serve",
-             "accel.native"):
+             "accel.native", "accel.traverse"):
     assert pkg.__name__ + "." + name in sys.modules, name
 bad = [k for k in sys.modules
        if k == "jax" or k.startswith("jax.") or k == "learn_path_tracing_tpu"

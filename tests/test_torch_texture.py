@@ -85,6 +85,26 @@ def _tap_both(mine, ref, tex, u, v, channels):
 
 # ------------------------------------------------------------ pack_strips --
 
+@pytest.mark.parametrize("max_id", [None, 1, 6])
+def test_make_info_arrays_and_clear_match_jax(max_id):
+    """``make_info_arrays(configs, max_id)`` equals JAX's arrays (rows past
+    the last config, up to ``max_id``, get ``low = 0``, ``high = 1``), and
+    ``TextureManager.clear`` empties the configs as JAX's does."""
+    managers = [m((64, 32)) for m in (texture.TextureManager, jtex.TextureManager)]
+    for m in managers:
+        m.add("a", 2, size=(16, 8))
+        m.add("b", 0, size=(30, 20))
+        m.build()
+    (low, high), (jlow, jhigh) = (mod.make_info_arrays(m.configs, max_id=max_id)
+                                  for mod, m in zip((texture, jtex), managers))
+    assert low.shape == (max(3, (max_id or 0) + 1), 2)
+    np.testing.assert_array_equal(low, np.asarray(jlow))
+    np.testing.assert_array_equal(high, np.asarray(jhigh))
+    for m in managers:
+        m.clear()
+    assert managers[0].configs == managers[1].configs == []
+
+
 @pytest.mark.parametrize("channels,texels,bf16", [(8, 16, False), (8, 16, True), (3, 42, False)])
 def test_pack_strips_matches_jax(channels, texels, bf16):
     if channels == 8:
