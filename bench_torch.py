@@ -3,11 +3,12 @@ mesh world) on one GPU. The port's counterpart of ``bench.py``.
 
     python3 bench_torch.py [--engine auto|persistent|mega|hybrid] [--device cuda|cpu]
                            [--scene 10_final|yoimiya] [--world X.world.npy]
+                           [--pool-mult Q | --pool-div D]
                            [--time1024 | --sweep-res | --flagship]
 
 Prints one JSON line a cell:
   {"metric": ..., "value": N, "unit": ..., "frames": [s, ...],
-   "segments": N, "card": "<name>, <power limit>"}
+   "segments": N, "card": "<name>, <power limit>", "schedule": {...}}
 
 - Workload: the reference's stage-10 scene (~490 spheres, mixed BSDFs) at
   1280x720, depth 32 (10_final/__main__.py:50-52), ``--spp`` samples a
@@ -27,11 +28,17 @@ Prints one JSON line a cell:
   scenes: K2, K6a, K6b), 'auto' hybrid for legacy scenes and persistent
   for spheres, as ``bench.py`` chooses.
 - ``card``: ``nvidia-smi``'s name and power limit, or ``cpu``.
+- ``--pool-mult``/``--pool-div``: the JAX package's pool overrides of the
+  persistent engines (``render_persistent``'s ``pool_mult``/``pool_div``;
+  the mega engine takes neither and raises, the hybrid engine does not
+  take them). ``schedule``: what the last frame ran: the modular engine's
+  ``pool``, ``passes_full``, ``drain_widths``, ``drain_passes`` and
+  ``host_reads``; the mega engine's ``passes``; the hybrid's ``passes``
+  and ``n_chunks``.
 
-A missing world file prints its path and exits 2 with no result line. The
-JAX package's ``--pool-mult/--pool-div`` are not carried over (the port's
-persistent engine sizes its pool itself) and its ``vs_baseline`` (a TPU
-target) is not reported.
+A missing world file prints its path and exits 2 with no result line, as
+does a pool override for an engine that does not take it. The JAX
+package's ``vs_baseline`` (a TPU target) is not reported.
 """
 
 from __future__ import annotations
@@ -48,7 +55,10 @@ SCENE_SEED = 20230328
 FRAMES = 3
 TIME1024_CHUNK = 512           # the modular engine's spp per call under --time1024
 SWEEP = ((1280, 720), (1920, 1080), (2560, 1440), (3840, 2160))
-ROW_KEYS = ("metric", "value", "unit", "frames", "segments", "card")
+ROW_KEYS = ("metric", "value", "unit", "frames", "segments", "card", "schedule")
+# the stats of a render that say what schedule ran (see the module docstring)
+SCHEDULE_KEYS = ("pool", "passes_full", "drain_widths", "drain_passes", "host_reads", "passes",
+                 "n_chunks")
 
 
 def card(device) -> str:
@@ -116,7 +126,7 @@ def cell_scene(scene, resolution, device, world, assets):
 def run_cell(scene="10_final", engine="auto", resolution=(1280, 720), spp=64, limit=32,
              hit_backend="auto", device="cuda", world=DEFAULT_WORLD, assets=None,
              cap=0, pool_w=0, drain_ratio=2, chunk_spp=0, kind="rate",
-             frames=FRAMES) -> dict:
+             frames=FRAMES, pool_mult=0, pool_div=0) -> dict:
     """Render one cell and return its row: ``ROW_KEYS`` (what the CLI
     prints) plus ``engine`` (the one 'auto' chose), ``calls`` (the hit or
     traversal calls of every render the cell made, warm-up included: what
@@ -127,8 +137,10 @@ def run_cell(scene="10_final", engine="auto", resolution=(1280, 720), spp=64, li
     name), 'time1024' (seconds for ``spp`` samples, in 512-spp calls under
     the modular engine, one call under the mega engine) or 'flagship'
     (seconds a frame). ``frames``: the timed frames (the CLI times 3).
-    Raises ``FileNotFoundError`` for a missing world
-    file and ``RuntimeError`` for a CUDA device that is not there."""
+    ``pool_mult``/``pool_div``: the persistent engines' pool overrides.
+    Raises ``FileNotFoundError`` for a missing world file, ``RuntimeError``
+    for a CUDA device that is not there and ``ValueError`` for a pool
+    override the engine does not take."""
     from learn_path_tracing_tpu_torch.integrator.hybrid import render_hybrid
     from learn_path_tracing_tpu_torch.integrator.persistent import render_persistent
     from learn_path_tracing_tpu_torch.stages.common import require_device
@@ -138,9 +150,12 @@ def run_cell(scene="10_final", engine="auto", resolution=(1280, 720), spp=64, li
     wd, cp, scene_kind, bsdf, cam_model = cell_scene(scene, resolution, device, world, assets)
     if engine == "auto":
         engine = "hybrid" if scene_kind == "legacy" else "persistent"
+    if engine == "hybrid" and (pool_mult or pool_div):
+        raise ValueError("--pool-mult/--pool-div set the persistent engines' pool; the "
+                         "hybrid engine does not take them")
     calls, stats = [], {}
 
-    def render(seed, n_spp):
+    def render(seed, n_spp, knobs=True):
         if engine == "hybrid":
             img, segs, st = render_hybrid(
                 wd, cp, resolution, spp=n_spp, limit=limit, seed=seed, bsdf=bsdf,
@@ -151,7 +166,9 @@ def run_cell(scene="10_final", engine="auto", resolution=(1280, 720), spp=64, li
             img, segs, st = render_persistent(
                 wd, cp, resolution, spp=n_spp, limit=limit, seed=seed, bsdf=bsdf,
                 camera_model=cam_model, scene=scene_kind, hit_backend=hit_backend,
-                engine="mega" if engine == "mega" else "modular", stats=True)
+                engine="mega" if engine == "mega" else "modular",
+                pool_mult=pool_mult if knobs else 0, pool_div=pool_div if knobs else 0,
+                stats=True)
             calls.append(st["passes"] if engine == "mega"
                          else st["passes_full"] + sum(st["drain_passes"]))
         stats.update(st)
@@ -166,7 +183,8 @@ def run_cell(scene="10_final", engine="auto", resolution=(1280, 720), spp=64, li
             return (sum(img for img, _ in parts) / len(parts), sum(s for _, s in parts))
         return render(0, spp)
 
-    render(-1, 1)           # builds the kernels and warms the launches
+    render(-1, 1, knobs=False)   # builds the kernels and warms the launches (spp 1
+                                 # takes no pool_mult above 1)
     seconds, (img, segs) = time_fn(frame, iters=frames, warmup=0, device=device)
     med = statistics.median(seconds)
     rate = kind in ("rate", "sweep")
@@ -174,6 +192,7 @@ def run_cell(scene="10_final", engine="auto", resolution=(1280, 720), spp=64, li
             "value": segs / med / 1e6 if rate else med,
             "unit": "Mrays/s" if rate else "s",
             "frames": seconds, "segments": int(segs), "card": card(device),
+            "schedule": {k: stats[k] for k in SCHEDULE_KEYS if k in stats},
             "engine": engine, "calls": calls, "stats": stats, "image": img}
 
 
@@ -265,6 +284,12 @@ def main(argv=None) -> int:
                    help="hybrid end-of-render cascade narrowing ratio")
     p.add_argument("--chunk-spp", type=int, default=0,
                    help="hybrid primary slab spp (0 = auto)")
+    p.add_argument("--pool-mult", type=int, default=0,
+                   help="persistent pool multiplier override (0 = auto): pool = "
+                        "pool_mult*n lanes, each running spp/pool_mult work items")
+    p.add_argument("--pool-div", type=int, default=0,
+                   help="persistent pool divisor override (0 = auto); pool = n/pool_div "
+                        "lanes, each running pool_div*spp work items")
     p.add_argument("--scene", default="10_final", choices=["10_final", "yoimiya"],
                    help="10_final: sphere cover scene (headline); yoimiya: the mesh world")
     p.add_argument("--world", default=DEFAULT_WORLD,
@@ -287,10 +312,15 @@ def main(argv=None) -> int:
         res, args.spp, kind = (1920, 1080), 1024, "time1024"
     if args.flagship:
         args.scene, res, args.spp, kind = "yoimiya", (3000, 2000), 32, "flagship"
+    modular = args.engine == "persistent" or (args.engine == "auto" and args.scene == "10_final")
+    if (args.pool_mult or args.pool_div) and not modular:
+        p.error("--pool-mult/--pool-div set the persistent engine's pool (--engine persistent, "
+                "or auto on the 10_final scene)")
     cell = dict(scene=args.scene, engine=args.engine, spp=args.spp, limit=args.limit,
                 hit_backend=args.hit_backend, device=args.device, world=args.world,
                 assets=args.assets, cap=args.cap, pool_w=args.pool_w,
-                drain_ratio=args.drain_ratio, chunk_spp=args.chunk_spp)
+                drain_ratio=args.drain_ratio, chunk_spp=args.chunk_spp,
+                pool_mult=args.pool_mult, pool_div=args.pool_div)
     cells = ([dict(cell, resolution=r, kind="sweep") for r in SWEEP] if args.sweep_res
              else [dict(cell, resolution=res, kind=kind)])
     for c in cells:
@@ -299,6 +329,7 @@ def main(argv=None) -> int:
         except FileNotFoundError as e:
             print(f"bench_torch: world file missing: {e.filename or e}", file=sys.stderr)
             return 2
+
         print(row_line(row), flush=True)
     return 0
 

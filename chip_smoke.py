@@ -18,7 +18,10 @@ Drives the port's paths and checks them:
   version: K2 (version 2, triangle leaves), K5a (version 1, the v1 packet
   walk) or K5b (version 3, the tile-ranged walk); a world of 8,192 spheres
   takes K2's template with sphere leaves (K3); the viewer's wavefront
-  engine reaches the same kernels through ``hit_legacy``. Every shading
+  engine reaches the same kernels through ``hit_legacy``. Under the JAX
+  package's environment knobs ``LPT_TREELET_RESTART=1`` and
+  ``LPT_PACKET_BF16=1`` the mesh walk takes K2's modes: K2r (seeded from
+  the treelet restart's rows), K2h (bf16 node slabs) and K2rh. Every shading
   call of the path fetches its triangle-attribute row through K6a and its
   strip-atlas pair rows (material and environment) through K6b
   (``ops.row_gather``);
@@ -67,7 +70,12 @@ Phases:
    random ``t_init`` and half the lanes inactive, rays starting on the
    surface and exactly axis-parallel rays (which K5a hits and K2 misses),
    bitwise in ``(t, prim)``, then timed in turns in lane order and in
-   coherence-sorted order with their mean pops per ray; K3 on the first
+   coherence-sorted order with their mean pops per ray; ``[k2 modes]``:
+   K2r (the primary slab and the first-bounce set in the restart's sorted
+   order, with its seed rows and the count of seeded blocks), K2h (lane
+   order, the bf16 table) and K2rh bitwise against their twin in ``(t,
+   prim, pops)``, K2r also against K2 on the same rays, each timed beside
+   K2 with its twin's time and bound; K3 on the first
    four kinds of ray sets over the 8,192 spheres, bitwise; then, after the
    K3 path of 5., ``[lockstep walks]`` holds K2 and K3 to the port's plain
    lockstep walks (``accel.traverse.traverse``, ``accel.wide.traverse_wide``)
@@ -82,8 +90,9 @@ Phases:
 4. renders small images on the card and on the CPU (cover scene,
    persistent modular and mega, two mega card renders bitwise equal; the
    CLI's ``render --stage 10`` at 64x36, K1 once per hit call; stand-in
-   mesh + a sphere, hybrid) and holds each pair to the agreement bounds of
-   ``utils.checks``;
+   mesh + a sphere, hybrid; the stand-in mesh built under
+   ``LPT_PACKET_BF16=1``, hybrid, K2h) and holds each pair to the agreement
+   bounds of ``utils.checks``;
 5. with every launch count set to 0 just before each and read just after:
    a hybrid render of the sphere world (the K3 path); the 640x360, 64 spp,
    depth-32 stand-in render through ``stages.l14_mesh`` under packet
@@ -102,7 +111,13 @@ Phases:
    way, and at 64x36 on the card and the CPU, held to
    ``render_agreement``; the bench's mesh cell on the stand-in's
    ``.world.npy`` (1280x720, 64 spp, depth 32, three frames: K2 once per
-   traversal call, K6a/K6b as its shading calls imply); stage l15 at its
+   traversal call, K6a/K6b as its shading calls imply), then, each from
+   counts of 0, ``[mesh knobs]``: the same cell under
+   ``LPT_TREELET_RESTART=1`` (K2r on the pool passes of 4,096 rays and
+   more, K2 on the rest; the frame bit for bit the default one), under
+   ``LPT_PACKET_BF16=1`` (K2h on every call; the frame sane, its agreement
+   with the default frame printed: the bf16 slab test drops hits) and under
+   both (K2h and K2rh); stage l15 at its
    preset (1500x1000, 32 spp, one pass) on the stand-in's asset tree, the
    same launch checks, and its saved world reloaded with its own trees
    (``rebuild_bvh=False``) held to the rebuilt world at 64x36; K1 and
@@ -114,7 +129,11 @@ Phases:
    no K1; spp 128, 256, 384; its peak device memory); the bench's modular
    10_final cell (1280x720, 64 spp, depth 32, one frame;
    ``outputs/chip_smoke_10_final.png``: one K1 launch per hit call,
-   156,430,643 segments) and its mega cell (three frames; one K4 launch
+   156,430,643 segments), ``[pool knobs]``: that frame again under
+   ``pool_mult=1``, ``pool_div=2`` and ``drain_unroll=4`` (each bit for bit
+   the auto frame, K1 once per pass; pool, passes, drain widths, host
+   reads and seconds printed; then the auto frame once more on the same
+   clock), and its mega cell (three frames; one K4 launch
    per pass, the modular cell's segments and linear image bit for bit),
    then one mega frame under the profiler (device busy time, K4's share);
    each bench row is printed as the CLI prints it; before the stand-in's
@@ -132,7 +151,8 @@ Phases:
    its passes at each width times its time there), K3 and K1 under
    ``hit()`` on the primary rays at every pass width, K4's pass from each
    of its three states, K2, K3, K5a and K5b on
-   every ray set in lane and sorted order with their pops per ray, and K6a
+   every ray set in lane and sorted order with their pops per ray, K2's
+   modes on the primary slab (``[k2 modes device]``), and K6a
    and K6b on every gather set. They
    come last because a profiler run can slow the process's later
    launches, which every CUDA-event time and timed frame above would show;
@@ -163,8 +183,9 @@ Any failed phase raises, so the script exits non-zero. The last lines are
 the ``nvidia-smi`` name and power limit, a JSON line of the kernels, and
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` in the
 kernels line is from its first path's run (K1: the bench's modular cell;
-K2, K5a, K5b, K6a, K6b: the l14 frame under its version; K3: the sphere
-world's render; K4: the bench's mega cell) and ``paths`` holds its
+K2, K5a, K5b, K6a, K6b: the l14 frame under its version; K2r, K2h, K2rh:
+the bench's mesh cell under the restart, bf16 and both knobs; K3: the
+sphere world's render; K4: the bench's mega cell) and ``paths`` holds its
 launches on every further path of this slice, each run with the counts
 set to 0 just before. Every kernel's ``ms`` in the kernels
 line is CUDA events around one wrapper call (the host's issue time
@@ -553,6 +574,59 @@ def bench_modular(device):
     if not np.isfinite(row["image"].cpu().numpy()).all() or not 0.05 < mean < 0.95:
         raise AssertionError(f"the 10_final image is not sane: mean {mean}")
     return launches, row
+
+
+# the modular engine's schedule knobs, each run on the bench's cover-scene
+# frame (1280x720, 64 spp, depth 32)
+POOL_KNOBS = ({"pool_mult": 1}, {"pool_div": 2}, {"drain_unroll": 4})
+
+
+def pool_knobs_phase(device, modular):
+    """The bench's modular 10_final frame (``modular``: ``bench_modular``'s
+    row, the auto schedule) again under each of ``POOL_KNOBS`` through
+    ``render_persistent``, then once more under the auto schedule (the same
+    clock as the knob frames), each with the K1 count set to 0 just before:
+    each frame bit for bit the auto frame with its segments, K1 once per
+    pass; prints its pool, passes, drain widths, host reads and
+    synchronised seconds. Returns ``{"pool knobs <knob>": launches}``."""
+    import torch
+
+    import bench_torch
+    from learn_path_tracing_tpu_torch.integrator.persistent import render_persistent
+    from learn_path_tracing_tpu_torch.ops import sphere_scan as ss
+
+    wd, cp, *_ = bench_torch.cell_scene("10_final", RES, device, None, None)
+    st = modular["stats"]
+    _log(f"[pool knobs] auto: pool {st['pool']}, passes {st['passes_full']} + "
+         f"{sum(st['drain_passes'])} {st['drain_passes']}, drain widths {st['drain_widths']}, "
+         f"host reads {st['host_reads']}, {modular['frames'][0]:.3f} s (CUDA events)")
+    ref = modular["image"].view(torch.int32)
+    paths = {}
+    # the auto frame again last, on the knob frames' clock
+    for knobs in (*POOL_KNOBS, {}):
+        ss.intersect_spheres_scan.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, segs, st = render_persistent(wd, cp, RES, spp=SPP, limit=DEPTH, seed=0,
+                                          stats=True, **knobs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = ss.intersect_spheres_scan.launches
+        passes = st["passes_full"] + sum(st["drain_passes"])
+        same = segs == modular["segments"] and torch.equal(img.view(torch.int32), ref)
+        name = ",".join(f"{k}={v}" for k, v in knobs.items()) or "auto again"
+        if knobs:
+            paths[f"pool knobs {name}"] = {"k1": launches}
+        _log(f"[pool knobs] {name}: pool {st['pool']}, passes {st['passes_full']} + "
+             f"{sum(st['drain_passes'])} {st['drain_passes']}, drain widths "
+             f"{st['drain_widths']}, host reads {st['host_reads']}, {seconds:.3f} s "
+             f"(synchronised), K1 launches {launches}, segments {segs}; bit for bit the auto "
+             f"frame: {same}")
+        if launches != passes:
+            raise AssertionError(f"K1 launches {launches} != passes {passes} under {name}")
+        if not same:
+            raise AssertionError(f"the frame under {name} is not the auto frame")
+    return paths
 
 
 # ------------------------------------------------- the mega engine (K4) --
@@ -1327,6 +1401,120 @@ def check_packet(wd, tables, stack, leaf_kind, device, seed):
     return out, device_times
 
 
+# K2's modes (version 2, triangle leaves): kernels-line name, and the flags
+# (seeded, bf16) that pick each
+K2_MODES = {"k2r": ("packet_traverse_tri_restart", True, False),
+            "k2h": ("packet_traverse_tri_bf16", False, True),
+            "k2rh": ("packet_traverse_tri_restart_bf16", True, True)}
+# the TPU kernel's modes: _kernel_v2's seed_init (:428-440, :456-472) and
+# bf16 slabs (:445, :486-490, :563-583)
+K2_MODE_REPLACES = "learn_path_tracing_tpu/ops/packet_traverse.py:390"
+# K2h's slab test per child: K2's 24 FP32 operations and the 12 roundings
+# of its terms to bf16 (the widening back is a bit shift)
+SLAB_FLOP_PER_CHILD_BF16 = SLAB_FLOP_PER_CHILD + 12
+BF16_BOX_BYTES = 96     # a node's 48 bf16 box values, what K2h reads of a row
+
+
+def check_k2_modes(wd, tables, stack, device, seed):
+    """K2's modes on the stand-in mesh against the plain twin on the card,
+    on the l14 primary slab and its first-bounce survivors: K2r on the rays
+    in ``packet_traverse_sorted(restart=True)``'s order with its seed rows
+    (``sorted_rays``), K2h in lane order on the bf16 table
+    (``nodes_to_bf16``), K2rh sorted and seeded on the bf16 table; bit for
+    bit in ``(t, prim, pops)``; K2r also bit for bit K2 on the same sorted
+    rays in ``(t, prim)``. Then each is timed on the primary slab by CUDA
+    events beside K2 on the same order, with its twin's time and its bound
+    (K2h's bytes count 96-byte node boxes). Returns ``{kernel: kernels-line
+    entry (without launches)}`` and ``device_times()``, to be called after
+    the timed frames (the profiler's times, which set ``device_ms``)."""
+    import torch
+
+    from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
+
+    sets = traversal_sets(wd, tables, stack, "tri", device, seed)
+    nodes16 = pt.nodes_to_bf16(tables[0]).to(device)
+    treelets = tuple(torch.as_tensor(x, device=device) for x in
+                     pt.treelet_boxes(tables[0].cpu().numpy(), tables[1].cpu().numpy()))
+    max_err = dict.fromkeys(K2_MODES, 0.0)
+    calls = {}
+    for name in ("primary", "bounce1"):
+        ro, rd, t_init, active = sets[name]
+        order, active_s, _, seeds = pt.sorted_rays(tables[0], tables[1], ro, rd, active,
+                                                   treelets=treelets, restart=True)
+        inf = torch.full_like(t_init, float("inf"))
+        lane = (ro, rd, t_init, active)
+        srt = (ro[order].contiguous(), rd[order].contiguous(), inf, active_s)
+        cnt = seeds[:, 8]
+        seeded = int(((cnt >= 1) & (cnt <= 8)).sum())
+        calls[name] = {"k2 sorted": (tables, srt, None), "k2r": (tables, srt, seeds),
+                       "k2 lane": (tables, lane, None),
+                       "k2h": ((nodes16, *tables[1:]), lane, None),
+                       "k2rh": ((nodes16, *tables[1:]), srt, seeds)}
+        got = {}
+        for k, (tab, rays, sd) in calls[name].items():
+            got[k] = pt.traverse(*tab, *rays, stack=stack, seeds=sd)
+            if k not in K2_MODES:
+                continue
+            t, p, it = got[k]
+            t2, p2, it2 = pt.packet_traverse_plain(*tab, *rays, stack=stack, seeds=sd)
+            torch.cuda.synchronize()
+            both = (p >= 0) & (p2 >= 0)
+            err = float(torch.max(torch.abs(t[both] - t2[both]))) if bool(both.any()) else 0.0
+            max_err[k] = max(max_err[k], err)
+            same = bitwise_equal(t, t2) and bitwise_equal(p, p2) and bitwise_equal(it, it2)
+            _log(f"[k2 modes] {k} on {name}: {ro.shape[0]} rays ({int(active.sum())} active), "
+                 f"hit rate {float((p >= 0).float().mean()):.4f}, pops per ray mean "
+                 f"{float(it.float().mean()):.2f}, bitwise equal to its twin (t, prim, pops): "
+                 f"{same}, max |dt| {err:.3g}")
+            if not same:
+                raise AssertionError(f"{k} differs from its twin on '{name}'")
+        (t, p, _), (t0, p0, _) = got["k2r"], got["k2 sorted"]
+        hits16, hits32 = got["k2h"][1] >= 0, got["k2 lane"][1] >= 0
+        _log(f"[k2 modes] {name}: {cnt.numel()} blocks of 1024 sorted rays, {seeded} seeded "
+             f"(counts {torch.bincount(cnt, minlength=9).tolist()}); K2r against K2 sorted: "
+             f"(t, prim) bitwise {bitwise_equal(t, t0) and bitwise_equal(p, p0)}; K2h hits "
+             f"{int(hits16.sum())} against K2's {int(hits32.sum())} ({int((hits16 != hits32).sum())} "
+             f"rays differ in hit/miss, {int((got['k2h'][1] != got['k2 lane'][1]).sum())} in prim)")
+        if not (bitwise_equal(t, t0) and bitwise_equal(p, p0)):
+            raise AssertionError(f"K2r differs from K2 on '{name}'")
+
+    out, ms = {}, {}
+    n = sets["primary"][0].shape[0]
+    for k, (tab, rays, sd) in calls["primary"].items():
+        ms[k] = cuda_ms(lambda tab=tab, rays=rays, sd=sd: pt.traverse(
+            *tab, *rays, stack=stack, seeds=sd))
+    _log(f"[k2 modes] time at {n} primary rays: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in ms.items()) + " (CUDA events, median of 20)")
+    for k, (name, seeded, bf16) in K2_MODES.items():
+        tab, rays, sd = calls["primary"][k]
+        plain_ms = cuda_ms(lambda: pt.packet_traverse_plain(*tab, *rays, stack=stack, seeds=sd),
+                           iters=5, warmup=1)
+        pops = int(pt.packet_traverse_plain(*tab, *rays, stack=stack, seeds=sd)[2].sum())
+        node_bytes = (tab[0].shape[0] * BF16_BOX_BYTES if bf16 else nbytes(tab[0]))
+        b = bound(node_bytes + nbytes(*tab[1:], *rays) + (nbytes(sd) if seeded else 0)
+                  + 12 * n, pops * 8 * (SLAB_FLOP_PER_CHILD_BF16 if bf16 else
+                                        SLAB_FLOP_PER_CHILD))
+        _log(f"[{k}] time at {n} primary rays ({'sorted' if seeded else 'lane'} order): kernel "
+             f"{ms[k]:.4f} ms, plain twin {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+             f"({b['bound_by']}), {pops / n:.2f} pops per ray")
+        out[k] = {"name": name, "id": k, "route": "cuda",
+                  "source": "learn_path_tracing_tpu_torch/csrc/packet_traverse.cu",
+                  "replaces": K2_MODE_REPLACES, "max_abs_err": max_err[k], "ms": ms[k],
+                  "plain_ms": plain_ms, **b, "library_ms": None}
+
+    def device_times():
+        cells = []
+        for k, (tab, rays, sd) in calls["primary"].items():
+            dev_ms = kernel_ms(lambda tab=tab, rays=rays, sd=sd: pt.traverse(
+                *tab, *rays, stack=stack, seeds=sd), TRAVERSAL_KERNEL_NAMES[2])
+            cells.append(f"{k} {dev_ms:.4f} ms")
+            if k in out:
+                out[k]["device_ms"] = dev_ms
+        _log(f"[k2 modes device] {n} primary rays: {', '.join(cells)} (profiler, median of 20)")
+
+    return out, device_times
+
+
 LOCKSTEP_STRIDE = 32   # the walks' rays: every 32nd of the primary slab, 57,600
 
 
@@ -1424,7 +1612,8 @@ def lockstep_phase(mesh_wd, sph_wd, device):
 
 def check_mesh_gpu_vs_cpu(device, directory):
     """render_hybrid of a small mesh + sphere world on the card and on the
-    CPU, held to ``render_agreement``."""
+    CPU, held to ``render_agreement``; then the same mesh alone built under
+    ``LPT_PACKET_BF16=1`` (K2h on the card, its twin on the CPU), likewise."""
     from learn_path_tracing_tpu_torch.integrator.hybrid import render_hybrid
     from learn_path_tracing_tpu_torch.utils.checks import render_agreement
 
@@ -1432,20 +1621,22 @@ def check_mesh_gpu_vs_cpu(device, directory):
     # EXR from ``directory`` by path
     directory = os.path.join(directory, "small")
     os.makedirs(directory, exist_ok=True)
-    world = standin_world(directory, level=3, tex_size=256, env_size=(256, 128),
-                          sphere=True)
-    _build_quiet(world)
     cam = l14_camera(SMALL_RES)
-    out = {}
-    for dev in (device, "cpu"):
-        img, segs = render_hybrid(world.device(dev), cam.params(dev), SMALL_RES,
-                                  spp=SMALL_SPP, limit=SMALL_LIMIT)
-        out[dev] = (img.cpu().numpy(), segs)
-    rep = render_agreement(out[device][0], out["cpu"][0], out[device][1], out["cpu"][1])
-    _log(f"[gpu-vs-cpu mesh] {SMALL_RES[0]}x{SMALL_RES[1]} spp {SMALL_SPP} limit "
-         f"{SMALL_LIMIT}: segments {out[device][1]} vs {out['cpu'][1]}, {rep}")
-    if not rep["ok"]:
-        raise AssertionError(f"GPU mesh render disagrees with the CPU render: {rep}")
+    for label, sphere, env in (("mesh", True, {}), ("mesh bf16", False, MESH_KNOBS["bf16"])):
+        world = standin_world(directory, level=3, tex_size=256, env_size=(256, 128),
+                              sphere=sphere)
+        with environ(env):
+            _build_quiet(world)
+        out = {}
+        for dev in (device, "cpu"):
+            img, segs = render_hybrid(world.device(dev), cam.params(dev), SMALL_RES,
+                                      spp=SMALL_SPP, limit=SMALL_LIMIT)
+            out[dev] = (img.cpu().numpy(), segs)
+        rep = render_agreement(out[device][0], out["cpu"][0], out[device][1], out["cpu"][1])
+        _log(f"[gpu-vs-cpu {label}] {SMALL_RES[0]}x{SMALL_RES[1]} spp {SMALL_SPP} limit "
+             f"{SMALL_LIMIT}: segments {out[device][1]} vs {out['cpu'][1]}, {rep}")
+        if not rep["ok"]:
+            raise AssertionError(f"GPU {label} render disagrees with the CPU render: {rep}")
 
 
 def sphere_path(wd, device):
@@ -1816,42 +2007,108 @@ def l13_phase(device, directory):
 
 # ------------------------------ the bench's mesh cell, l11, l12 and l15 --
 
-def bench_standin(world, device, path):
+# the mesh path's environment knobs, read by scene.legacy_world: the treelet
+# restart (K2r on the pool passes of 4,096 rays and more) and bf16 node boxes
+# (K2h; with the restart, K2rh on those passes)
+MESH_KNOBS = {"default": {}, "restart": {"LPT_TREELET_RESTART": "1"},
+              "bf16": {"LPT_PACKET_BF16": "1"},
+              "restart+bf16": {"LPT_TREELET_RESTART": "1", "LPT_PACKET_BF16": "1"}}
+
+
+@contextlib.contextmanager
+def environ(env):
+    """The environment variables ``env`` set while the block runs."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def bench_standin(world, device, path, knob="default"):
     """The bench's mesh cell on the stand-in's ``.world.npy`` (``path``):
     ``bench_torch.run_cell(scene='yoimiya', world=path)`` at the bench's
     1280x720, 64 spp, depth 32 through the hybrid engine, three frames after
-    its spp-1 warm-up, with the counts set to 0 just before: K2 launches
-    once per traversal call of every render (slabs plus pool passes) and no
-    other traversal kernel runs; K6a and K6b as often as the shading calls
-    imply. Prints the row as the CLI does; returns ``{kernel: launches}``."""
+    its spp-1 warm-up, under the environment knob ``knob`` of
+    ``MESH_KNOBS`` (the world is loaded, and so its tables built, inside),
+    with the counts set to 0 just before: the traversal kernels launch once
+    per traversal call of every render (slabs plus pool passes): K2 alone
+    by default; under the restart K2r on the pool passes of 4,096 rays and
+    more and K2 on the rest, each at least once; under bf16 K2h, and with
+    the restart K2rh in K2r's place; no other traversal kernel runs. K6a and
+    K6b launch as often as the shading calls imply. Prints the row as the
+    CLI does; returns ``({kernel: launches}, row)``."""
     import numpy as np
 
     import bench_torch
     from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
     from learn_path_tracing_tpu_torch.ops import row_gather as rg
 
+    env = MESH_KNOBS[knob]
+    restart, bf16 = "LPT_TREELET_RESTART" in env, "LPT_PACKET_BF16" in env
     zero_launches()
-    with shading_calls() as shading:
+    with environ(env), shading_calls() as shading:
         row = bench_torch.run_cell(scene="yoimiya", world=path, resolution=RES, spp=SPP,
                                    limit=DEPTH, device=device)
     launches, gathers = dict(pt.traverse.launches), dict(rg.gather.launches)
     print(bench_torch.row_line(row), flush=True)
     expected = expected_gathers(world.device(device), shading)
     mean = float(row["image"].mean())
-    _log(f"[bench stand-in] {row['metric']}: frames {row['frames']} s, {row['segments']} "
-         f"segments, {row['value']:.3f} Mrays/s, traversal calls {row['calls']} (warm-up, "
-         f"frames), launches {launches}, row gathers {gathers} for {shading['attrs']} attribute "
-         f"blocks and {shading['env']} environment taps, linear mean {mean:.5f}")
+    _log(f"[bench stand-in {knob}] {row['metric']}: frames {row['frames']} s, "
+         f"{row['segments']} segments, {row['value']:.3f} Mrays/s, traversal calls "
+         f"{row['calls']} (warm-up, frames), launches {launches}, row gathers {gathers} for "
+         f"{shading['attrs']} attribute blocks and {shading['env']} environment taps, linear "
+         f"mean {mean:.5f}")
     if row["metric"] != "bvh_mrays_per_sec_chip_standin" or row["engine"] != "hybrid":
         raise AssertionError(f"the stand-in cell ran as {row['metric']}, {row['engine']}")
-    if launches.pop("k2") != sum(row["calls"]) or any(launches.values()):
-        raise AssertionError(f"K2 launches != traversal calls {row['calls']}, or another "
-                             f"kernel ran: {pt.traverse.launches}")
+    walk = pt.kernel_of(bf16=bf16)
+    ran = [walk, pt.kernel_of(seeded=True, bf16=bf16)] if restart else [walk]
+    counts = {k: launches.pop(k) for k in ran}
+    if (sum(counts.values()) != sum(row["calls"]) or not all(counts.values())
+            or any(launches.values())):
+        raise AssertionError(f"traversal launches {pt.traverse.launches} under {knob}: not "
+                             f"{'+'.join(ran)} = traversal calls {row['calls']}, each run")
     if gathers != expected or not all(gathers.values()):
         raise AssertionError(f"row-gather launches {gathers}, expected {expected}")
     if not np.isfinite(row["image"].cpu().numpy()).all() or not 0.02 < mean < 10.0:
         raise AssertionError(f"the stand-in cell's image is not sane: mean {mean}")
-    return {"k2": sum(row["calls"]), **gathers}
+    return {**counts, **gathers}, row
+
+
+def mesh_knobs_phase(world, device, path, default):
+    """The bench's mesh cell under each environment knob (``bench_standin``),
+    against its default row ``default``: the restart frame bit for bit the
+    default frame with its segments. The bf16 frames (K2h, K2rh) are not
+    the f32 frame (their slab test drops hits, ``tests/test_torch_knobs.py``):
+    ``bench_standin`` checks them sane, ``check_mesh_gpu_vs_cpu`` holds the
+    bf16 path to its CPU twin, and their agreement with the default frame
+    is printed. Returns ``{"bench stand-in <knob>": {kernel: launches}}``."""
+    import torch
+
+    from learn_path_tracing_tpu_torch.utils.checks import render_agreement
+
+    paths = {}
+    ref = default["image"]
+    for knob in ("restart", "bf16", "restart+bf16"):
+        launches, row = bench_standin(world, device, path, knob)
+        paths[f"bench stand-in {knob}"] = launches
+        img = row["image"]
+        rep = render_agreement(img.cpu().numpy(), ref.cpu().numpy(), row["segments"],
+                               default["segments"])
+        same = (row["segments"] == default["segments"]
+                and torch.equal(img.view(torch.int32), ref.view(torch.int32)))
+        _log(f"[mesh knobs] {knob}: median frame {sorted(row['frames'])[1]:.4f} s against the "
+             f"default {sorted(default['frames'])[1]:.4f} s; segments {row['segments']} "
+             f"against {default['segments']}; bit for bit the default frame: {same}; "
+             f"agreement {rep}")
+        if knob == "restart" and not same:
+            raise AssertionError("the restart frame is not the default frame")
+    return paths
 
 
 @contextlib.contextmanager
@@ -2678,6 +2935,7 @@ def packet_times(device, directory):
     _, sph_device_times = check_packet(sph_wd, sph.packet, sph.stack, "sphere", device, seed=8)
     bvh_device_times = bvh_phase(device)
     tri_device_times()
+    mode_device_times()
     sph_device_times()
     bvh_device_times()
 
@@ -2773,8 +3031,10 @@ def main(argv=None) -> int:
              f"{time.time() - t0:.2f} s ({native.builds} native BVH build)")
         tri_kernels, tri_device_times = check_packet(mesh_wd, tri.packet, tri.stack, "tri",
                                                      device, seed=7)
+        mode_kernels, mode_device_times = check_k2_modes(mesh_wd, tri.packet, tri.stack,
+                                                         device, seed=9)
         gather_kernels, gather_device_times = check_row_gather(mesh_wd, device)
-        mesh_kernels = {**tri_kernels, **gather_kernels}
+        mesh_kernels = {**tri_kernels, **mode_kernels, **gather_kernels}
 
         t0 = time.time()
         sph_wd = _build_quiet(sphere_world(), device=device)
@@ -2794,8 +3054,14 @@ def main(argv=None) -> int:
         l13_phase(device, directory)
         # the kernels of each further path, as that path's run counted them
         world_path = os.path.join(directory, "standin.world.npy")
-        paths = {"bench stand-in": bench_standin(mesh_world, device, world_path),
-                 "l15": l15_phase(device, directory)}
+        launches, standin_row = bench_standin(mesh_world, device, world_path)
+        paths = {"bench stand-in": launches}
+        knob_paths = mesh_knobs_phase(mesh_world, device, world_path, standin_row)
+        for kernel, knob in (("k2r", "restart"), ("k2h", "bf16"), ("k2rh", "restart+bf16")):
+            mesh_kernels[kernel]["launches"] = knob_paths[f"bench stand-in {knob}"][kernel]
+        paths.update(knob_paths)
+        del standin_row
+        paths["l15"] = l15_phase(device, directory)
         mc_paths, refs = multichip_phase(device, world_path)
         paths.update(mc_paths)
         multichip_split(refs)
@@ -2807,6 +3073,7 @@ def main(argv=None) -> int:
     k1["launches"], modular = bench_modular(device)
     k4["launches"] = mega_headline(device, modular)
     paths["bench modular"] = {"k1": k1["launches"]}
+    paths.update(pool_knobs_phase(device, modular))
     paths["bench mega"] = {"k4": k4["launches"]}
     for entry in (k1, k3, k4, *mesh_kernels.values()):
         entry["paths"] = {p: n[entry["id"]] for p, n in paths.items() if entry["id"] in n}
@@ -2817,15 +3084,17 @@ def main(argv=None) -> int:
     bvh_device_times()
     k4_device_times()
     tri_device_times()
+    mode_device_times()
     sph_device_times()
     gather_device_times()
     cli_smoke()
     multichip_cli()
 
     print(card)
-    print(json.dumps({"kernels": [k1, mesh_kernels["k2"], k3, k4, mesh_kernels["k5a"],
-                                  mesh_kernels["k5b"], mesh_kernels["k6a"],
-                                  mesh_kernels["k6b"]]}))
+    print(json.dumps({"kernels": [k1, mesh_kernels["k2"], mesh_kernels["k2r"],
+                                  mesh_kernels["k2h"], mesh_kernels["k2rh"], k3, k4,
+                                  mesh_kernels["k5a"], mesh_kernels["k5b"],
+                                  mesh_kernels["k6a"], mesh_kernels["k6b"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

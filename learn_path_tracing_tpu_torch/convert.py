@@ -94,6 +94,15 @@ def _wide_bvh(w) -> WideBVH:
                    max_leaf=int(w.max_leaf))
 
 
+def _nodes(nodes, device):
+    """A packet ``nodes`` table as a tensor: f32, or bfloat16 bit for bit
+    where the JAX world holds ``nodes_to_bf16``'s table (``LPT_PACKET_BF16``)."""
+    nodes = np.asarray(nodes)
+    if nodes.dtype.name == "bfloat16":
+        return torch.from_numpy(nodes.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.as_tensor(np.array(nodes, np.float32), device=device)
+
+
 def legacy_world_from_numpy(world, device=None, packet_version: int = 2) -> LegacyWorldData:
     """A ``LegacyWorldData`` from the JAX package's ``LegacyWorldData`` with
     every leaf a numpy array (e.g. ``jax.tree_util.tree_map(np.asarray,
@@ -113,7 +122,7 @@ def legacy_world_from_numpy(world, device=None, packet_version: int = 2) -> Lega
                ("v0", "v1", "v2", "n0", "n1", "n2", "uv0", "uv1", "uv2")},
             tex=t(m.tex, np.int32), bvh=_flat_bvh(m.bvh),
             wide=_wide_bvh(m.wide),
-            packet=(t(nodes), t(entries, np.int32), t(runs)),
+            packet=(_nodes(nodes, device), t(entries, np.int32), t(runs)),
             treelets=(t(m.treelets[0]), t(m.treelets[1])),
             stack=stack_cap(np.asarray(entries))))
     spheres = None

@@ -1,11 +1,13 @@
 // Nearest hit over an 8-wide BVH for NVIDIA Hopper (sm_90a): kernels K2
-// (triangle leaves) and K3 (sphere leaves), one template, and the packet
-// kernels K5a and K5b (triangle leaves), one template too, which share its
-// slab and leaf code.
+// (triangle leaves) with its modes K2r (seeded: the treelet restart), K2h
+// (bf16 node slabs) and K2rh (both), and K3 (sphere leaves), one template,
+// and the packet kernels K5a and K5b (triangle leaves), one template too,
+// which share its slab and leaf code.
 //
 // Replaces the TPU kernels of learn_path_tracing_tpu/ops/packet_traverse.py,
 // the versions the JAX package picks with LPT_PACKET_VERSION:
-//   K2/K3  _kernel_v2 (version 2; leaf_kind 'tri' and 'sphere');
+//   K2/K3  _kernel_v2 (version 2; leaf_kind 'tri' and 'sphere'; its
+//          seed_init and bf16-slab modes are K2r and K2h);
 //   K5a    _kernel    (version 1: the ordered packet walk);
 //   K5b    _kernel_v3 (version 3: the tile-ranged packet walk).
 // All read the same tables (nodes f32[M,128], entries i32[M,128], runs
@@ -91,6 +93,19 @@
 // saves none of them a slab test, so the walk with nothing shared is the
 // one kept. Packets of 2 or 4 warps for narrow launches went with it.
 //
+// K2r and K2h are template flags of K2, not copies. K2r: the TPU seeds a
+// 1024-ray packet's shared stack with up to 8 depth-2 treelet codes from an
+// SMEM row; here each thread seeds its own stack from the row of its ray's
+// 1024-ray block. The TPU's stack could hold a root child's leaf code,
+// which its kernel then reads as a node row at a clamped index; here a leaf
+// seed is tested at once and an empty slot skipped, so the stack still
+// holds nodes only and stack_cap still bounds it (the walk below a seed
+// has at most 7 other seeds under it; the root walk below a depth-2 node
+// has 7 of its siblings and 7 of its parent's). K2h: the TPU walks its
+// [8, lanes] slab pipeline in bf16; here every term is an f32 operation
+// rounded to the nearest even bf16 (bf_round), which is what XLA computes
+// op by op, and the 48 box values of a row are six 16-byte loads.
+//
 // Not carried over from the TPU kernels, being scheduling devices and not
 // parts of the function: the scalar-core sorting network (here a thread or
 // a warp ranks the 8 children), the int keys with 3 dropped mantissa bits
@@ -121,6 +136,7 @@
 // iters: K2/K3 count each ray's pops, bit for bit the twin's; K5a and K5b
 // give every ray its warp's node pops.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -135,6 +151,8 @@ constexpr int kEnc = 64;          // run-length field of a leaf code
 constexpr int kPrimCol = 96;      // prim ids of a run row
 constexpr int kErrStack = 1;
 constexpr int kErrIters = 2;
+constexpr int kSeedBlock = 1024;  // K2r: rays a seed row seeds (ops SEED_BLOCK)
+constexpr int kSeedCols = 16;     // K2r: seed row: codes 0..7, count at 8
 
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr unsigned kNoKey = 0xffffffffu;   // above the bits of any finite key
@@ -192,6 +210,56 @@ __device__ __forceinline__ void load_half_boxes(const float* __restrict__ node_r
     b[k][1] = v.y;
     b[k][2] = v.z;
     b[k][3] = v.w;
+  }
+}
+
+// x rounded to the nearest even bfloat16, held as a float: K2h's rounding
+// after every f32 operation of its slab test.
+__device__ __forceinline__ float bf_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// K2h: the 48 bf16 box values of a node row (96 bytes) as six 16-byte
+// loads, one a component (lo.x .. hi.z): the 8 children of component k are
+// the 8 halves of w[k].
+__device__ __forceinline__ void load_bf16_boxes(const __nv_bfloat16* __restrict__ node_row,
+                                                uint4 w[6]) {
+  const uint4* __restrict__ box = reinterpret_cast<const uint4*>(node_row);
+#pragma unroll
+  for (int k = 0; k < 6; ++k) w[k] = __ldg(box + k);
+}
+
+// Children 4*half .. 4*half + 3 of a bf16 row (load_bf16_boxes) widened to
+// floats, b[k][q] as load_half_boxes gives them.
+__device__ __forceinline__ void widen_half_boxes(const uint4 w[6], int half,
+                                                 float b[6][4]) {
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const unsigned lo = half ? w[k].z : w[k].x;
+    const unsigned hi = half ? w[k].w : w[k].y;
+    b[k][0] = __uint_as_float(lo << 16);
+    b[k][1] = __uint_as_float(lo & 0xffff0000u);
+    b[k][2] = __uint_as_float(hi << 16);
+    b[k][3] = __uint_as_float(hi & 0xffff0000u);
+  }
+}
+
+// K2h's slab interval of child q of a widened half row: the hoisted form
+// in bf16, t = bf(bf(lo*inv16) - roinv16), from the TPU kernel's bounds
+// -/+bf(3e38).
+__device__ __forceinline__ void slab_child_bf16(float b[6][4], int q,
+                                                const float inv16[3],
+                                                const float roinv16[3], float bmax,
+                                                float& t0, float& t1) {
+  t0 = -bmax;
+  t1 = bmax;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float ta = bf_round(__fsub_rn(bf_round(__fmul_rn(b[k][q], inv16[k])), roinv16[k]));
+    const float tc =
+        bf_round(__fsub_rn(bf_round(__fmul_rn(b[3 + k][q], inv16[k])), roinv16[k]));
+    t0 = nan_max(t0, nan_min(ta, tc));
+    t1 = nan_min(t1, nan_max(ta, tc));
   }
 }
 
@@ -363,15 +431,25 @@ __device__ __forceinline__ void test_leaf(const float* __restrict__ runs,
 
 // ------------------------------------------------ K2/K3: a ray per thread --
 
-template <int kLeaf>
+// kSeeded (K2r): the ray's walk starts from the seed row of its block of
+// kSeedBlock rays (i / kSeedBlock: the sorted rays' 1024-lane blocks of the
+// TPU kernel, not this grid's blocks) when its count is 1..8: node codes are
+// pushed in slot order at entry distance +0, a leaf code (a root child that
+// is itself a leaf run) is tested at once, an empty slot skipped. The stack
+// holds nodes only, so no pop reads a node row at a leaf's negative code.
+// kBf16 (K2h): node rows are bf16 and the slab test runs in bf16
+// (slab_child_bf16; entered if t1 > bf(t0 - eps16), t1 > 0 and
+// t0 < bf(bf(t_best) + eps16)); keys, pops and leaves stay f32.
+template <int kLeaf, bool kSeeded, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
-packet_traverse_kernel(const float* __restrict__ nodes,
+packet_traverse_kernel(const void* __restrict__ nodes_raw,
                        const int* __restrict__ entries,
                        const float* __restrict__ runs,
                        const float* __restrict__ ro,
                        const float* __restrict__ rd,
                        const float* __restrict__ t_init,
                        const unsigned char* __restrict__ active,
+                       const int* __restrict__ seeds,
                        float* __restrict__ t_out, int* __restrict__ prim_out,
                        int* __restrict__ iters_out, int* __restrict__ err,
                        int n, int stack_cap, int max_iters, float eps) {
@@ -383,9 +461,43 @@ packet_traverse_kernel(const float* __restrict__ nodes,
   if (active[i]) {
     float o[3], d[3], inv[3], roinv[3];
     load_ray(ro, rd, i, o, d, inv, roinv);
+    float inv16[3], roinv16[3], eps16 = 0.f, bmax = 0.f;
+    if (kBf16) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        inv16[k] = bf_round(inv[k]);
+        roinv16[k] = bf_round(roinv[k]);
+      }
+      eps16 = bf_round(eps);
+      bmax = bf_round(3.0e38f);
+    }
     int2 stack[kMaxStack];        // (code, bits of the entry distance)
     int sp = 0;
     stack[0] = make_int2(0, 0);   // root, entry distance +0
+    bool overflow = false;
+    if (kSeeded) {
+      const int* __restrict__ row = seeds + (size_t)(i / kSeedBlock) * kSeedCols;
+      const int cnt = __ldg(row + kWidth);
+      if (cnt >= 1 && cnt <= kWidth) {
+        sp = -1;
+        for (int j = 0; j < cnt; ++j) {
+          const int code = __ldg(row + j);
+          if (code >= 0) {
+            if (sp + 1 >= stack_cap) {
+              overflow = true;
+              break;
+            }
+            stack[++sp] = make_int2(code, 0);
+          } else if (code != kPad) {
+            test_leaf<kLeaf>(runs, code, o, d, eps, tb, pb);
+          }
+        }
+      }
+    }
+    if (overflow) {
+      atomicOr(err, kErrStack);
+      sp = -1;
+    }
     while (sp >= 0) {
       if (iters >= max_iters) {
         atomicOr(err, kErrIters);
@@ -396,13 +508,19 @@ packet_traverse_kernel(const float* __restrict__ nodes,
       --sp;
       if (!(__int_as_float(e.y) < __fadd_rn(tb, eps))) continue;   // stale entry
 
-      const float* __restrict__ node_row = nodes + (size_t)e.x * kRowF;
       const int4* __restrict__ kid =
           reinterpret_cast<const int4*>(entries + (size_t)e.x * kRowF);
       float key[kWidth];
       int ent[kWidth];
       unsigned leaves = 0, inner = 0;
       const float reach = __fadd_rn(tb, eps);
+      uint4 w16[6];
+      float reach16 = 0.f;
+      if (kBf16) {
+        load_bf16_boxes(static_cast<const __nv_bfloat16*>(nodes_raw) + (size_t)e.x * kRowF,
+                        w16);
+        reach16 = bf_round(__fadd_rn(bf_round(tb), eps16));
+      }
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int4 e4 = __ldg(kid + half);
@@ -411,14 +529,25 @@ packet_traverse_kernel(const float* __restrict__ nodes,
         ent[4 * half + 2] = e4.z;
         ent[4 * half + 3] = e4.w;
         float b[6][4];
-        load_half_boxes(node_row, half, b);
+        if (kBf16)
+          widen_half_boxes(w16, half, b);
+        else
+          load_half_boxes(static_cast<const float*>(nodes_raw) + (size_t)e.x * kRowF, half,
+                          b);
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int c = 4 * half + q;
           float t0, t1;
-          slab_child<false>(b, q, o, inv, roinv, t0, t1);
+          bool in;
+          if (kBf16) {
+            slab_child_bf16(b, q, inv16, roinv16, bmax, t0, t1);
+            in = t1 > bf_round(__fsub_rn(t0, eps16)) && t1 > 0.f && t0 < reach16;
+          } else {
+            slab_child<false>(b, q, o, inv, roinv, t0, t1);
+            in = enters(t0, t1, eps, reach);
+          }
           key[c] = nan_max(t0, 0.f);
-          if (enters(t0, t1, eps, reach) && ent[c] != kPad) {
+          if (in && ent[c] != kPad) {
             if (ent[c] < 0) leaves |= 1u << c;
             else inner |= 1u << c;
           }
@@ -651,27 +780,31 @@ packet_walk_v3_kernel(const float* __restrict__ nodes,
 
 }  // namespace
 
-// Plain C entry for ctypes. nodes/entries/runs: the packed tables (f32 / i32
-// / f32, 128 columns); ro, rd: f32[n,3]; t_init: f32[n]; active: bool[n]
-// (one byte each); t_out: f32[n]; prim_out, iters_out: i32[n]; err: one i32,
-// zero on entry (bit 1: stack overflow, bit 2: pop backstop). leaf_kind 0 =
-// triangles, 1 = spheres; version 2 = K2/K3, 1 = K5a, 3 = K5b (triangles
-// only). stack_cap: at most kMaxStack for K2/K3; K5a and K5b size their
-// shared memory by it. All contiguous on the current device. Launches on
-// `stream` and returns cudaGetLastError() (0 on success) without
-// synchronising, or cudaErrorInvalidValue for a version, leaf kind or stack
-// it does not take.
+// Plain C entry for ctypes. nodes/entries/runs: the packed tables (f32 —
+// or bf16 when node_bf16 — / i32 / f32, 128 columns); ro, rd: f32[n,3];
+// t_init: f32[n]; active: bool[n] (one byte each); seeds: null, or K2r's
+// i32[ceil(n/1024), 16] seed rows; t_out: f32[n]; prim_out, iters_out:
+// i32[n]; err: one i32, zero on entry (bit 1: stack overflow, bit 2: pop
+// backstop). leaf_kind 0 = triangles, 1 = spheres; version 2 = K2/K3, 1 =
+// K5a, 3 = K5b (triangles only). Seeds and bf16 nodes are K2's modes
+// (version 2, triangles): K2r, K2h, and both. stack_cap: at most kMaxStack
+// for K2/K3; K5a and K5b size their shared memory by it. All contiguous on
+// the current device. Launches on `stream` and returns cudaGetLastError()
+// (0 on success) without synchronising, or cudaErrorInvalidValue for a
+// version, leaf kind, mode or stack it does not take.
 extern "C" int lpt_packet_traverse(const void* nodes, const void* entries,
                                    const void* runs, const void* ro,
                                    const void* rd, const void* t_init,
-                                   const void* active, void* t_out,
-                                   void* prim_out, void* iters_out, void* err,
-                                   int n, int stack_cap, int max_iters,
+                                   const void* active, const void* seeds,
+                                   void* t_out, void* prim_out, void* iters_out,
+                                   void* err, int n, int stack_cap, int max_iters,
                                    float eps, int leaf_kind, int version,
-                                   void* stream) {
+                                   int node_bf16, void* stream) {
+  const bool seeded = seeds != nullptr;
   if (version < 1 || version > 3 || leaf_kind < 0 || leaf_kind > 1 ||
       (version != 2 && leaf_kind != 0) || stack_cap < 1 ||
-      (version == 2 && stack_cap > kMaxStack))
+      (version == 2 && stack_cap > kMaxStack) ||
+      ((seeded || node_bf16) && (version != 2 || leaf_kind != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* nf = (const float*)nodes;
@@ -681,10 +814,12 @@ extern "C" int lpt_packet_traverse(const void* nodes, const void* entries,
   const float* rdf = (const float*)rd;
   const float* tif = (const float*)t_init;
   const unsigned char* ac = (const unsigned char*)active;
+  const int* sd = (const int*)seeds;
   float* to = (float*)t_out;
   int* po = (int*)prim_out;
   int* io = (int*)iters_out;
   int* er = (int*)err;
+  const int grid = (n + kThreads - 1) / kThreads;
   if (version != 2) {
     const auto walk = version == 1 ? packet_walk_v1_kernel : packet_walk_v3_kernel;
     const size_t smem = sizeof(int4) * kWarpsPk * (size_t)stack_cap;
@@ -696,11 +831,15 @@ extern "C" int lpt_packet_traverse(const void* nodes, const void* entries,
     walk<<<(n + kThreadsPk - 1) / kThreadsPk, kThreadsPk, smem, s>>>(
         nf, ei, rf, rof, rdf, tif, ac, to, po, io, er, n, stack_cap, max_iters, eps);
   } else if (leaf_kind == 1) {
-    packet_traverse_kernel<kSpheres><<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-        nf, ei, rf, rof, rdf, tif, ac, to, po, io, er, n, stack_cap, max_iters, eps);
+    packet_traverse_kernel<kSpheres, false, false><<<grid, kThreads, 0, s>>>(
+        nodes, ei, rf, rof, rdf, tif, ac, sd, to, po, io, er, n, stack_cap, max_iters, eps);
   } else {
-    packet_traverse_kernel<kTriPairs><<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-        nf, ei, rf, rof, rdf, tif, ac, to, po, io, er, n, stack_cap, max_iters, eps);
+    const auto k2 = seeded ? (node_bf16 ? packet_traverse_kernel<kTriPairs, true, true>
+                                        : packet_traverse_kernel<kTriPairs, true, false>)
+                           : (node_bf16 ? packet_traverse_kernel<kTriPairs, false, true>
+                                        : packet_traverse_kernel<kTriPairs, false, false>);
+    k2<<<grid, kThreads, 0, s>>>(nodes, ei, rf, rof, rdf, tif, ac, sd, to, po, io, er, n,
+                                 stack_cap, max_iters, eps);
   }
   return (int)cudaGetLastError();
 }

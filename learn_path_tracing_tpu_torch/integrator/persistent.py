@@ -31,7 +31,10 @@ stays far inside int64 and the rounding (at most 2**-33 per contribution)
 is far below float32 resolution.
 
 The loop reads the live-lane count to the host once per pass, to decide
-whether to continue or drain.
+whether to continue or drain; in the drain levels ``drain_unroll`` passes
+share one read. The JAX package's pool and drain knobs (``pool_mult``,
+``pool_div``, ``drain_ratio``, ``drain_floor``, ``drain_unroll``) set the
+schedule as there; none changes the image.
 
 The mega engine (``engine='mega'``) keeps the JAX package's schedule for
 it: the grouped schedule with a pool of ``n`` lanes, no halving and no
@@ -84,18 +87,41 @@ class Schedule:
     drain_widths: tuple  # lane counts of the drain levels, widest first
 
 
-def schedule(n: int, spp: int) -> Schedule:
-    """The JAX package's auto pool policy and drain cascade.
+def schedule(n: int, spp: int, pool_mult: int = 0, pool_div: int = 0,
+             drain_ratio: int = DRAIN_RATIO, drain_floor: int = 0) -> Schedule:
+    """The JAX package's pool policy and drain cascade, with its overrides
+    and their errors.
 
-    When ``spp | n``, the pool halves from ``n`` while it stays at or above
-    ``POOL_FLOOR``, is rounded up to a multiple of spp and aligned down to
-    ``POOL_ALIGN`` lanes where spp allows; otherwise it is ``n``. The drain
-    levels narrow the pool by ``DRAIN_RATIO`` per level, in multiples of
-    256 lanes, down to ``DRAIN_FLOOR``.
+    Auto (no override): when ``spp | n``, the pool halves from ``n`` while
+    it stays at or above ``POOL_FLOOR``, is rounded up to a multiple of spp
+    and aligned down to ``POOL_ALIGN`` lanes where spp allows; otherwise it
+    is ``n``. ``pool_mult = q`` (a divisor of spp) makes it ``q·n`` lanes,
+    each running ``spp / q`` items; ``pool_div = d`` makes it ``n // d``
+    rounded up to a multiple of spp (at least spp), each lane running about
+    ``d·spp`` items. Both need ``spp | n`` and exclude each other. The drain
+    levels narrow the pool by ``drain_ratio`` per level, in multiples of 256
+    lanes, down to ``drain_floor`` (0: ``DRAIN_FLOOR``).
     """
+    if pool_mult and pool_div:
+        raise ValueError("pool_mult and pool_div are mutually exclusive")
+    if drain_ratio < 1:
+        raise ValueError(f"drain_ratio={drain_ratio} must be at least 1")
     grouped = n % spp == 0
     pool = n
-    if grouped:
+    if not grouped:
+        if pool_mult or pool_div:
+            raise ValueError(f"pool_mult/pool_div need spp | n (n={n}, spp={spp})")
+    elif pool_mult:
+        if spp % pool_mult:
+            # a non-divisor would drop the last spp % q samples of a pixel
+            raise ValueError(f"pool_mult={pool_mult} must divide spp={spp} "
+                             f"(each lane runs spp/pool_mult work items)")
+        pool = pool_mult * n
+    elif pool_div:
+        pool = -(-(n // pool_div) // spp) * spp
+        if pool < spp:
+            raise ValueError(f"pool_div={pool_div} leaves a pool below spp={spp}")
+    else:
         while pool // 2 >= POOL_FLOOR:
             pool //= 2
         pool = -(-pool // spp) * spp
@@ -103,15 +129,16 @@ def schedule(n: int, spp: int) -> Schedule:
         if align <= pool and (pool // align) * align * 2 >= POOL_FLOOR:
             pool = (pool // align) * align
     items_per = -(-(n * spp) // pool) if grouped else spp
+    floor = drain_floor if drain_floor > 0 else DRAIN_FLOOR
 
     def round256(v):
         return -(-v // 256) * 256
 
     levels = []
-    lw = round256(pool // DRAIN_RATIO)
-    while grouped and lw >= DRAIN_FLOOR and lw < (levels[-1] if levels else pool):
+    lw = round256(pool // drain_ratio)
+    while grouped and lw >= floor and lw < (levels[-1] if levels else pool):
         levels.append(lw)
-        lw = round256(lw // DRAIN_RATIO)
+        lw = round256(lw // drain_ratio)
     return Schedule(grouped, pool, items_per, tuple(levels))
 
 
@@ -185,29 +212,42 @@ def render_persistent(world_data, cam: CameraParams, resolution, spp: int,
                       limit: int = 32, seed=0, bsdf: str = "modern",
                       camera_model: str = "thinlens", scene: str = "spheres",
                       hit_backend: str = "auto", engine: str = "auto",
-                      stats: bool = False):
+                      pool_mult: int = 0, pool_div: int = 0,
+                      drain_ratio: int = DRAIN_RATIO, drain_floor: int = 0,
+                      drain_unroll: int = 0, stats: bool = False):
     """Returns ``(image f32[W,H,3], segments int)``, plus a stats dict when
     ``stats``. The same sample values as ``wavefront.render``.
 
     ``engine``: 'auto' and 'modular' compose the per-stage ops; 'mega' runs
     each pass as one fused bounce kernel (``ops.bounce_megakernel``, K4) over
     a full-width pool of ``W·H`` lanes. The mega engine takes only the
-    sphere scene with the modern BSDF and the thin-lens camera, and needs
-    ``spp | W·H``; it raises ``ValueError`` on any other argument, where the
-    JAX package drops the arguments silently. Its samples are the modular
-    engine's, so on the CPU the two images agree. The JAX package's pool
-    and drain overrides (``pool_mult``, ``pool_div``, ``drain_ratio``,
-    ``drain_floor``) and its TPU-only accumulation and unroll knobs are not
-    carried over: the port uses the auto policy.
+    sphere scene with the modern BSDF and the thin-lens camera, needs
+    ``spp | W·H`` and has no pool or drain to set; it raises ``ValueError``
+    on any other argument, where the JAX package drops the arguments
+    silently. Its samples are the modular engine's, so on the CPU the two
+    images agree.
+
+    The modular engine's schedule knobs, the JAX package's: ``pool_mult``,
+    ``pool_div``, ``drain_ratio`` and ``drain_floor`` set the pool and the
+    drain levels (``schedule``); ``drain_unroll = k`` runs ``k`` passes per
+    read of the live-lane count in the drain levels (0 or 1: every pass),
+    counting each pass and its live lanes on the device, so a level may
+    overshoot its boundary by up to ``k - 1`` passes, exact no-ops once the
+    pool is empty. Every setting gives the auto image bit for bit and its
+    segment count; the passes and the host reads change (``stats``). The
+    JAX package's ``acc_split`` picks the TPU's matrix-product accumulation
+    windows and has no counterpart (the accumulator is int64 fixed point).
     """
     w, h = resolution
+    knobs = dict(pool_mult=pool_mult, pool_div=pool_div, drain_ratio=drain_ratio,
+                 drain_floor=drain_floor, drain_unroll=drain_unroll)
     if engine == "mega":
-        _check_mega(w * h, spp, bsdf, camera_model, scene, hit_backend)
+        _check_mega(w * h, spp, bsdf, camera_model, scene, hit_backend, knobs)
         acc, segments, st = _render_mega(world_data, cam, resolution, spp, limit, seed)
     elif engine in ("auto", "modular"):
         acc, segments, st = _persistent_core(
             world_data, cam, resolution, w * h, 0, 0, spp, limit, seed, bsdf,
-            camera_model, scene, hit_backend)
+            camera_model, scene, hit_backend, **knobs)
     else:
         raise ValueError(f"unknown engine: {engine!r}")
     img = (radiance(acc) / spp).reshape(w, h, 3)
@@ -225,16 +265,21 @@ def radiance(acc):
 def _persistent_core(world_data, cam: CameraParams, resolution, n: int,
                      pixel_base: int, sample_base: int, spp: int, limit: int,
                      seed, bsdf: str, camera_model: str, scene: str,
-                     hit_backend: str):
+                     hit_backend: str, pool_mult: int = 0, pool_div: int = 0,
+                     drain_ratio: int = DRAIN_RATIO, drain_floor: int = 0,
+                     drain_unroll: int = 0):
     """Persistent render over a pixel range and a sample range: samples
     ``[sample_base, sample_base + spp)`` of pixels ``[pixel_base,
     pixel_base + n)`` of the ``resolution`` image. The schedule, the drain
     cascade and the accumulator are local to the range (``schedule(n,
-    spp)``; ``acc`` row ``i`` is pixel ``pixel_base + i``), and the camera
-    and the RNG key on absolute ids, so a range's samples are those of the
-    whole render: ``parallel.mesh`` runs one range a rank. Returns ``(acc
-    int64[n, 3] fixed-point radiance sums, segments int, stats dict)``."""
-    sched = schedule(n, spp)
+    spp, ...)`` with the knobs of ``render_persistent``; ``acc`` row ``i``
+    is pixel ``pixel_base + i``), and the camera and the RNG key on absolute
+    ids, so a range's samples are those of the whole render:
+    ``parallel.mesh`` runs one range a rank. Returns ``(acc int64[n, 3]
+    fixed-point radiance sums, segments int, stats dict)``; the stats hold
+    the schedule, the passes and ``host_reads``, the live-count reads."""
+    sched = schedule(n, spp, pool_mult, pool_div, drain_ratio, drain_floor)
+    unroll = max(drain_unroll, 1)
     dev = cam.device
     hit_fn, background_fn = _scene_fns(scene)
     item_of = item_fn(sched, n, spp, dev)
@@ -252,24 +297,41 @@ def _persistent_core(world_data, cam: CameraParams, resolution, n: int,
                sample_base=sample_base)
 
     acc = torch.zeros((n, 3), dtype=torch.int64, device=dev)
+    reads = 0
 
-    def run(rays, k, bounce, items, live, stop_at):
-        """Bounce passes while more than ``stop_at`` lanes are live."""
+    def read(*counts):
+        """The device counts to the host, one transfer."""
+        nonlocal reads
+        reads += 1
+        return torch.stack(counts).tolist()
+
+    def run(rays, k, bounce, items, live, stop_at, unroll=1):
+        """Bounce passes while more than ``stop_at`` lanes are live, read
+        after every ``unroll`` passes; the live lanes of a pass after the
+        first of a group are summed on the device."""
         segments = passes = 0
         while live > stop_at:
-            rays, k, bounce, pixel, contrib, _ = step(world_data, rays, k, bounce, items,
-                                                      **fns)
-            acc.index_add_(0, pixel, torch.round(contrib * _FIXED_ONE).to(torch.int64))
+            later = torch.zeros((), dtype=torch.int64, device=dev)
+            for j in range(unroll):
+                if j:
+                    later += rays.alive.sum()
+                rays, k, bounce, pixel, contrib, _ = step(world_data, rays, k, bounce, items,
+                                                          **fns)
+                acc.index_add_(0, pixel, torch.round(contrib * _FIXED_ONE).to(torch.int64))
+                passes += 1
             segments += live
-            passes += 1
-            live = int(rays.alive.sum())
+            if unroll > 1:
+                extra, live = read(later, rays.alive.sum())
+                segments += extra
+            else:
+                (live,) = read(rays.alive.sum())
         return rays, k, bounce, live, segments, passes
 
     k = torch.zeros((sched.pool,), dtype=torch.int64, device=dev)
     bounce = torch.zeros((sched.pool,), dtype=torch.int64, device=dev)
     valid0, pix0, samp0 = item_of(k)
     rays = primary(pix0, samp0).with_alive(valid0)
-    live = int(valid0.sum())
+    (live,) = read(valid0.sum())
 
     levels = sched.drain_widths
     rays, k, bounce, live, segments, passes_full = run(
@@ -288,7 +350,7 @@ def _persistent_core(world_data, cam: CameraParams, resolution, n: int,
 
         next_w = levels[li + 1] if li + 1 < len(levels) else 0
         rays, k, bounce, live, segs, lvl_passes = run(
-            rays, k, bounce, item_of_d, live, next_w)
+            rays, k, bounce, item_of_d, live, next_w, unroll)
         segments += segs
         drain_passes.append(lvl_passes)
 
@@ -297,16 +359,23 @@ def _persistent_core(world_data, cam: CameraParams, resolution, n: int,
         "passes_full": passes_full,
         "drain_widths": levels,
         "drain_passes": tuple(drain_passes),
+        "host_reads": reads,
     }
 
 
+MODULAR_KNOBS = dict(pool_mult=0, pool_div=0, drain_ratio=DRAIN_RATIO, drain_floor=0,
+                     drain_unroll=0)
+
+
 def _check_mega(n: int, spp: int, bsdf: str, camera_model: str, scene: str,
-                hit_backend: str):
-    """The arguments the mega engine takes, each named where it is not."""
-    for name, value, want in (("bsdf", bsdf, "modern"),
-                              ("camera_model", camera_model, "thinlens"),
-                              ("scene", scene, "spheres"),
-                              ("hit_backend", hit_backend, "auto")):
+                hit_backend: str, knobs=None):
+    """The arguments the mega engine takes, each named where it is not;
+    ``knobs``: the schedule knobs, which it takes only at their defaults
+    (``MODULAR_KNOBS``: its pool is ``n`` lanes and it has no drain)."""
+    wanted = [("bsdf", bsdf, "modern"), ("camera_model", camera_model, "thinlens"),
+              ("scene", scene, "spheres"), ("hit_backend", hit_backend, "auto")]
+    wanted += [(name, value, MODULAR_KNOBS[name]) for name, value in (knobs or {}).items()]
+    for name, value, want in wanted:
         if value != want:
             raise ValueError(f"engine 'mega' takes only {name}={want!r}, got {value!r}")
     if spp < 1 or n % spp:

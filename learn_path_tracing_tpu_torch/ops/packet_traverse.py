@@ -27,6 +27,19 @@ argument here, all in ``csrc/packet_traverse.cu``:
   ``(lo - ro)*inv``. v1's pushed leaves are its schedule, not its function;
   they were measured here and lost to the inline test.
 
+K2 has the two modes of ``_kernel_v2`` that the JAX package reaches from
+its mesh path, template flags of the same kernel:
+
+- K2r, the treelet restart (``packet_traverse_sorted(restart=True)``, the
+  JAX package's ``seed_init``): rays sorted by the treelet key start their
+  walk from the seed row of their 1024-ray block (``seed_rows``: the
+  depth-2 treelets any ray of the block enters, at most 8) instead of the
+  root; exact, so ``(t, prim)`` are the root walk's;
+- K2h, the bf16 slabs: a ``bfloat16`` node table (``nodes_to_bf16``,
+  boxes rounded outward) and the slab test in bf16. It loses hits whose
+  ray terms round past a box face, so its image is not the f32 one (an
+  ablation, as in the JAX package); K2rh is both.
+
 Sphere leaves take version 2 only, as in the JAX package. The data
 contract is the JAX package's:
 
@@ -75,9 +88,17 @@ are the per-ray walk's. Their ``iters`` are the node pops of the ray's
 warp, given to each of its rays; the twin's are per ray, so ``iters`` is
 reported and not compared.
 
+The coherence keys are the JAX package's (``_coherence_key``: 'treelet',
+the default, or 'morton'). In both packages an empty treelet slot's box
+(``lo = +inf``, ``hi = -inf``) passes the key's slab test for every ray, so
+on a tree whose top two levels have empty slots every ray "enters" them:
+the treelet pair then sorts by those slots, and a block is seeded only
+where at most 8 slots are entered in all.
+
 ``traverse`` dispatches on the device: CUDA tensors launch the version's
-kernel (and count the launch in ``traverse.launches[<kernel>]``), CPU
-tensors run the plain twin. There is no fallback between the two.
+kernel or K2's mode (and count the launch in
+``traverse.launches[<kernel>]``, ``kernel_of``), CPU tensors run the plain
+twin. There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -97,13 +118,23 @@ _PRIM_COL = SLOT_F * SLOTS  # cols 96..103: prim index per slot (f32)
 _ENC = 64
 LEAF_KINDS = ("tri", "sphere")
 VERSIONS = (1, 2, 3)
+SORT_KEYS = ("treelet", "morton")
 # the kernel that carries each (leaf kind, version), as traverse.launches counts
 KERNELS = {("tri", 2): "k2", ("sphere", 2): "k3", ("tri", 1): "k5a", ("tri", 3): "k5b"}
+# K2's modes (version 2, triangle leaves): seeded from per-block seed rows
+# (the treelet restart), bf16 node boxes, or both
+MODES = {(True, False): "k2r", (False, True): "k2h", (True, True): "k2rh"}
 SLABS = {1: "direct", 2: "hoisted", 3: "hoisted"}
 # stack entries K2 and K3 hold (csrc kMaxStack); K5a and K5b size their
 # shared memory by the tables' stack_cap
 MAX_STACK = 256
 _INF = float("inf")
+# The JAX package's RAY_BLOCK: the lanes of one seed row (the treelet
+# restart seeds a block of 1024 sorted rays), and the divisor nstacks takes.
+SEED_BLOCK = 1024
+SEED_COLS = 16          # seed row: codes at 0..7, their count at column 8
+# the bf16 slab test's initial bounds: the TPU kernel's jnp.bfloat16(3.0e38)
+_BMAX16 = float(torch.tensor(3.0e38).to(torch.bfloat16))
 
 # Treelet-key sentinels (see _treelet_entry_key / _coherence_key): rays that
 # enter no depth-2 treelet get major key 65²; packet_traverse_sorted parks
@@ -223,6 +254,36 @@ def pack_sphere_packet_tables(wbvh: WideBVH, centers, radii, transparency):
     return _node_columns(wbvh), entries, runs
 
 
+def nodes_to_bf16(nodes):
+    """bfloat16 copy ``[M,128]`` of a ``nodes`` table with outward rounding,
+    byte for byte the JAX package's: lo columns 0..23 round toward -inf and
+    hi columns 24..47 toward +inf (so every bf16 box contains its f32
+    box), the other columns to nearest even. K2 walks such a table in its
+    bf16-slab mode (K2h); versions 1 and 3 widen it to f32, as the JAX
+    package's kernels promote it."""
+    if isinstance(nodes, torch.Tensor):
+        nodes = nodes.cpu().numpy()
+    nodes = np.array(nodes, np.float32)
+    near = torch.from_numpy(nodes).to(torch.bfloat16)     # round to nearest even
+    back = near.to(torch.float32).numpy()
+    bits = near.view(torch.int16).numpy().view(np.uint16)
+
+    def step(b, up):
+        """One bf16 ulp toward +inf (``up``) or -inf, across signs and zero."""
+        pos = (b & 0x8000) == 0
+        inc = np.where(pos == up, b + 1, b - 1).astype(np.uint16)
+        return np.where((b & 0x7FFF) == 0,
+                        np.uint16(1) | np.where(up, 0, 0x8000).astype(np.uint16), inc)
+
+    out = bits.copy()
+    for d in range(6):
+        cols = slice(d * 8, (d + 1) * 8)
+        up = d >= 3                    # hi columns need bf16 >= f32
+        need = (back[:, cols] < nodes[:, cols]) if up else (back[:, cols] > nodes[:, cols])
+        out[:, cols] = np.where(need, step(bits[:, cols], up), bits[:, cols])
+    return torch.from_numpy(out.view(np.int16).copy()).view(torch.bfloat16)
+
+
 def stack_cap(entries) -> int:
     """Stack entries a walk of these tables can need: ``1 + 7*depth``, with
     ``depth`` the number of wide-node levels. A pop of a node at level
@@ -261,12 +322,30 @@ def treelet_boxes(nodes, entries):
             hi.reshape(WIDTH * WIDTH, 3).astype(np.float32))
 
 
+def treelet_seed_codes(nodes, entries):
+    """``i32[64]`` stack entry code of each treelet slot of
+    ``treelet_boxes``: root child ``c``'s grandchild ``g`` at ``c*8 + g``; a
+    root child that is itself a leaf run holds slot ``c*8`` with its own
+    leaf code; empty slots ``_PAD`` (numpy, computed once per world; the
+    treelet restart's seeds, ``packet_traverse_sorted(restart=True)``)."""
+    entries = np.asarray(entries.cpu() if isinstance(entries, torch.Tensor) else entries)
+    m = entries.shape[0]
+    ent0 = entries[0, 0:WIDTH]
+    grand = entries[np.clip(ent0, 0, m - 1)][:, 0:WIDTH]          # [8,8]
+    is_node = (ent0 >= 0)[:, None]
+    self_slot = (np.arange(WIDTH) == 0)[None, :]
+    codes = np.where(is_node, grand, np.where(self_slot, ent0[:, None], _PAD))
+    return codes.reshape(WIDTH * WIDTH).astype(np.int32)
+
+
 # --------------------------------------------------------- coherence keys --
 
-def _treelet_entry_key(ro, rd, treelets, eps: float = 0.0):
+def _treelet_entry_key(ro, rd, treelets, eps: float = 0.0, want_mask: bool = False):
     """Sort key = the two nearest depth-2 treelets each ray enters
     (``m1 * 65 + m2``; 64 = none; ``65²`` when the ray enters none), from
-    dense slab tests against the <= 64 treelet boxes."""
+    dense slab tests against the <= 64 treelet boxes. ``want_mask`` also
+    returns every treelet the ray enters as two int64 words ``(w0, w1)``
+    (bit ``t`` of word ``t // 32``: the JAX package's two u32 words)."""
     lo, hi = treelets
     inv = torch.ones_like(rd) / rd
     t0 = t1 = None
@@ -286,7 +365,13 @@ def _treelet_entry_key(ro, rd, treelets, eps: float = 0.0):
     t_m2, m2 = torch.min(tmin2, dim=1)
     m2 = torch.where(torch.isfinite(t_m2), m2, nw)
     key = m1 * (nw + 1) + m2
-    return torch.where(torch.isfinite(t_m1), key, _TREELET_NONE)
+    key = torch.where(torch.isfinite(t_m1), key, _TREELET_NONE)
+    if not want_mask:
+        return key
+    bits = torch.arange(32, dtype=torch.int64, device=ro.device)
+    words = [torch.sum(entered[:, h * 32:(h + 1) * 32].to(torch.int64) << bits, dim=1)
+             for h in range(2)]
+    return key, words[0], words[1]
 
 
 def _spread(v):  # 5 bits -> every 3rd position (Morton interleave)
@@ -296,11 +381,9 @@ def _spread(v):  # 5 bits -> every 3rd position (Morton interleave)
     return v
 
 
-def _coherence_key(nodes, ro, rd, treelets, eps: float = 0.0):
-    """int64 sort key: the treelet-entry pair (major, 13 bits) then a Morton
-    code of the origin's cell over the root box (32 cells per axis) and the
-    direction octant (18 bits) — the JAX package's ``kind='treelet'`` key,
-    value for value."""
+def _morton_key(nodes, ro, rd):
+    """int64 Morton code of the origin's cell over the root box (32 cells
+    per axis) times 8 plus the direction octant: 18 bits."""
     cells = 32
     root = nodes[0]
     lo = torch.stack([torch.amin(root[d * 8:(d + 1) * 8]) for d in range(3)])
@@ -312,27 +395,70 @@ def _coherence_key(nodes, ro, rd, treelets, eps: float = 0.0):
     octant = ((rd[:, 0] > 0).to(torch.int64) + 2 * (rd[:, 1] > 0).to(torch.int64)
               + 4 * (rd[:, 2] > 0).to(torch.int64))
     cell = (_spread(q[:, 0]) << 2) | (_spread(q[:, 1]) << 1) | _spread(q[:, 2])
-    morton = cell * 8 + octant
+    return cell * 8 + octant
+
+
+def _coherence_key(nodes, ro, rd, treelets, eps: float = 0.0, kind: str = "treelet"):
+    """int64 sort key of the JAX package's ``_coherence_key``, value for
+    value: ``kind='treelet'`` the treelet-entry pair (major, 13 bits) then
+    the Morton code (``_morton_key``, 18 bits); ``kind='morton'`` the
+    Morton code alone (``treelets`` unused)."""
+    if kind not in SORT_KEYS:
+        raise ValueError(f"unknown sort key: {kind!r} (one of {SORT_KEYS})")
+    morton = _morton_key(nodes, ro, rd)
+    if kind == "morton":
+        return morton
     return _treelet_entry_key(ro, rd, treelets, eps=eps) * (1 << 18) + morton
+
+
+def seed_rows(w0, w1, seed_codes):
+    """Treelet-restart seed rows ``i32[ceil(N/1024), 16]`` from the sorted
+    rays' entered words ``w0, w1`` (``_treelet_entry_key(want_mask=True)``
+    in sorted order, 0 for inactive rays) and the tables' ``seed_codes``
+    (``treelet_seed_codes``): the JAX package's rows. Row ``b`` seeds rays
+    ``[1024 b, 1024 b + 1024)``: columns 0..7 hold the codes of the
+    treelets any of them enters, in slot order (then the rest of the slots'
+    codes), column 8 their count, 0 (a root walk) when it is above 8."""
+    n = w0.shape[0]
+    nblk = -(-n // SEED_BLOCK)
+    bits = torch.arange(32, dtype=torch.int64, device=w0.device)
+    ent = torch.cat([((w[:, None] >> bits) & 1).bool() for w in (w0, w1)], dim=1)
+    ent = torch.cat([ent, ent.new_zeros((nblk * SEED_BLOCK - n, WIDTH * WIDTH))])
+    ent = ent.view(nblk, SEED_BLOCK, WIDTH * WIDTH).any(dim=1)         # [nblk,64]
+    cnt = ent.sum(dim=1)
+    # entered codes to the row head, in slot order (a stable sort)
+    slot = torch.sort((~ent).to(torch.int32), dim=1, stable=True).indices
+    codes = torch.as_tensor(seed_codes, device=w0.device).to(torch.int32)[slot]
+    rows = torch.zeros((nblk, SEED_COLS), dtype=torch.int32, device=w0.device)
+    rows[:, :WIDTH] = codes[:, :WIDTH]
+    rows[:, WIDTH] = torch.where((cnt >= 1) & (cnt <= WIDTH), cnt, 0).to(torch.int32)
+    return rows
 
 
 # ----------------------------------------------------------- entry points --
 
-def _check(nodes, entries, runs, ro, rd, t_init, active, leaf_kind, version=2):
+def _check(nodes, entries, runs, ro, rd, t_init, active, leaf_kind, version=2, seeds=None):
     if leaf_kind not in LEAF_KINDS:
         raise ValueError(f"unknown leaf kind: {leaf_kind!r}")
     if version not in VERSIONS:
         raise ValueError(f"unknown packet version: {version!r} (one of {VERSIONS})")
     if leaf_kind != "tri" and version != 2:
         raise ValueError("sphere leaf runs require version 2")
+    bf16 = nodes.dtype == torch.bfloat16
+    if (bf16 or seeds is not None) and leaf_kind != "tri":
+        raise ValueError("bf16 node slabs and restart seeds are modes of K2 (triangle leaves)")
+    if seeds is not None and version != 2:
+        raise ValueError("restart seeding requires the v2 kernel")
     n = ro.shape[0]
-    for name, x, dtype, shape in (
-            ("nodes", nodes, torch.float32, (nodes.shape[0], 128)),
-            ("entries", entries, torch.int32, (nodes.shape[0], 128)),
-            ("runs", runs, torch.float32, (runs.shape[0], 128)),
-            ("ro", ro, torch.float32, (n, 3)), ("rd", rd, torch.float32, (n, 3)),
-            ("t_init", t_init, torch.float32, (n,)),
-            ("active", active, torch.bool, (n,))):
+    checks = [("nodes", nodes, torch.bfloat16 if bf16 else torch.float32, (nodes.shape[0], 128)),
+              ("entries", entries, torch.int32, (nodes.shape[0], 128)),
+              ("runs", runs, torch.float32, (runs.shape[0], 128)),
+              ("ro", ro, torch.float32, (n, 3)), ("rd", rd, torch.float32, (n, 3)),
+              ("t_init", t_init, torch.float32, (n,)),
+              ("active", active, torch.bool, (n,))]
+    if seeds is not None:
+        checks.append(("seeds", seeds, torch.int32, (-(-n // SEED_BLOCK), SEED_COLS)))
+    for name, x, dtype, shape in checks:
         if x.dtype != dtype or tuple(x.shape) != shape:
             raise ValueError(f"packet traversal: {name} must be {dtype}{list(shape)}, "
                              f"got {x.dtype}{list(x.shape)}")
@@ -341,65 +467,103 @@ def _check(nodes, entries, runs, ro, rd, t_init, active, leaf_kind, version=2):
                              f"rays on {ro.device}")
 
 
+def kernel_of(leaf_kind: str = "tri", version: int = 2, seeded: bool = False,
+              bf16: bool = False) -> str:
+    """The name under which ``traverse.launches`` counts the kernel of these
+    arguments: K2's modes are ``k2r`` (seeded), ``k2h`` (bf16 slabs) and
+    ``k2rh`` (both)."""
+    if version == 2 and leaf_kind == "tri" and (seeded or bf16):
+        return MODES[seeded, bf16]
+    return KERNELS[(leaf_kind, version)]
+
+
 def traverse(nodes, entries, runs, ro, rd, t_init, active, eps: float = 1e-4,
-             leaf_kind: str = "tri", stack: int | None = None, version: int = 2):
+             leaf_kind: str = "tri", stack: int | None = None, version: int = 2,
+             seeds=None):
     """Nearest hit of ``N`` rays → ``(t f32[N], prim i32[N], iters i32[N])``:
     ``t`` is ``t_init`` and ``prim`` -1 where nothing beats ``t_init``;
     ``iters`` counts stack pops (each ray's in the twin and K2/K3, its
     packet's in K5a/K5b). ``stack`` is the tables' ``stack_cap`` (computed
     from ``entries`` when None); ``version`` picks the kernel (1, 2 or 3).
 
+    K2's modes (version 2, triangle leaves): ``seeds`` (``seed_rows``,
+    ``i32[ceil(N/1024), 16]``) starts ray ``i``'s walk from the seeds of
+    row ``i // 1024`` instead of the root (K2r); a ``bfloat16`` ``nodes``
+    table (``nodes_to_bf16``) runs the slab test in bf16 (K2h); both, K2rh.
+    Versions 1 and 3 widen a bf16 table to f32 and walk it, as the JAX
+    package's v1 and v3 kernels promote it.
+
     CUDA tensors launch the kernel, CPU tensors run the plain twin."""
-    _check(nodes, entries, runs, ro, rd, t_init, active, leaf_kind, version)
+    if nodes.dtype == torch.bfloat16 and version != 2:
+        nodes = nodes.to(torch.float32)
+    _check(nodes, entries, runs, ro, rd, t_init, active, leaf_kind, version, seeds)
     if stack is None:
         stack = stack_cap(entries.cpu().numpy())
     if ro.device.type == "cpu":
         return packet_traverse_plain(nodes, entries, runs, ro, rd, t_init, active,
                                      eps=eps, leaf_kind=leaf_kind, stack=stack,
-                                     slab=SLABS[version])
+                                     slab=SLABS[version], seeds=seeds)
     if ro.device.type != "cuda":
         raise ValueError(f"packet traversal: no kernel for device {ro.device}")
     return _launch(nodes, entries, runs, ro, rd, t_init, active, eps, leaf_kind, stack,
-                   version)
+                   version, seeds)
 
 
-traverse.launches = {kernel: 0 for kernel in KERNELS.values()}
+traverse.launches = {kernel: 0 for kernel in (*KERNELS.values(), *MODES.values())}
 
 
 def _treelets(nodes, entries, device):
     return tuple(torch.as_tensor(x, device=device) for x in
-                 treelet_boxes(nodes.cpu().numpy(), entries.cpu().numpy()))
+                 treelet_boxes(nodes.to(torch.float32).cpu().numpy(), entries.cpu().numpy()))
+
+
+def _check_nstacks(nstacks: int, version: int):
+    """The JAX package's checks of its sub-packet count."""
+    if nstacks < 1 or SEED_BLOCK % nstacks:
+        raise ValueError(f"nstacks={nstacks} must divide block {SEED_BLOCK}")
+    if nstacks != 1 and version != 2:
+        raise ValueError("nstacks > 1 requires version=2")
 
 
 def packet_traverse(nodes, entries, runs, ro, rd, t_init, active,
                     eps: float = 1e-4, sort_rays: bool = False,
-                    with_stats: bool = False, version: int = 2, treelets=None,
+                    with_stats: bool = False, sort_key: str = "treelet",
+                    version: int = 2, nstacks: int = 1, treelets=None,
                     leaf_kind: str = "tri", stack: int | None = None):
     """Nearest-hit traversal in caller lane order: ``(t, prim)``. ``t`` is
     ``t_init`` where nothing beats it (inactive rays included) and ``prim``
     is -1 there. The parameters take the JAX package's order.
 
     ``sort_rays``: the JAX package's coherence sort around the kernel
-    (``_sort_fwd``/``_sort_inv``): rays are stably sorted by the treelet
-    key (``treelets``: the tables' ``treelet_boxes``, computed when None),
-    traversed, and put back in lane order. A packet kernel's cost is its
-    packet's node union, which the sort shrinks; the result is the same
-    either way (a permutation, and an order-free tie rule). The JAX
-    package sorts by default; the port does not (version 2's sort cost
-    more than it saved on the card).
+    (``_sort_fwd``/``_sort_inv``): rays are stably sorted by ``sort_key``
+    ('treelet': the treelet-entry pair then the Morton code, with
+    ``treelets`` the tables' ``treelet_boxes``, computed when None;
+    'morton': the Morton code alone), traversed, and put back in lane
+    order. A packet kernel's cost is its packet's node union, which the
+    sort shrinks; the result is the same either way (a permutation, and an
+    order-free tie rule). The JAX package sorts by default; the port does
+    not (version 2's sort cost more than it saved on the card).
+
+    ``nstacks``: the JAX package's sub-packets of version 2 (it splits a
+    1024-ray block into that many stacks walked in turn), checked as there
+    (a divisor of 1024; 1 for versions 1 and 3). K2 gives every ray a stack
+    of its own, finer than any split, and the result of ``_kernel_v2`` is
+    exact for every value, so the argument changes nothing here.
 
     ``with_stats``: also return the walk's ``iters i32[N]``, the node pops
     of each ray (of its warp for versions 1 and 3; the JAX package gives
     one count a packet). It needs ``sort_rays=False``, as there."""
+    _check_nstacks(nstacks, version)
     if with_stats and sort_rays:
         raise ValueError("with_stats requires sort_rays=False to keep lane identity")
     if not sort_rays:
         t, prim, iters = traverse(nodes, entries, runs, ro, rd, t_init, active, eps=eps,
                                   leaf_kind=leaf_kind, stack=stack, version=version)
         return (t, prim, iters) if with_stats else (t, prim)
-    if treelets is None:
+    if treelets is None and sort_key == "treelet":
         treelets = _treelets(nodes, entries, ro.device)
-    order = torch.argsort(_coherence_key(nodes, ro, rd, treelets), stable=True)
+    order = torch.argsort(_coherence_key(nodes, ro, rd, treelets, kind=sort_key),
+                          stable=True)
     t_s, p_s, _ = traverse(nodes, entries, runs, ro[order], rd[order], t_init[order],
                            active[order], eps=eps, leaf_kind=leaf_kind, stack=stack,
                            version=version)
@@ -410,16 +574,19 @@ def packet_traverse(nodes, entries, runs, ro, rd, t_init, active,
 
 
 def packet_traverse_sorted(nodes, entries, runs, ro, rd, active,
-                           eps: float = 1e-4, treelets=None, version: int = 2,
+                           eps: float = 1e-4, sort_key: str = "treelet", treelets=None,
+                           version: int = 2, restart: bool = False, seed_codes=None,
                            payload=(), stack: int | None = None):
     """Coherence-sorted traversal: the JAX package's entry for fused hit
     shading on single-structure worlds (``t_init`` is +inf).
     ``scene.legacy_world.trace_shade_compact`` takes it for versions 1 and
-    3 (packet kernels), as the JAX package does; version 2 walks in lane
-    order (the sort cost more than it saved there).
+    3 (packet kernels), as the JAX package does, and for version 2 under
+    the treelet restart; version 2 otherwise walks in lane order (the sort
+    cost more than it saved there).
 
     Rays are stably sorted by the treelet coherence key (``treelets``: the
-    tables' ``treelet_boxes``, computed when None), inactive rays last
+    tables' ``treelet_boxes``, computed when None; ``sort_key`` must be
+    'treelet', whose entered prefix the result reports), inactive rays last
     (``_KEY_INACTIVE``), and traversed in that order. Returns ``(t_s,
     prim_s, ro_s, rd_s, entered_n, order_idx)`` in sorted order: ``t_s`` is
     +inf where nothing was hit, ``entered_n`` (0-dim tensor) counts the
@@ -427,19 +594,28 @@ def packet_traverse_sorted(nodes, entries, runs, ro, rd, active,
     prefix), ``order_idx[i]`` is the original lane of sorted slot ``i``.
     ``payload``: extra ``[N, ...]`` tensors carried through the sort; when
     given, the result gains a 7th element, the payload in sorted order.
-    """
-    if treelets is None:
-        treelets = _treelets(nodes, entries, ro.device)
-    key = _coherence_key(nodes, ro, rd, treelets, eps=eps)
-    key = torch.where(active, key, _KEY_INACTIVE)
-    order_idx = torch.argsort(key, stable=True)
-    key_s = key[order_idx]
+
+    ``restart`` (version 2 only): the JAX package's treelet restart. Each
+    block of 1024 sorted rays starts its walks from the treelets any of its
+    active rays enters (``seed_rows``, from ``seed_codes``, the tables'
+    ``treelet_seed_codes``, computed when None) instead of the root: K2r.
+    Exact, since a ray can only hit a primitive below a treelet it enters
+    (the key's slab test is eps-relaxed like the kernel's), so ``(t_s,
+    prim_s)`` equal the root walk's. A block entering more than 8 treelets
+    walks from the root."""
+    if sort_key != "treelet":
+        # the entered prefix (hits in the first entered_n sorted rays) holds
+        # for the treelet-major key only
+        raise ValueError("packet_traverse_sorted requires sort_key='treelet'")
+    if restart and version != 2:
+        raise ValueError("restart seeding requires the v2 kernel")
+    order_idx, active_s, entered_n, seeds = sorted_rays(
+        nodes, entries, ro, rd, active, eps=eps, treelets=treelets, restart=restart,
+        seed_codes=seed_codes)
     ro_s, rd_s = ro[order_idx], rd[order_idx]
-    active_s = key_s < _KEY_INACTIVE
-    entered_n = torch.sum(key_s < _KEY_ENTERED_LIM)
     t_init = torch.full_like(ro_s[:, 0], _INF)
     t, prim, _ = traverse(nodes, entries, runs, ro_s, rd_s, t_init, active_s,
-                          eps=eps, stack=stack, version=version)
+                          eps=eps, stack=stack, version=version, seeds=seeds)
     t_s = torch.where(prim >= 0, t, _INF)
     out = (t_s, prim, ro_s, rd_s, entered_n, order_idx)
     if payload:
@@ -447,17 +623,48 @@ def packet_traverse_sorted(nodes, entries, runs, ro, rd, active,
     return out
 
 
+def sorted_rays(nodes, entries, ro, rd, active, eps: float = 1e-4, treelets=None,
+                restart: bool = False, seed_codes=None):
+    """``packet_traverse_sorted``'s ray order: ``(order_idx, active_s,
+    entered_n, seeds)``, the stable sort by the treelet coherence key with
+    inactive rays last, the sorted rays' active mask, the count of sorted
+    rays that enter a treelet, and with ``restart`` the seed rows of the
+    sorted blocks (``seed_rows``; else None)."""
+    if treelets is None:
+        treelets = _treelets(nodes, entries, ro.device)
+    if restart:
+        tkey, w0, w1 = _treelet_entry_key(ro, rd, treelets, eps=eps, want_mask=True)
+        key = tkey * (1 << 18) + _morton_key(nodes, ro, rd)
+    else:
+        key = _coherence_key(nodes, ro, rd, treelets, eps=eps)
+    key = torch.where(active, key, _KEY_INACTIVE)
+    order_idx = torch.argsort(key, stable=True)
+    key_s = key[order_idx]
+    active_s = key_s < _KEY_INACTIVE
+    entered_n = torch.sum(key_s < _KEY_ENTERED_LIM)
+    seeds = None
+    if restart:
+        if seed_codes is None:
+            seed_codes = treelet_seed_codes(nodes, entries)
+        # inactive rays contribute no treelet to their block
+        w0_s, w1_s = (torch.where(active_s, w[order_idx], 0) for w in (w0, w1))
+        seeds = seed_rows(w0_s, w1_s, seed_codes)
+    return order_idx, active_s, entered_n, seeds
+
+
 # ------------------------------------------------------------------ kernel --
 
-def _launch(nodes, entries, runs, ro, rd, t_init, active, eps, leaf_kind, stack, version):
-    kernel = KERNELS[(leaf_kind, version)]
+def _launch(nodes, entries, runs, ro, rd, t_init, active, eps, leaf_kind, stack, version,
+            seeds=None):
+    bf16 = nodes.dtype == torch.bfloat16
+    kernel = kernel_of(leaf_kind, version, seeds is not None, bf16)
     if version == 2 and stack > MAX_STACK:
         raise ValueError(f"packet traversal kernel: the tables need a stack of "
                          f"{stack} entries, {kernel} holds {MAX_STACK}")
     tensors = (("nodes", nodes), ("entries", entries), ("runs", runs), ("ro", ro),
-               ("rd", rd), ("t_init", t_init), ("active", active))
+               ("rd", rd), ("t_init", t_init), ("active", active), ("seeds", seeds))
     for name, x in tensors:
-        if not x.is_contiguous():
+        if x is not None and not x.is_contiguous():
             raise ValueError(f"packet traversal kernel: {name} must be contiguous")
     lib = load_kernel()
     n, m = ro.shape[0], nodes.shape[0]
@@ -472,9 +679,11 @@ def _launch(nodes, entries, runs, ro, rd, t_init, active, eps, leaf_kind, stack,
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.lpt_packet_traverse(
             nodes.data_ptr(), entries.data_ptr(), runs.data_ptr(), ro.data_ptr(),
-            rd.data_ptr(), t_init.data_ptr(), active.data_ptr(), t.data_ptr(),
+            rd.data_ptr(), t_init.data_ptr(), active.data_ptr(),
+            None if seeds is None else seeds.data_ptr(), t.data_ptr(),
             prim.data_ptr(), iters.data_ptr(), err.data_ptr(), n, stack,
-            16 * m + 64, float(eps), LEAF_KINDS.index(leaf_kind), version, stream)
+            16 * m + 64, float(eps), LEAF_KINDS.index(leaf_kind), version, int(bf16),
+            stream)
     if code != 0:
         msg = lib.lpt_error_string(code).decode()
         raise RuntimeError(f"packet traversal kernel launch failed: {msg} ({code})")
@@ -492,7 +701,8 @@ def load_kernel() -> ctypes.CDLL:
     """Build (first use) and load the kernel library with its C signature."""
     lib = build.load("packet_traverse")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.lpt_packet_traverse.argtypes = [vp] * 11 + [ci, ci, ci, ctypes.c_float, ci, ci, vp]
+    lib.lpt_packet_traverse.argtypes = [vp] * 12 + [ci, ci, ci, ctypes.c_float, ci, ci, ci,
+                                                    vp]
     lib.lpt_packet_traverse.restype = ci
     lib.lpt_error_string.argtypes = [ci]
     lib.lpt_error_string.restype = ctypes.c_char_p
@@ -552,19 +762,44 @@ def _leaf_candidates(row, nslots, o, d, eps, leaf_kind):
     return t_min, torch.where(at_min.any(dim=1), p_min, -1)
 
 
+def _bf16(x):
+    """``x`` rounded to the nearest even bfloat16, held as f32: the bf16
+    slab test's rounding after every f32 operation."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
 def packet_traverse_plain(nodes, entries, runs, ro, rd, t_init, active,
                           eps: float = 1e-4, leaf_kind: str = "tri",
-                          stack: int | None = None, slab: str = "hoisted"):
+                          stack: int | None = None, slab: str = "hoisted", seeds=None):
     """Plain PyTorch twin of the kernels, on any device: a lockstep walk in
     which every unfinished ray pops one stack entry per step, over the same
     tables, in the same order as K2, with the same f32 operations and tie
     rule. ``slab``: ``'hoisted'`` (``lo*inv - ro*inv``: K2, K3, K5b) or
     ``'direct'`` (``(lo - ro)*inv``: K5a). Returns ``(t, prim, iters)``
     like ``traverse``, ``iters`` per ray; raises on a stack overflow or the
-    ``16*M + 64`` step backstop."""
-    _check(nodes, entries, runs, ro, rd, t_init, active, leaf_kind)
+    ``16*M + 64`` step backstop.
+
+    K2's modes, as ``traverse`` takes them:
+
+    - ``seeds`` (K2r): ray ``i``'s walk starts from row ``i // 1024``. When
+      its count is 1..8, the row's codes are taken in slot order: a node is
+      pushed at entry distance +0 (so the last ends on top), a leaf run (a
+      root child that is a leaf) is tested at once, an empty slot skipped;
+      otherwise the walk starts at the root. Leaves at seed time are not
+      pops.
+    - a ``bfloat16`` ``nodes`` table (K2h): the hoisted slab test in bf16,
+      every operation an f32 operation rounded to the nearest even bf16:
+      ``inv16 = bf(1/rd)``, ``roinv16 = bf(ro*inv)``, ``t = bf(bf(lo*inv16) -
+      roinv16)``, ``t0``/``t1`` NaN-propagating max/min from ``∓bf(3e38)``,
+      entered if ``t1 > bf(t0 - eps16)``, ``t1 > 0`` and ``t0 < bf(bf(t_best)
+      + eps16)`` (``eps16 = bf(eps)``); the child's key is ``max(t0, 0)``
+      in f32, and the pops' and leaves' checks stay f32."""
+    _check(nodes, entries, runs, ro, rd, t_init, active, leaf_kind, seeds=seeds)
     if slab not in ("hoisted", "direct"):
         raise ValueError(f"unknown slab form: {slab!r}")
+    bf16 = nodes.dtype == torch.bfloat16
+    if bf16 and slab != "hoisted":
+        raise ValueError("the bf16 slab test takes the hoisted form")
     if stack is None:
         stack = stack_cap(entries.cpu().numpy())
     n, m = ro.shape[0], nodes.shape[0]
@@ -572,8 +807,14 @@ def packet_traverse_plain(nodes, entries, runs, ro, rd, t_init, active,
     eps_t = torch.tensor(eps, dtype=torch.float32, device=dev)
     inv = torch.ones_like(rd) / rd
     roinv = ro * inv
-    boxes = nodes[:, :6 * WIDTH]
+    boxes = nodes[:, :6 * WIDTH].to(torch.float32)
     kids = entries[:, :WIDTH]
+    if bf16:
+        eps16 = _bf16(eps_t)
+        inv, roinv = _bf16(inv), _bf16(roinv)
+        bmax = _BMAX16
+    else:
+        bmax = _INF
 
     t_best = t_init.clone()
     prim_best = torch.full((n,), -1, dtype=torch.int32, device=dev)
@@ -595,6 +836,21 @@ def packet_traverse_plain(nodes, entries, runs, ro, rd, t_init, active,
             t_best[r] = torch.where(better, t_c, tb)
             prim_best[r] = torch.where(better, p_c, pb)
 
+    if seeds is not None:
+        row = seeds[torch.arange(n, device=dev) // SEED_BLOCK].to(torch.int64)
+        seeded = active & (row[:, WIDTH] >= 1) & (row[:, WIDTH] <= WIDTH)
+        sp = torch.where(seeded, -1, sp)
+        for j in range(WIDTH):
+            code = row[:, j]
+            take = seeded & (j < row[:, WIDTH])
+            push = torch.nonzero(take & (code >= 0)).squeeze(1)
+            sp[push] += 1
+            if bool((sp[push] >= stack).any()):
+                raise RuntimeError("packet traversal: stack overflow (corrupt tables?)")
+            st_code[push, sp[push]] = code[push]
+            leaf = torch.nonzero(take & (code < 0) & (code != int(_PAD))).squeeze(1)
+            leaf_step(leaf, code[leaf])
+
     for _ in range(16 * m + 64):
         rays = torch.nonzero(sp >= 0).squeeze(1)
         if rays.numel() == 0:
@@ -609,22 +865,29 @@ def packet_traverse_plain(nodes, entries, runs, ro, rd, t_init, active,
 
         # slab test of the 8 children
         box = boxes[code]
-        t0 = torch.full((rays.numel(), WIDTH), -_INF, device=dev)
-        t1 = torch.full((rays.numel(), WIDTH), _INF, device=dev)
+        t0 = torch.full((rays.numel(), WIDTH), -bmax, device=dev)
+        t1 = torch.full((rays.numel(), WIDTH), bmax, device=dev)
         for dim in range(3):
             iv = inv[rays, dim:dim + 1]
             lo, hi = box[:, dim * 8:(dim + 1) * 8], box[:, (3 + dim) * 8:(4 + dim) * 8]
             if slab == "direct":
                 o = ro[rays, dim:dim + 1]
                 ta, tb = (lo - o) * iv, (hi - o) * iv
+            elif bf16:
+                riv = roinv[rays, dim:dim + 1]
+                ta, tb = _bf16(_bf16(lo * iv) - riv), _bf16(_bf16(hi * iv) - riv)
             else:
                 riv = roinv[rays, dim:dim + 1]
                 ta, tb = lo * iv - riv, hi * iv - riv
             t0 = torch.maximum(t0, torch.minimum(ta, tb))
             t1 = torch.minimum(t1, torch.maximum(ta, tb))
         ent = kids[code]
-        hit = ((t1 > t0 - eps_t) & (t1 > 0.0) & (t0 < t_best[rays, None] + eps_t)
-               & (ent != int(_PAD)))
+        if bf16:
+            reach = _bf16(_bf16(t_best[rays, None]) + eps16)
+            hit = (t1 > _bf16(t0 - eps16)) & (t1 > 0.0) & (t0 < reach)
+        else:
+            hit = (t1 > t0 - eps_t) & (t1 > 0.0) & (t0 < t_best[rays, None] + eps_t)
+        hit &= ent != int(_PAD)
         key = torch.where(hit, torch.clamp_min(t0, 0.0), _INF)
         skey, slot = torch.sort(key, dim=1, stable=True)  # ties: lower slot
         sent = ent.gather(1, slot).to(torch.int64)

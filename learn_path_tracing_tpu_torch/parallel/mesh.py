@@ -36,7 +36,7 @@ import torch.distributed as dist
 
 from ..camera.camera import CameraParams
 from ..integrator.hybrid import _hybrid_core, check_hit_backend
-from ..integrator.persistent import _persistent_core, radiance
+from ..integrator.persistent import DRAIN_RATIO, _persistent_core, radiance
 from ..integrator.wavefront import trace_sample_pixels
 
 
@@ -152,21 +152,26 @@ render_multichip = render_sharded
 def render_persistent_multichip(world_data, cam: CameraParams, resolution, spp: int,
                                 mesh: Mesh, limit: int = 32, seed=0,
                                 bsdf: str = "modern", camera_model: str = "thinlens",
-                                scene: str = "spheres", hit_backend: str = "auto"):
+                                scene: str = "spheres", hit_backend: str = "auto",
+                                pool_mult: int = 0, pool_div: int = 0,
+                                drain_ratio: int = DRAIN_RATIO):
     """The persistent engine (``integrator.persistent``, modular) across the
     mesh: each rank runs ``_persistent_core`` over its pixel range (tile
     axis) and sample range (spp axis), with a range-local schedule and drain
-    cascade, then ``combine``. Returns ``(image f32[W,H,3], segments int)``
-    on every rank: the single-device ``render_persistent`` image bit for bit
-    and its segment count. Raises ``ValueError`` unless the tile axis
-    divides ``W·H`` and the spp axis ``spp``. The JAX package's pool and
-    drain overrides (``pool_mult``, ``pool_div``, ``drain_ratio``) are not
-    carried over, as in ``render_persistent``."""
+    cascade, then ``combine``. ``pool_mult``, ``pool_div`` and
+    ``drain_ratio`` are ``render_persistent``'s, applied to each rank's
+    range-local schedule (``schedule(W·H / tiles, spp / spp ranks, ...)``).
+    Returns ``(image f32[W,H,3], segments int)`` on every rank: the
+    single-device ``render_persistent`` image bit for bit and its segment
+    count. Raises ``ValueError`` unless the tile axis divides ``W·H`` and
+    the spp axis ``spp``, and where the range's schedule does (a
+    ``pool_mult`` that does not divide the range's spp)."""
     w, h = resolution
     n_local, spp_local = _split(w * h, spp, mesh, "persistent", exact_tiles=True)
     acc, segments, _ = _persistent_core(
         world_data, cam, resolution, n_local, mesh.tile * n_local, mesh.spp * spp_local,
-        spp_local, limit, seed, bsdf, camera_model, scene, hit_backend)
+        spp_local, limit, seed, bsdf, camera_model, scene, hit_backend,
+        pool_mult=pool_mult, pool_div=pool_div, drain_ratio=drain_ratio)
     acc, segments = combine(acc, segments, mesh)
     return (radiance(acc) / spp).reshape(w, h, 3), segments
 

@@ -34,6 +34,15 @@ permutations, the tie rule is order-free), so renders do not depend on the
 version except on rays with a direction component of exactly 0, which the
 v1 slab form hits and the others miss.
 
+Two environment variables reach the mesh path, as in the JAX package:
+``LPT_PACKET_BF16=1`` when a world is built or loaded stores its meshes'
+node boxes in bfloat16 (``nodes_to_bf16``; K2h), and
+``LPT_TREELET_RESTART=1`` when a single-mesh world without spheres is
+traversed under version 2 from 4,096 rays sends the walk through
+``packet_traverse_sorted(restart=True)`` (K2r), in ``hit_legacy`` and
+``trace_shade_compact``. Unset, nothing changes; the restart gives the same
+hits, the bf16 boxes do not (see ``ops.packet_traverse``).
+
 The material atlas (bfloat16, 16 texels a strip) and the environments
 (f32, 42 texels a strip) are the JAX package's strip-packed ``StripAtlas``
 tables, tapped by ``sample_bilinear_strips``; the triangle-attribute row
@@ -52,6 +61,7 @@ bitwise equal to it; the multi-mesh default merges meshes under one BVH, as ther
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -72,6 +82,7 @@ from ..io.texture import (
 )
 from ..ops.packet_traverse import (
     VERSIONS,
+    nodes_to_bf16,
     pack_packet_tables,
     pack_sphere_packet_tables,
     packet_traverse,
@@ -178,18 +189,27 @@ def _t(a, dtype=None):
 
 def _mesh_device(positions, normals, uvs, face_p, face_n, face_t, face_tex,
                  bvh: FlatBVH) -> MeshDeviceData:
+    """The mesh's tensors and traversal tables. ``LPT_PACKET_BF16=1`` (read
+    here, at build and load time, as the JAX package reads it) stores the
+    node boxes outward-rounded to bfloat16 (``nodes_to_bf16``): K2 then
+    runs its bf16-slab mode (K2h). The treelet boxes come from the f32
+    boxes either way."""
     p = np.asarray(positions, np.float32)[np.asarray(face_p)]   # [T,3,3]
     n = np.asarray(normals, np.float32)[np.asarray(face_n)]
     t = np.asarray(uvs, np.float32)[np.asarray(face_t)]
     wide = collapse(bvh)
     packet = pack_packet_tables(wide, p[:, 0], p[:, 1], p[:, 2])
+    treelets = tuple(_t(x) for x in treelet_boxes(packet[0], packet[1]))
+    nodes = _t(packet[0])
+    if os.environ.get("LPT_PACKET_BF16", "0") == "1":
+        nodes = nodes_to_bf16(packet[0])
     return MeshDeviceData(
         v0=_t(p[:, 0]), v1=_t(p[:, 1]), v2=_t(p[:, 2]),
         n0=_t(n[:, 0]), n1=_t(n[:, 1]), n2=_t(n[:, 2]),
         uv0=_t(t[:, 0]), uv1=_t(t[:, 1]), uv2=_t(t[:, 2]),
         tex=_t(face_tex, np.int32), bvh=bvh, wide=wide,
-        packet=tuple(_t(x) for x in packet),
-        treelets=tuple(_t(x) for x in treelet_boxes(packet[0], packet[1])),
+        packet=(nodes, _t(packet[1]), _t(packet[2])),
+        treelets=treelets,
         stack=stack_cap(packet[1]),
     )
 
@@ -777,13 +797,36 @@ def shade_from_trace(world: LegacyWorldData, rays: Rays, t_best, prim_best,
     return _assemble_hits(world, rays, t_best, prim_best, hit_mask, *attrs)
 
 
+def _restarts(world: LegacyWorldData, n: int) -> bool:
+    """Whether a fused single-mesh traversal of ``n`` rays takes the treelet
+    restart: ``LPT_TREELET_RESTART=1`` (read at each call, as the JAX
+    package reads it in ``_hit_legacy_fused``) under packet version 2, on a
+    single-mesh world without spheres, from 4,096 rays. Unset, nothing
+    changes."""
+    return (os.environ.get("LPT_TREELET_RESTART", "0") == "1"
+            and world.packet_version == 2 and world.spheres is None
+            and len(world.meshes) == 1 and n >= 4096)
+
+
 def hit_legacy(world: LegacyWorldData, rays: Rays, eps: float = EPSILON,
                sort_rays: bool = True) -> Hits:
     """Nearest hit across the sphere set and every mesh, with materials from
     the texture atlas (15_module.py:838-848 + 864-953 semantics): the same
     ``Hits`` as the JAX package's fused single-mesh path. ``sort_rays`` as
-    in ``trace_legacy``."""
-    t_best, prim_best, src_best = trace_legacy(world, rays, eps=eps, sort_rays=sort_rays)
+    in ``trace_legacy``. Under the treelet restart (``_restarts``, and
+    ``sort_rays``) the mesh is walked by ``packet_traverse_sorted(restart=
+    True)`` (K2r) and put back in lane order: the same hits."""
+    if sort_rays and _restarts(world, rays.count):
+        mesh = world.meshes[0]
+        t_s, prim_s, _, _, _, order = packet_traverse_sorted(
+            *mesh.packet, rays.ro.contiguous(), rays.rd.contiguous(), rays.alive, eps=eps,
+            treelets=mesh.treelets, stack=mesh.stack, restart=True)
+        t_best, prim_best = torch.empty_like(t_s), torch.empty_like(prim_s)
+        t_best[order], prim_best[order] = t_s, prim_s
+        src_best = torch.where(prim_best >= 0, 1, -1).to(torch.int32)
+    else:
+        t_best, prim_best, src_best = trace_legacy(world, rays, eps=eps,
+                                                   sort_rays=sort_rays)
     return shade_from_trace(world, rays, t_best, prim_best, src_best)
 
 
@@ -795,20 +838,23 @@ def trace_shade_compact(world: LegacyWorldData, ro, rd, alive, payload,
 
     Single-mesh worlds under packet versions 1 and 3 from 4,096 rays
     traverse through ``packet_traverse_sorted``, which carries ``payload``
-    through its coherence sort, as the JAX package does; other worlds
-    traverse through ``trace_legacy``. ``payload``: the caller's per-lane
+    through its coherence sort, as the JAX package does, and so does version
+    2 under the treelet restart (``_restarts``: K2r); other worlds traverse
+    through ``trace_legacy``. ``payload``: the caller's per-lane
     ``[N, ...]`` state, carried through the stable hit-compaction sort.
     Returns ``(hits, rd_c, payload_c, nhits)`` in compacted order: rows
     ``[0, nhits)`` are the hits, the rest misses and inactive lanes;
     ``nhits`` is an int (one host read).
     """
     n = ro.shape[0]
-    if (world.packet_version != 2 and world.spheres is None
+    restart = _restarts(world, n)
+    if ((world.packet_version != 2 or restart) and world.spheres is None
             and len(world.meshes) == 1 and n >= 4096):
         mesh = world.meshes[0]
         t_s, prim_s, ro, rd, _, _, payload = packet_traverse_sorted(
             *mesh.packet, ro, rd, alive, eps=eps, treelets=mesh.treelets,
-            stack=mesh.stack, payload=payload, version=world.packet_version)
+            version=world.packet_version, restart=restart, payload=payload,
+            stack=mesh.stack)
         src_s = torch.where(prim_s >= 0, 1, -1).to(torch.int32)
     else:
         rays = Rays(ro=ro, rd=rd, throughput=torch.ones_like(ro), alive=alive)

@@ -5,14 +5,23 @@ Counterpart of ``learn_path_tracing_tpu.utils.config`` for the modern stages
 propagate_limit / epsilon / seed plus the integrator options and the torch
 device, with the JAX package's fields in its order (``batch`` and
 ``epsilon`` are carried as there, where no stage reads them either;
-``early_exit`` reaches the stages' wavefront renders). The port reads no
-environment variables, so what the JAX package takes from them is data
-here: ``packet_version`` is its ``LPT_PACKET_VERSION``
+``early_exit`` reaches the stages' wavefront renders). Apart from two
+ablation knobs (below), the port reads no environment variables, so what
+the JAX package takes from them is data here: ``packet_version`` is its
+``LPT_PACKET_VERSION``
 (``learn_path_tracing_tpu/ops/packet_traverse.py:48-50``), the mesh
 traversal kernel (2: K2, one ray per thread; 1: K5a, the v1 packet walk
 per warp; 3: K5b, the tile-ranged walk per block). Its ``LPT_PACKET_BLOCK``
 (the TPU's rays per packet) has no counterpart: the packet sizes are fixed
 by the warp (32 rays, K5a) and the block (256 rays, K5b).
+
+The port reads two of the JAX package's environment variables, the mesh
+path's ablation knobs (the complete list; ``scene.legacy_world``):
+
+  LPT_PACKET_BF16=1      at build or load time: mesh node boxes in bfloat16
+                         (``ops.packet_traverse.nodes_to_bf16``; K2h)
+  LPT_TREELET_RESTART=1  at traversal time: the treelet restart of a
+                         single-mesh world under version 2 (K2r)
 
 ``device`` defaults to ``"cuda"``: a render that does not ask for the CPU
 runs on the card or fails (``stages.common.require_device``).

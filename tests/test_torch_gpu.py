@@ -8,12 +8,13 @@ the JAX package, so it runs on a machine that has only PyTorch:
 
 Tolerances: the sphere-scan kernel (K1, at the frame's pass widths and
 every slice count, ties included), the packet-traversal kernels (K2
-triangle leaves, K3 sphere leaves; ``hit(backend='bvh')`` through K3 equals
-K1's hits), the bounce megakernel (K4, all lanes and a late sparse lane
+triangle leaves, its seeded and bf16 modes K2r, K2h and K2rh, K3 sphere
+leaves; ``hit(backend='bvh')`` through K3 equals K1's hits), the bounce megakernel (K4, all lanes and a late sparse lane
 list) and the row gathers (K6a, K6b: fill rows and bf16 compared as bits)
 equal their plain twins bit for bit (the same IEEE-rounded operations in the same
 order, and an order-free tie rule); a GPU render, persistent (modular or
-mega) or hybrid, equals a rerun bit for bit (fixed-point accumulation); a
+mega) or hybrid, equals a rerun bit for bit (fixed-point accumulation), and
+under each pool knob the auto render; a
 GPU render agrees with the CPU render within
 ``utils.checks.render_agreement``'s bounds (the transcendental functions of
 the two devices differ by ulps).
@@ -214,6 +215,85 @@ def test_packet_kernel_matches_twin_bitwise(cuda, leaf_kind, count, max_leaf, n,
     assert torch.equal(p, p2)
     assert version != 2 or torch.equal(it, it2)
     assert n < 10 or bool((p >= 0).any())
+
+
+def _cluster_tables():
+    """600 small triangles around the origin: the top two BVH levels full,
+    so blocks of coherent rays are seeded (``tests/test_torch_k2_modes.py``'s
+    'full tree')."""
+    r = np.random.default_rng(0)
+    v0 = r.normal(size=(600, 3)).astype(np.float32) * 3
+    v1 = v0 + r.normal(size=(600, 3)).astype(np.float32) * 0.3
+    v2 = v0 + r.normal(size=(600, 3)).astype(np.float32) * 0.3
+    lo, hi = np.minimum(np.minimum(v0, v1), v2), np.maximum(np.maximum(v0, v1), v2)
+    wide = collapse(build_bvh(lo, hi, centroid=(v0 + v1 + v2) / 3, max_depth=12, max_leaf=4,
+                              backend="numpy"), max_run=4)
+    return tpt.pack_packet_tables(wide, v0, v1, v2)
+
+
+def _beam_rays(n, device):
+    """Two narrow beams into the cluster, each entering at most 3 treelets."""
+    r = np.random.default_rng(n + 1)
+    half = n // 2
+    ro = np.float32([[5.0, 40.0, 3.0]] * half + [[4.0, 40.0, 5.0]] * (n - half))
+    rd = np.float32([0.0, -40.0, 0.0]) + r.normal(size=(n, 3)).astype(np.float32) * np.where(
+        np.arange(n)[:, None] < half, 0.01, 0.05).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    active = r.uniform(size=n) < 0.9
+    return [torch.as_tensor(x, device=device) for x in (ro, rd.astype(np.float32), active)]
+
+
+@pytest.mark.parametrize("restart,bf16", [(True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("n", [1, 1023, 5000])
+def test_k2_modes_match_twin_bitwise(cuda, monkeypatch, restart, bf16, n):
+    """K2r (seeded from ``packet_traverse_sorted(restart=True)``'s rows),
+    K2h (bf16 node slabs) and K2rh: bit for bit their plain twin in ``(t,
+    prim, iters)``, each counted under its own name; K2r also bit for bit
+    the root walk in ``(t, prim)``."""
+    tables = [torch.as_tensor(x, device=cuda) for x in _cluster_tables()]
+    if bf16:
+        tables[0] = tpt.nodes_to_bf16(tables[0]).to(cuda)
+    ro, rd, active = _beam_rays(n, cuda)
+    kernel = tpt.kernel_of("tri", 2, restart, bf16)
+    seen = {}
+    walk = tpt.traverse
+
+    def capture(*args, seeds=None, **kw):
+        seen["args"], seen["seeds"] = args, seeds
+        return walk(*args, seeds=seeds, **kw)
+
+    capture.launches = walk.launches
+    monkeypatch.setattr(tpt, "traverse", capture)
+    out = tpt.packet_traverse_sorted(*tables, ro, rd, active, restart=restart)
+    monkeypatch.undo()
+    args, seeds = seen["args"], seen["seeds"]
+    launches = dict(tpt.traverse.launches)
+    t, p, it = tpt.traverse(*args, seeds=seeds)
+    assert tpt.traverse.launches[kernel] == launches[kernel] + 1
+    t2, p2, it2 = tpt.packet_traverse_plain(*[x.cpu() for x in args],
+                                            seeds=None if seeds is None else seeds.cpu())
+    assert torch.equal(t.cpu().view(torch.int32), t2.view(torch.int32))
+    assert torch.equal(p.cpu(), p2) and torch.equal(it.cpu(), it2)
+    if restart and not bf16:
+        root = tpt.packet_traverse_sorted(*tables, ro, rd, active)
+        assert torch.equal(out[0], root[0]) and torch.equal(out[1], root[1])
+    if restart and n == 5000:
+        cnt = seeds[:, 8]
+        assert bool(((cnt >= 1) & (cnt <= 8)).any())
+
+
+@pytest.mark.parametrize("knobs", [{"pool_mult": 1}, {"pool_div": 2},
+                                   {"drain_unroll": 4, "drain_ratio": 2}])
+def test_pool_knobs_on_the_card_are_the_auto_frame(cuda, knobs):
+    """The modular engine under each schedule knob on the card: the auto
+    frame bit for bit, with its segments; K1 once per pass."""
+    wd = random_scene(seed=20230328).device(cuda)
+    cp = stage10_camera((64, 36)).params(cuda)
+    ref, ref_segs = render_persistent(wd, cp, (64, 36), spp=4, limit=8)
+    tss.intersect_spheres_scan.launches = 0
+    img, segs, st = render_persistent(wd, cp, (64, 36), spp=4, limit=8, stats=True, **knobs)
+    assert segs == ref_segs and torch.equal(img.view(torch.int32), ref.view(torch.int32))
+    assert tss.intersect_spheres_scan.launches == st["passes_full"] + sum(st["drain_passes"])
 
 
 def test_packet_kernels_on_axis_parallel_rays(cuda):

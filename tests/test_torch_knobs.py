@@ -1,0 +1,325 @@
+"""Port parity: the schedule knobs of the persistent engine and the two
+environment knobs of the mesh path, on the CPU at small sizes.
+
+- ``integrator.persistent.schedule(n, spp, pool_mult, pool_div,
+  drain_ratio, drain_floor)`` against the pool and drain widths the JAX
+  package's ``_persistent_core`` builds for the same arguments (read from
+  the widths its trace hands the camera, ``jax.make_jaxpr``: nothing runs),
+  over a grid of sizes and knobs, and the same ``ValueError`` where JAX
+  raises one.
+- ``render_persistent`` under each knob (``drain_unroll`` included): the
+  auto image bit for bit with its segments (the schedule only changes which
+  lane traces which sample, and the int64 accumulator is order-free);
+  against the JAX package's render with the same knobs at 32x18, limit 1
+  (no bounce, so no discrete event can differ): the pool, drain widths,
+  passes of every level and segments exactly; at limit 8: the schedule
+  exactly and the image by ``utils.checks.render_agreement`` (the bound of
+  ``test_torch_integrator.py``).
+- ``bench_torch``'s ``--pool-mult``/``--pool-div`` and its ``schedule``.
+- ``LPT_PACKET_BF16=1`` and ``LPT_TREELET_RESTART=1`` on a single-mesh
+  world: unset, nothing changes; the restart frame is bit for bit the
+  default frame (hybrid and wavefront engines); the bf16 world keeps f32
+  treelet boxes, and its frame is held to the image bounds of
+  ``render_agreement`` against the default one, its segments to 2 % (the
+  bf16 slab test drops short bounce hits: ``test_bf16_world_frame``); its
+  bf16 table is the JAX package's bit for bit, and ``convert`` keeps it.
+"""
+
+import dataclasses
+import math
+import os
+import warnings
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import bench_torch
+import chip_smoke
+import learn_path_tracing_tpu.integrator.persistent as jpers
+from learn_path_tracing_tpu.integrator.persistent import render_persistent as j_render_persistent
+from learn_path_tracing_tpu.models import random_scene as j_random_scene
+from learn_path_tracing_tpu.models import stage10_camera as j_stage10_camera
+from learn_path_tracing_tpu_torch.integrator.hybrid import render_hybrid
+from learn_path_tracing_tpu_torch.integrator.persistent import render_persistent, schedule
+from learn_path_tracing_tpu_torch.integrator.wavefront import render
+from learn_path_tracing_tpu_torch.models import random_scene, stage10_camera
+from learn_path_tracing_tpu_torch.scene import legacy_world as tlw
+from learn_path_tracing_tpu_torch.utils.checks import render_agreement
+
+torch.set_num_threads(2)
+
+RES = (32, 18)
+SEED = 20230328
+
+SIZES = [(1280 * 720, 64), (480 * 240, 4), (32 * 18, 4), (30 * 20, 7), (2304, 16)]
+KNOBS = [{}, {"pool_mult": 1}, {"pool_mult": 2}, {"pool_mult": 3}, {"pool_div": 2},
+         {"pool_div": 16}, {"pool_div": 10 ** 6}, {"drain_ratio": 4},
+         {"drain_ratio": 2, "drain_floor": 1024}, {"pool_mult": 1, "pool_div": 2}]
+
+
+@pytest.fixture(scope="module")
+def jax_world():
+    return j_random_scene(seed=SEED).device()
+
+
+def _jax_schedule(jax_world, n, spp, knobs, monkeypatch):
+    """``(pool, drain widths)`` of the JAX package's ``_persistent_core``,
+    from the ray widths its trace generates, or the ``ValueError`` it
+    raises."""
+    widths = []
+    camera = jpers.generate_rays_for_pixels
+
+    def record(cam, resolution, pixel, *args, **kw):
+        widths.append(int(pixel.shape[0]))
+        return camera(cam, resolution, pixel, *args, **kw)
+
+    monkeypatch.setattr(jpers, "generate_rays_for_pixels", record)
+    res = (n, 1)
+    cam = j_stage10_camera(res).params()
+    args = {"pool_mult": 0, "pool_div": 0, "drain_ratio": 8, "drain_floor": 0, **knobs}
+    try:
+        jax.make_jaxpr(lambda: jpers._persistent_core(
+            jax_world, cam, res, n, 0, 0, spp, 2, 0, "modern", "thinlens", "spheres", "auto",
+            args["pool_mult"], args["pool_div"], args["drain_ratio"], args["drain_floor"]))()
+    except ValueError as e:
+        return e
+    pool = widths[0]
+    levels = []
+    for w in widths[1:]:
+        if w != pool and w not in levels:
+            levels.append(w)
+    return pool, tuple(levels)
+
+
+@pytest.mark.parametrize("n,spp", SIZES)
+def test_schedule_matches_jax(jax_world, monkeypatch, n, spp):
+    for knobs in KNOBS:
+        want = _jax_schedule(jax_world, n, spp, knobs, monkeypatch)
+        if isinstance(want, ValueError):
+            with pytest.raises(ValueError) as got:
+                schedule(n, spp, **knobs)
+            assert str(got.value) == str(want), knobs
+            continue
+        s = schedule(n, spp, **knobs)
+        assert (s.pool, s.drain_widths) == want, (n, spp, knobs)
+        assert s.items_per == (math.ceil(n * spp / s.pool) if n % spp == 0 else spp)
+
+
+def test_schedule_rules():
+    auto = schedule(1280 * 720, 64)
+    assert (auto.pool, auto.drain_widths) == (57344, (7168, 1024, 256))
+    s = schedule(1280 * 720, 64, pool_mult=1)
+    assert (s.pool, s.items_per, s.drain_widths) == (921600, 64, (115200, 14592, 2048, 256))
+    s = schedule(1280 * 720, 64, pool_div=2)
+    assert (s.pool, s.items_per) == (460800, 128)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        schedule(576, 4, pool_mult=1, pool_div=2)
+    with pytest.raises(ValueError, match="drain_ratio=0"):
+        schedule(576, 4, drain_ratio=0)
+
+
+def _port(knobs, limit, spp=4, **kw):
+    img, segs, st = render_persistent(random_scene(seed=SEED).device("cpu"),
+                                      stage10_camera(RES).params("cpu"), RES, spp=spp,
+                                      limit=limit, stats=True, **knobs, **kw)
+    return img, segs, st
+
+
+RENDER_KNOBS = [{"pool_mult": 2}, {"pool_div": 2, "drain_ratio": 2},
+                {"drain_unroll": 4, "drain_ratio": 2}]
+
+
+@pytest.mark.parametrize("knobs", RENDER_KNOBS)
+def test_render_knobs_match_auto_and_jax(knobs):
+    auto_img, auto_segs, auto_st = _port({}, limit=8)
+    img, segs, st = _port(knobs, limit=8)
+    assert segs == auto_segs and torch.equal(img, auto_img)
+    j_img, j_segs, j_st = j_render_persistent(
+        j_random_scene(seed=SEED).device(), j_stage10_camera(RES).params(), RES, spp=4,
+        limit=8, stats=True, **knobs)
+    assert st["pool"] == int(j_st["pool"])
+    assert st["drain_widths"] == tuple(int(w) for w in j_st["drain_widths"])
+    rep = render_agreement(img.numpy(), np.asarray(j_img), segs, float(j_segs))
+    assert rep["ok"], rep
+    # no bounce: every pass and segment is JAX's exactly
+    img1, segs1, st1 = _port(knobs, limit=1)
+    _, j_segs1, j_st1 = j_render_persistent(
+        j_random_scene(seed=SEED).device(), j_stage10_camera(RES).params(), RES, spp=4,
+        limit=1, stats=True, **knobs)
+    assert segs1 == int(j_segs1)
+    assert st1["passes_full"] == int(j_st1["passes_full"])
+    assert st1["drain_passes"] == tuple(int(p) for p in j_st1["drain_passes"])
+
+
+def test_drain_unroll_reads_once_per_group():
+    """``drain_unroll = k``: the full-width passes as before; each drain
+    level's passes a multiple of k (its first level's the unroll-1 count
+    rounded up to one), one host read per group, the same image."""
+    base_img, base_segs, base = _port({"drain_ratio": 2}, limit=8)
+    img, segs, st = _port({"drain_ratio": 2, "drain_unroll": 4}, limit=8)
+    assert segs == base_segs and torch.equal(img, base_img)
+    assert st["passes_full"] == base["passes_full"] and len(st["drain_passes"]) == 2
+    assert all(p % 4 == 0 for p in st["drain_passes"])
+    assert st["drain_passes"][0] == -(-base["drain_passes"][0] // 4) * 4
+    assert st["host_reads"] == 1 + st["passes_full"] + sum(p // 4 for p in st["drain_passes"])
+    assert base["host_reads"] == 1 + base["passes_full"] + sum(base["drain_passes"])
+
+
+def test_knobs_equal_on_the_ungrouped_schedule_and_wavefront():
+    """spp not dividing n: the auto pool; ``drain_ratio``/``drain_floor``
+    allowed (no drain there), the pool knobs refused as in JAX."""
+    img, segs, st = _port({"drain_ratio": 4, "drain_floor": 512}, limit=6, spp=7)
+    ref, ref_segs = render(random_scene(seed=SEED).device("cpu"),
+                           stage10_camera(RES).params("cpu"), RES, spp=7, limit=6)
+    assert segs == ref_segs and st["drain_widths"] == ()
+    np.testing.assert_allclose(img.numpy(), ref.numpy(), rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="need spp"):
+        _port({"pool_div": 2}, limit=6, spp=7)
+
+
+@pytest.mark.parametrize("knob,value", [("pool_mult", 1), ("pool_div", 2), ("drain_ratio", 4),
+                                        ("drain_floor", 1024), ("drain_unroll", 2)])
+def test_mega_refuses_the_knobs(knob, value):
+    with pytest.raises(ValueError, match=f"engine 'mega' takes only {knob}="):
+        _port({knob: value}, limit=2, engine="mega")
+
+
+def test_bench_pool_flags(capsys):
+    row = bench_torch.run_cell(engine="persistent", resolution=RES, spp=4, limit=4,
+                               device="cpu", frames=1, pool_mult=2)
+    auto = bench_torch.run_cell(engine="persistent", resolution=RES, spp=4, limit=4,
+                                device="cpu", frames=1)
+    assert row["schedule"]["pool"] == 2 * RES[0] * RES[1] == 2 * auto["schedule"]["pool"]
+    assert set(row["schedule"]) == {"pool", "passes_full", "drain_widths", "drain_passes",
+                                    "host_reads"}
+    assert row["segments"] == auto["segments"] and torch.equal(row["image"], auto["image"])
+    mega = bench_torch.run_cell(engine="mega", resolution=RES, spp=4, limit=4, device="cpu",
+                                frames=1)
+    assert set(mega["schedule"]) == {"passes"}
+    with pytest.raises(ValueError, match="hybrid engine does not take them"):
+        bench_torch.run_cell(resolution=RES, pool_div=2, device="cpu", engine="hybrid")
+    for argv in (["--engine", "hybrid", "--pool-mult", "1"],
+                 ["--engine", "mega", "--pool-div", "2"],
+                 ["--scene", "yoimiya", "--pool-div", "2"]):
+        with pytest.raises(SystemExit) as e:
+            bench_torch.main(argv + ["--device", "cpu"])
+        assert e.value.code == 2
+    assert "--pool-mult/--pool-div" in capsys.readouterr().err
+
+
+# ------------------------------------------------------ the mesh path's knobs --
+
+@pytest.fixture(scope="module")
+def standin(tmp_path_factory):
+    """The stand-in world at level 3 (its top two BVH levels full, so
+    blocks of coherent rays can be seeded)."""
+    d = tmp_path_factory.mktemp("standin")
+    world = chip_smoke.standin_world(str(d), level=3, tex_size=64, env_size=(128, 64))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        world.build()
+    return world
+
+
+def _build(world, monkeypatch, bf16):
+    if bf16:
+        monkeypatch.setenv("LPT_PACKET_BF16", "1")
+    else:
+        monkeypatch.delenv("LPT_PACKET_BF16", raising=False)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        wd = world.build()
+    monkeypatch.delenv("LPT_PACKET_BF16", raising=False)
+    return wd
+
+
+def _hybrid(wd, **kw):
+    cam = chip_smoke.l14_camera((64, 64)).params()
+    return render_hybrid(wd, cam, (64, 64), spp=2, limit=6, seed=2, camera_model="jitter",
+                         pool_w=4096, stats=True, **kw)
+
+
+def test_restart_frame_is_the_default_frame(standin, monkeypatch):
+    """``LPT_TREELET_RESTART=1``: the hybrid's pool passes and the wavefront
+    engine's hits take ``packet_traverse_sorted(restart=True)``; both frames
+    are the default ones bit for bit. (At this size every 1024-ray block
+    enters more than 8 treelets, so each walks from the root; the seeded
+    walk itself is held in ``test_torch_k2_modes.py``.)"""
+    wd = _build(standin, monkeypatch, bf16=False)
+    monkeypatch.delenv("LPT_TREELET_RESTART", raising=False)
+    ref_img, ref_segs, _ = _hybrid(wd)
+    cam = chip_smoke.l14_camera((64, 64)).params()
+    wf = dict(spp=1, limit=4, seed=1, bsdf="legacy", scene="legacy", camera_model="jitter")
+    ref_wf = render(wd, cam, (64, 64), **wf)
+
+    rows = []
+    walk = tlw.packet_traverse_sorted
+
+    def counted(*args, restart=False, **kw):
+        rows.append(restart)
+        return walk(*args, restart=restart, **kw)
+
+    monkeypatch.setattr(tlw, "packet_traverse_sorted", counted)
+    monkeypatch.setenv("LPT_TREELET_RESTART", "1")
+    img, segs, _ = _hybrid(wd)
+    assert rows and all(rows)
+    assert segs == ref_segs and torch.equal(img, ref_img)
+    rows.clear()
+    img_wf, segs_wf = render(wd, cam, (64, 64), **wf)
+    assert rows and all(rows)
+    assert segs_wf == ref_wf[1] and torch.equal(img_wf, ref_wf[0])
+    # a world the restart does not take (version 1) runs as before
+    rows.clear()
+    img1, segs1, _ = _hybrid(dataclasses.replace(wd, packet_version=1))
+    assert rows and not any(rows)
+    assert segs1 == ref_segs and torch.equal(img1, ref_img)
+
+
+def test_bf16_world_frame(standin, monkeypatch):
+    """``LPT_PACKET_BF16=1`` at build time: the mesh's node table is
+    ``nodes_to_bf16`` of the f32 one and the treelet boxes are the f32 ones;
+    unset, the tables are f32. The bf16 frame is not the f32 frame: the
+    bf16 ray terms (``bf(ro/rd)``, off by ~|ro/rd|·2^-9) drop short bounce
+    hits (``test_torch_k2_modes.test_bf16_surface_rays_against_jax``), ~1 %
+    of the segments at this size, so it is held to the image bounds of
+    ``render_agreement`` (mean absolute difference at most 1 % of the
+    mean, 80 % of pixels within 1e-4) and its segments to 2 %, not 0.5 %."""
+    from learn_path_tracing_tpu_torch.ops.packet_traverse import nodes_to_bf16
+
+    ref = _build(standin, monkeypatch, bf16=False)
+    wd = _build(standin, monkeypatch, bf16=True)
+    m, r = wd.meshes[0], ref.meshes[0]
+    assert r.packet[0].dtype == torch.float32 and m.packet[0].dtype == torch.bfloat16
+    assert torch.equal(m.packet[0].view(torch.int16), nodes_to_bf16(r.packet[0]).view(torch.int16))
+    for a, b in zip(m.treelets, r.treelets):
+        assert torch.equal(a, b)
+    img, segs, _ = _hybrid(wd)
+    ref_img, ref_segs, _ = _hybrid(ref)
+    rep = render_agreement(img.numpy(), ref_img.numpy(), segs, ref_segs)
+    print(rep)
+    assert rep["finite"] and rep["mean_abs_frac"] <= 0.01 and rep["pixels_agree"] >= 0.8
+    assert rep["segments_rel"] <= 0.02
+    assert "LPT_PACKET_BF16" not in os.environ
+
+
+def test_bf16_world_tables_match_jax_and_convert(tmp_path, monkeypatch):
+    """Built under ``LPT_PACKET_BF16=1``, the port's mesh node table is the
+    JAX package's bf16 table bit for bit (the treelet boxes f32 in both),
+    and ``convert.legacy_world_from_numpy`` of the JAX world keeps it
+    bf16."""
+    from learn_path_tracing_tpu_torch import convert
+    from test_torch_legacy import _build_both, _same
+
+    monkeypatch.setenv("LPT_PACKET_BF16", "1")
+    _, jwd, _, twd = _build_both(tmp_path, "ibl")
+    cwd = convert.legacy_world_from_numpy(jax.tree_util.tree_map(np.asarray, jwd))
+    for m, jm in zip(twd.meshes, jwd.meshes):
+        jbits = np.asarray(jm.packet[0]).view(np.uint16)
+        for wd in (twd, cwd):
+            nodes = wd.meshes[0].packet[0]
+            assert nodes.dtype == torch.bfloat16
+            np.testing.assert_array_equal(nodes.view(torch.int16).numpy().view(np.uint16), jbits)
+        for a, b in zip(m.treelets, jm.treelets):
+            assert a.dtype == torch.float32 and _same(a, b)

@@ -228,7 +228,8 @@ def test_with_stats_in_jax_positions():
 
 def test_versions_and_leaf_kinds():
     """Sphere leaves take version 2 only, versions are 1, 2 or 3, and each
-    (leaf kind, version) has its own launch count."""
+    (leaf kind, version) has its own launch count, as each of K2's modes
+    (seeded, bf16 slabs, both)."""
     tables = [torch.as_tensor(x) for x in _sphere_tables(6, 50)]
     rays = [torch.as_tensor(x) for x in _rays(3, 16)]
     for version in (1, 3):
@@ -236,7 +237,9 @@ def test_versions_and_leaf_kinds():
             tpt.packet_traverse(*tables, *rays, leaf_kind="sphere", version=version)
     with pytest.raises(ValueError, match="packet version"):
         tpt.packet_traverse(*tables, *rays, leaf_kind="sphere", version=4)
-    assert set(tpt.traverse.launches) == set(tpt.KERNELS.values()) == {"k2", "k3", "k5a", "k5b"}
+    assert set(tpt.KERNELS.values()) == {"k2", "k3", "k5a", "k5b"}
+    assert set(tpt.MODES.values()) == {"k2r", "k2h", "k2rh"}
+    assert set(tpt.traverse.launches) == set(tpt.KERNELS.values()) | set(tpt.MODES.values())
 
 
 def test_plain_k3_matches_pallas():

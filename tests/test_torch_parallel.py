@@ -100,6 +100,10 @@ def _calls(world_path):
         "hybrid backend": (hy, (*l, RES, SPP), {**run, "hit_backend": "nope"}, (4, 1)),
         "hybrid backend pallas": (hy, (*l, RES, SPP), {**run, "hit_backend": "pallas"},
                                   (4, 1)),
+        "persistent pool_mult 2x2": (pe, (*s, RES, SPP), {**run, "pool_mult": 2}, (2, 2)),
+        "persistent pool_div 4x1": (pe, (*s, RES, SPP), {**run, "pool_div": 2,
+                                                         "drain_ratio": 2}, (4, 1)),
+        "persistent pool_mult spp": (pe, (*s, RES, SPP), {**run, "pool_mult": 4}, (2, 2)),
         "bench cells": (bench_torch.sharded_cells,
                         (BENCH_CELLS, BENCH_LIMIT, "cpu", world_path,
                          os.path.dirname(world_path)), {}, None),
@@ -224,7 +228,18 @@ def test_mesh_validation(sharded):
     assert kind == "ValueError" and "3x3" in msg and "4 ranks" in msg
 
 
+@pytest.mark.parametrize("name", ["persistent pool_mult 2x2", "persistent pool_div 4x1"])
+def test_pool_knobs_sharded_are_single_device_bitwise(sharded, name):
+    """``render_persistent_multichip``'s pool and drain knobs, applied to
+    each rank's range-local schedule: the single-device auto image bit for
+    bit, with its segments."""
+    img, segs = _ok(sharded, name)
+    ref, ref_segs = _single("persistent")
+    assert segs == ref_segs and torch.equal(img, ref)
+
+
 @pytest.mark.parametrize("name,match", [
+    ("persistent pool_mult spp", "pool_mult=4 must divide spp=2"),
     ("persistent tiles", "tile axis 4"), ("persistent spp", "spp=3"),
     ("hybrid tiles", "tile axis 4"), ("hybrid spp", "spp=3"),
     ("hybrid backend", "hit_backend")])

@@ -31,11 +31,9 @@ import learn_path_tracing_tpu as jpkg
 PORT = "learn_path_tracing_tpu_torch"
 
 _POOL = (
-    "The port sizes its pool itself (integrator/persistent.schedule), so the TPU pool knob has"
-    " no meaning there.")
-_PALLAS = (
-    "A Pallas argument (interpreter, TPU stack count or sort and restart ablation) with no "
-    "counterpart in the CUDA kernels.")
+    "Picks the TPU's matrix-product accumulation windows; the port accumulates in int64 fixed "
+    "point, so the argument has no behaviour there.")
+_PALLAS = "The Pallas interpreter, which the CUDA kernels have no counterpart of."
 EXCEPTIONS = {
     "core.pytree:pytree_dataclass": (
         "A JAX pytree registration decorator; the port's containers are plain dataclasses."),
@@ -52,26 +50,9 @@ EXCEPTIONS = {
     "ops.sphere_scan:intersect_spheres_pallas": (
         "The Pallas entry of the sphere scan; the port's K1 wrapper is intersect_spheres_scan "
         "over pack_spheres' table."),
-    "ops.packet_traverse:nodes_to_bf16": (
-        "A TPU ablation (bf16 node slabs, LPT_PACKET_BF16) the port does not read."),
-    "ops.packet_traverse:treelet_seed_codes": (
-        "A TPU ablation (the treelet restart, LPT_TREELET_RESTART) the port does not read."),
     "ops.packet_traverse:packet_traverse.interpret": _PALLAS,
-    "ops.packet_traverse:packet_traverse.nstacks": _PALLAS,
-    "ops.packet_traverse:packet_traverse.sort_key": _PALLAS,
     "ops.packet_traverse:packet_traverse_sorted.interpret": _PALLAS,
-    "ops.packet_traverse:packet_traverse_sorted.sort_key": _PALLAS,
-    "ops.packet_traverse:packet_traverse_sorted.restart": _PALLAS,
-    "ops.packet_traverse:packet_traverse_sorted.seed_codes": _PALLAS,
-    "integrator.persistent:render_persistent.pool_mult": _POOL,
-    "integrator.persistent:render_persistent.pool_div": _POOL,
-    "integrator.persistent:render_persistent.drain_ratio": _POOL,
-    "integrator.persistent:render_persistent.drain_floor": _POOL,
-    "integrator.persistent:render_persistent.drain_unroll": _POOL,
     "integrator.persistent:render_persistent.acc_split": _POOL,
-    "parallel.mesh:render_persistent_multichip.pool_mult": _POOL,
-    "parallel.mesh:render_persistent_multichip.pool_div": _POOL,
-    "parallel.mesh:render_persistent_multichip.drain_ratio": _POOL,
     "parallel.mesh:make_mesh.devices": (
         "The port's mesh is the ranks of the process group, one device a rank."),
     "utils.benchlib:time_fn_async": (
