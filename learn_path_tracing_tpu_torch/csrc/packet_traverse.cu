@@ -93,18 +93,48 @@
 // saves none of them a slab test, so the walk with nothing shared is the
 // one kept. Packets of 2 or 4 warps for narrow launches went with it.
 //
-// K2r and K2h are template flags of K2, not copies. K2r: the TPU seeds a
-// 1024-ray packet's shared stack with up to 8 depth-2 treelet codes from an
-// SMEM row; here each thread seeds its own stack from the row of its ray's
-// 1024-ray block. The TPU's stack could hold a root child's leaf code,
-// which its kernel then reads as a node row at a clamped index; here a leaf
-// seed is tested at once and an empty slot skipped, so the stack still
-// holds nodes only and stack_cap still bounds it (the walk below a seed
-// has at most 7 other seeds under it; the root walk below a depth-2 node
-// has 7 of its siblings and 7 of its parent's). K2h: the TPU walks its
-// [8, lanes] slab pipeline in bf16; here every term is an f32 operation
-// rounded to the nearest even bf16 (bf_round), which is what XLA computes
-// op by op, and the 48 box values of a row are six 16-byte loads.
+// K2r and K2h are template flags of K2, not copies (K2rh is both), each
+// redesigned for this card once its straight port had been measured (the
+// times are in PERF.md). What bounds them is K2's: instructions under
+// divergence, not bytes.
+// K2r replaces _kernel_v2(seed_init=True) (ops/packet_traverse.py:428-472):
+// the TPU seeds a 1024-ray packet's shared stack with the depth-2 treelets
+// any of its rays enters (up to 8, from an SMEM row), so the packet skips
+// the top two levels. Its first port seeded every thread from its block's
+// row: a ray popped every treelet of the union, and a block whose union
+// passed 8 walked from the root. Here each ray is seeded from the treelets
+// it enters itself: its words (bit t set for treelet slot t, from the
+// coherence key's slab test, empty slots dropped) and its two nearest
+// slots m1, m2 (the key's own), read as one 16-byte load, mapped through
+// the tables' 64 treelet codes. A node seed is pushed at entry distance +0
+// (m1 pops first, then m2, then the rest in slot order), a leaf seed tested
+// at once, an empty slot skipped; a ray that enters none walks nothing, one
+// that enters more than 8 walks from the root. Exact: a ray hits only
+// primitives below a treelet it enters, since the primitive lies in the
+// treelet's box and the key's test is eps-relaxed like the kernel's, so
+// (t, prim) is the root walk's under the order-free tie rule. (A ray whose
+// slab terms are NaN, from ro = 0 along a zero direction component, has
+// every box rejected by the root walk; its seeds skip the top two levels,
+// so a leaf seed can give it a hit that the root walk lacks.) The stack
+// holds at most 7 seeds under the walk below one, within stack_cap.
+// K2h replaces the bf16-slab mode (:445, :486-490, :563-583): the TPU walks
+// its [8, lanes] slab pipeline in bf16, which XLA computes as f32
+// operations each rounded to bf16. Its first port did the same in scalar
+// f32 with a convert to bf16 and back after each operation, and widened
+// the row's 48 box values first: more instructions a child than K2, on an
+// instruction-bound walk. Here the row stays as loaded (six 16-byte loads,
+// component k of children 2p, 2p + 1 in bf16x2 word p) and the slab test
+// runs on bf16x2 words, two children an instruction: mul.rn and sub.rn
+// (sm_90; never contracted), min.NaN and max.NaN, and the entry test's
+// t0 - eps16; then the halves are widened exactly for the compares and the
+// f32 keys. 25 bf16x2 instructions a pair of children (12.5 a child,
+// against 48 rounded f32 operations and 6 widenings). Bit for bit the
+// op-by-op form: the product or difference of two bf16 values rounded to
+// f32 and then to bf16 is the correctly rounded bf16 result, because f32's
+// 24 bits exceed 2*8 + 2 (the f32 grid is 16 bits finer in the subnormal
+// range too), which is what the bf16x2 instructions give; min/max select an
+// operand, and neither the sign of a zero nor a NaN's payload reaches a
+// comparison's outcome.
 //
 // Not carried over from the TPU kernels, being scheduling devices and not
 // parts of the function: the scalar-core sorting network (here a thread or
@@ -151,8 +181,7 @@ constexpr int kEnc = 64;          // run-length field of a leaf code
 constexpr int kPrimCol = 96;      // prim ids of a run row
 constexpr int kErrStack = 1;
 constexpr int kErrIters = 2;
-constexpr int kSeedBlock = 1024;  // K2r: rays a seed row seeds (ops SEED_BLOCK)
-constexpr int kSeedCols = 16;     // K2r: seed row: codes 0..7, count at 8
+constexpr int kTreelets = 64;     // K2r: depth-2 treelet slots (ops RaySeeds)
 
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr unsigned kNoKey = 0xffffffffu;   // above the bits of any finite key
@@ -213,54 +242,98 @@ __device__ __forceinline__ void load_half_boxes(const float* __restrict__ node_r
   }
 }
 
-// x rounded to the nearest even bfloat16, held as a float: K2h's rounding
-// after every f32 operation of its slab test.
+// x rounded to the nearest even bfloat16, held as a float: K2h's per-ray
+// and per-pop terms (1/rd, ro/rd, eps, t_best + eps).
 __device__ __forceinline__ float bf_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// K2h: the 48 bf16 box values of a node row (96 bytes) as six 16-byte
-// loads, one a component (lo.x .. hi.z): the 8 children of component k are
-// the 8 halves of w[k].
-__device__ __forceinline__ void load_bf16_boxes(const __nv_bfloat16* __restrict__ node_row,
-                                                uint4 w[6]) {
+// K2h's slab arithmetic on bf16x2 words (two children an instruction, the
+// low half the even child): Hopper's correctly rounded mul/sub (sm_90; the
+// intrinsics __hmul2_rn / __hsub2_rn, which never contract into an FMA)
+// and the NaN-propagating min/max (__hmin2_nan / __hmax2_nan).
+__device__ __forceinline__ unsigned bf2_mul(unsigned a, unsigned b) {
+  unsigned r;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+__device__ __forceinline__ unsigned bf2_sub(unsigned a, unsigned b) {
+  unsigned r;
+  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+__device__ __forceinline__ unsigned bf2_min(unsigned a, unsigned b) {
+  unsigned r;
+  asm("min.NaN.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+__device__ __forceinline__ unsigned bf2_max(unsigned a, unsigned b) {
+  unsigned r;
+  asm("max.NaN.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+// A float that is a bf16 value (bf_round's result), in both halves.
+__device__ __forceinline__ unsigned bf2_splat(float x) {
+  const unsigned b = __float_as_uint(x) >> 16;
+  return b | (b << 16);
+}
+
+// The halves of a bf16x2 word as floats (exact).
+__device__ __forceinline__ float bf2_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf2_hi(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// K2h's slab test of a bf16 node row (48 box values, 96 bytes, as six
+// 16-byte loads: component k = lo.x .. hi.z of children 2p, 2p + 1 in
+// word p of w[k]), two children an instruction: the hoisted form t =
+// bf(bf(lo*inv16) - roinv16), t0/t1 from the TPU kernel's bounds
+// -/+bf(3e38), entered if t1 > bf(t0 - eps16), t1 > 0 and t0 < reach16.
+// Sets each child's bit in *in and its key max(t0, 0) (f32, widened
+// exactly). 3 x (2 mul, 2 sub, min, max, 2 folds) + 1 sub = 25 bf16x2
+// instructions a pair of children: 12.5 a child, against the f32 form's
+// 24 and the op-by-op rounded form's 48 (each term an f32 operation, a
+// convert to bf16 and a shift back) and its 6 widenings of the box values.
+__device__ __forceinline__ unsigned slab_row_bf16(const __nv_bfloat16* __restrict__ node_row,
+                                                  const unsigned inv2[3],
+                                                  const unsigned roinv2[3], unsigned bmax2,
+                                                  unsigned eps2, float reach16,
+                                                  float key[kWidth]) {
   const uint4* __restrict__ box = reinterpret_cast<const uint4*>(node_row);
+  uint4 w[6];
 #pragma unroll
   for (int k = 0; k < 6; ++k) w[k] = __ldg(box + k);
-}
-
-// Children 4*half .. 4*half + 3 of a bf16 row (load_bf16_boxes) widened to
-// floats, b[k][q] as load_half_boxes gives them.
-__device__ __forceinline__ void widen_half_boxes(const uint4 w[6], int half,
-                                                 float b[6][4]) {
+  unsigned in = 0;
 #pragma unroll
-  for (int k = 0; k < 6; ++k) {
-    const unsigned lo = half ? w[k].z : w[k].x;
-    const unsigned hi = half ? w[k].w : w[k].y;
-    b[k][0] = __uint_as_float(lo << 16);
-    b[k][1] = __uint_as_float(lo & 0xffff0000u);
-    b[k][2] = __uint_as_float(hi << 16);
-    b[k][3] = __uint_as_float(hi & 0xffff0000u);
-  }
-}
-
-// K2h's slab interval of child q of a widened half row: the hoisted form
-// in bf16, t = bf(bf(lo*inv16) - roinv16), from the TPU kernel's bounds
-// -/+bf(3e38).
-__device__ __forceinline__ void slab_child_bf16(float b[6][4], int q,
-                                                const float inv16[3],
-                                                const float roinv16[3], float bmax,
-                                                float& t0, float& t1) {
-  t0 = -bmax;
-  t1 = bmax;
+  for (int p = 0; p < kWidth / 2; ++p) {
+    unsigned t0 = bmax2 ^ 0x80008000u, t1 = bmax2;   // -/+bf(3e38)
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const float ta = bf_round(__fsub_rn(bf_round(__fmul_rn(b[k][q], inv16[k])), roinv16[k]));
-    const float tc =
-        bf_round(__fsub_rn(bf_round(__fmul_rn(b[3 + k][q], inv16[k])), roinv16[k]));
-    t0 = nan_max(t0, nan_min(ta, tc));
-    t1 = nan_min(t1, nan_max(ta, tc));
+    for (int k = 0; k < 3; ++k) {
+      const unsigned lo = p == 0 ? w[k].x : p == 1 ? w[k].y : p == 2 ? w[k].z : w[k].w;
+      const unsigned hi = p == 0   ? w[3 + k].x
+                          : p == 1 ? w[3 + k].y
+                          : p == 2 ? w[3 + k].z
+                                   : w[3 + k].w;
+      const unsigned ta = bf2_sub(bf2_mul(lo, inv2[k]), roinv2[k]);
+      const unsigned tc = bf2_sub(bf2_mul(hi, inv2[k]), roinv2[k]);
+      t0 = bf2_max(t0, bf2_min(ta, tc));
+      t1 = bf2_min(t1, bf2_max(ta, tc));
+    }
+    const unsigned t0e = bf2_sub(t0, eps2);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float a0 = h ? bf2_hi(t0) : bf2_lo(t0);
+      const float a1 = h ? bf2_hi(t1) : bf2_lo(t1);
+      const float ae = h ? bf2_hi(t0e) : bf2_lo(t0e);
+      key[2 * p + h] = nan_max(a0, 0.f);
+      if (a1 > ae && a1 > 0.f && a0 < reach16) in |= 1u << (2 * p + h);
+    }
   }
+  return in;
 }
 
 // The slab interval [t0, t1] of child q of a half row b (load_half_boxes):
@@ -431,14 +504,17 @@ __device__ __forceinline__ void test_leaf(const float* __restrict__ runs,
 
 // ------------------------------------------------ K2/K3: a ray per thread --
 
-// kSeeded (K2r): the ray's walk starts from the seed row of its block of
-// kSeedBlock rays (i / kSeedBlock: the sorted rays' 1024-lane blocks of the
-// TPU kernel, not this grid's blocks) when its count is 1..8: node codes are
-// pushed in slot order at entry distance +0, a leaf code (a root child that
-// is itself a leaf run) is tested at once, an empty slot skipped. The stack
-// holds nodes only, so no pop reads a node row at a leaf's negative code.
-// kBf16 (K2h): node rows are bf16 and the slab test runs in bf16
-// (slab_child_bf16; entered if t1 > bf(t0 - eps16), t1 > 0 and
+// kSeeded (K2r): when the ray's words (seeds[i] = w0, w1, m1, m2: bit t of
+// the 64-bit w1:w0 set for each depth-2 treelet slot t it enters; m1, m2
+// its nearest two, 64 for none) set at most 8 slots, its walk starts from
+// them instead of the root: seed_codes[t] (the tables' treelet codes) is
+// pushed at entry distance +0 for a node, tested at once for a leaf run,
+// skipped when empty; no slot set, the walk is empty. The rest are pushed
+// from the highest slot down, then m2, then m1, so that m1 pops first and
+// the rest follow in slot order. The stack holds nodes only, so no pop
+// reads a node row at a leaf's negative code.
+// kBf16 (K2h): node rows are bf16 and the slab test runs on bf16x2 words
+// (slab_row_bf16; entered if t1 > bf(t0 - eps16), t1 > 0 and
 // t0 < bf(bf(t_best) + eps16)); keys, pops and leaves stay f32.
 template <int kLeaf, bool kSeeded, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
@@ -450,6 +526,7 @@ packet_traverse_kernel(const void* __restrict__ nodes_raw,
                        const float* __restrict__ t_init,
                        const unsigned char* __restrict__ active,
                        const int* __restrict__ seeds,
+                       const int* __restrict__ seed_codes,
                        float* __restrict__ t_out, int* __restrict__ prim_out,
                        int* __restrict__ iters_out, int* __restrict__ err,
                        int n, int stack_cap, int max_iters, float eps) {
@@ -461,33 +538,54 @@ packet_traverse_kernel(const void* __restrict__ nodes_raw,
   if (active[i]) {
     float o[3], d[3], inv[3], roinv[3];
     load_ray(ro, rd, i, o, d, inv, roinv);
-    float inv16[3], roinv16[3], eps16 = 0.f, bmax = 0.f;
+    unsigned inv2[3], roinv2[3], eps2 = 0, bmax2 = 0;
+    float eps16 = 0.f;
     if (kBf16) {
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
-        inv16[k] = bf_round(inv[k]);
-        roinv16[k] = bf_round(roinv[k]);
+        inv2[k] = bf2_splat(bf_round(inv[k]));
+        roinv2[k] = bf2_splat(bf_round(roinv[k]));
       }
       eps16 = bf_round(eps);
-      bmax = bf_round(3.0e38f);
+      eps2 = bf2_splat(eps16);
+      bmax2 = bf2_splat(bf_round(3.0e38f));
     }
     int2 stack[kMaxStack];        // (code, bits of the entry distance)
     int sp = 0;
     stack[0] = make_int2(0, 0);   // root, entry distance +0
     bool overflow = false;
     if (kSeeded) {
-      const int* __restrict__ row = seeds + (size_t)(i / kSeedBlock) * kSeedCols;
-      const int cnt = __ldg(row + kWidth);
-      if (cnt >= 1 && cnt <= kWidth) {
+      const int4 s = __ldg(reinterpret_cast<const int4*>(seeds) + i);
+      unsigned long long rest =
+          ((unsigned long long)(unsigned)s.y << 32) | (unsigned long long)(unsigned)s.x;
+      if (__popcll(rest) <= kWidth) {
         sp = -1;
-        for (int j = 0; j < cnt; ++j) {
-          const int code = __ldg(row + j);
+        unsigned long long lead[2] = {0ull, 0ull};   // m1's bit, m2's bit
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = h ? s.w : s.z;
+          if (m >= 0 && m < kTreelets) lead[h] = rest & (1ull << m);
+        }
+        rest &= ~(lead[0] | lead[1]);
+        // the rest from the highest slot down, then m2, then m1
+        while (!overflow) {
+          unsigned long long bit;
+          if (rest) {
+            bit = 1ull << (63 - __clzll(rest));
+            rest ^= bit;
+          } else if (lead[1]) {
+            bit = lead[1];
+            lead[1] = 0;
+          } else if (lead[0]) {
+            bit = lead[0];
+            lead[0] = 0;
+          } else {
+            break;
+          }
+          const int code = __ldg(seed_codes + (__ffsll((long long)bit) - 1));
           if (code >= 0) {
-            if (sp + 1 >= stack_cap) {
-              overflow = true;
-              break;
-            }
-            stack[++sp] = make_int2(code, 0);
+            if (sp + 1 >= stack_cap) overflow = true;
+            else stack[++sp] = make_int2(code, 0);
           } else if (code != kPad) {
             test_leaf<kLeaf>(runs, code, o, d, eps, tb, pb);
           }
@@ -514,13 +612,11 @@ packet_traverse_kernel(const void* __restrict__ nodes_raw,
       int ent[kWidth];
       unsigned leaves = 0, inner = 0;
       const float reach = __fadd_rn(tb, eps);
-      uint4 w16[6];
-      float reach16 = 0.f;
-      if (kBf16) {
-        load_bf16_boxes(static_cast<const __nv_bfloat16*>(nodes_raw) + (size_t)e.x * kRowF,
-                        w16);
-        reach16 = bf_round(__fadd_rn(bf_round(tb), eps16));
-      }
+      unsigned in16 = 0;
+      if (kBf16)
+        in16 = slab_row_bf16(static_cast<const __nv_bfloat16*>(nodes_raw) + (size_t)e.x * kRowF,
+                             inv2, roinv2, bmax2, eps2,
+                             bf_round(__fadd_rn(bf_round(tb), eps16)), key);
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int4 e4 = __ldg(kid + half);
@@ -529,24 +625,21 @@ packet_traverse_kernel(const void* __restrict__ nodes_raw,
         ent[4 * half + 2] = e4.z;
         ent[4 * half + 3] = e4.w;
         float b[6][4];
-        if (kBf16)
-          widen_half_boxes(w16, half, b);
-        else
+        if (!kBf16)
           load_half_boxes(static_cast<const float*>(nodes_raw) + (size_t)e.x * kRowF, half,
                           b);
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int c = 4 * half + q;
-          float t0, t1;
           bool in;
           if (kBf16) {
-            slab_child_bf16(b, q, inv16, roinv16, bmax, t0, t1);
-            in = t1 > bf_round(__fsub_rn(t0, eps16)) && t1 > 0.f && t0 < reach16;
+            in = (in16 >> c) & 1u;
           } else {
+            float t0, t1;
             slab_child<false>(b, q, o, inv, roinv, t0, t1);
             in = enters(t0, t1, eps, reach);
+            key[c] = nan_max(t0, 0.f);
           }
-          key[c] = nan_max(t0, 0.f);
           if (in && ent[c] != kPad) {
             if (ent[c] < 0) leaves |= 1u << c;
             else inner |= 1u << c;
@@ -782,8 +875,9 @@ packet_walk_v3_kernel(const float* __restrict__ nodes,
 
 // Plain C entry for ctypes. nodes/entries/runs: the packed tables (f32 —
 // or bf16 when node_bf16 — / i32 / f32, 128 columns); ro, rd: f32[n,3];
-// t_init: f32[n]; active: bool[n] (one byte each); seeds: null, or K2r's
-// i32[ceil(n/1024), 16] seed rows; t_out: f32[n]; prim_out, iters_out:
+// t_init: f32[n]; active: bool[n] (one byte each); seeds, seed_codes: null,
+// or K2r's per-ray words i32[n, 4] and the treelet codes i32[64] (ops
+// RaySeeds); t_out: f32[n]; prim_out, iters_out:
 // i32[n]; err: one i32, zero on entry (bit 1: stack overflow, bit 2: pop
 // backstop). leaf_kind 0 = triangles, 1 = spheres; version 2 = K2/K3, 1 =
 // K5a, 3 = K5b (triangles only). Seeds and bf16 nodes are K2's modes
@@ -796,15 +890,16 @@ extern "C" int lpt_packet_traverse(const void* nodes, const void* entries,
                                    const void* runs, const void* ro,
                                    const void* rd, const void* t_init,
                                    const void* active, const void* seeds,
-                                   void* t_out, void* prim_out, void* iters_out,
-                                   void* err, int n, int stack_cap, int max_iters,
+                                   const void* seed_codes, void* t_out, void* prim_out,
+                                   void* iters_out, void* err, int n, int stack_cap, int max_iters,
                                    float eps, int leaf_kind, int version,
                                    int node_bf16, void* stream) {
   const bool seeded = seeds != nullptr;
   if (version < 1 || version > 3 || leaf_kind < 0 || leaf_kind > 1 ||
       (version != 2 && leaf_kind != 0) || stack_cap < 1 ||
       (version == 2 && stack_cap > kMaxStack) ||
-      ((seeded || node_bf16) && (version != 2 || leaf_kind != 0)))
+      ((seeded || node_bf16) && (version != 2 || leaf_kind != 0)) ||
+      (seeded && seed_codes == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* nf = (const float*)nodes;
@@ -815,6 +910,7 @@ extern "C" int lpt_packet_traverse(const void* nodes, const void* entries,
   const float* tif = (const float*)t_init;
   const unsigned char* ac = (const unsigned char*)active;
   const int* sd = (const int*)seeds;
+  const int* sc = (const int*)seed_codes;
   float* to = (float*)t_out;
   int* po = (int*)prim_out;
   int* io = (int*)iters_out;
@@ -832,14 +928,15 @@ extern "C" int lpt_packet_traverse(const void* nodes, const void* entries,
         nf, ei, rf, rof, rdf, tif, ac, to, po, io, er, n, stack_cap, max_iters, eps);
   } else if (leaf_kind == 1) {
     packet_traverse_kernel<kSpheres, false, false><<<grid, kThreads, 0, s>>>(
-        nodes, ei, rf, rof, rdf, tif, ac, sd, to, po, io, er, n, stack_cap, max_iters, eps);
+        nodes, ei, rf, rof, rdf, tif, ac, sd, sc, to, po, io, er, n, stack_cap, max_iters,
+        eps);
   } else {
     const auto k2 = seeded ? (node_bf16 ? packet_traverse_kernel<kTriPairs, true, true>
                                         : packet_traverse_kernel<kTriPairs, true, false>)
                            : (node_bf16 ? packet_traverse_kernel<kTriPairs, false, true>
                                         : packet_traverse_kernel<kTriPairs, false, false>);
-    k2<<<grid, kThreads, 0, s>>>(nodes, ei, rf, rof, rdf, tif, ac, sd, to, po, io, er, n,
-                                 stack_cap, max_iters, eps);
+    k2<<<grid, kThreads, 0, s>>>(nodes, ei, rf, rof, rdf, tif, ac, sd, sc, to, po, io, er,
+                                 n, stack_cap, max_iters, eps);
   }
   return (int)cudaGetLastError();
 }

@@ -88,14 +88,16 @@ class Schedule:
 
 
 def schedule(n: int, spp: int, pool_mult: int = 0, pool_div: int = 0,
-             drain_ratio: int = DRAIN_RATIO, drain_floor: int = 0) -> Schedule:
+             drain_ratio: int = DRAIN_RATIO, drain_floor: int = 0,
+             scene: str = "spheres") -> Schedule:
     """The JAX package's pool policy and drain cascade, with its overrides
     and their errors.
 
     Auto (no override): when ``spp | n``, the pool halves from ``n`` while
     it stays at or above ``POOL_FLOOR``, is rounded up to a multiple of spp
     and aligned down to ``POOL_ALIGN`` lanes where spp allows; otherwise it
-    is ``n``. ``pool_mult = q`` (a divisor of spp) makes it ``q·n`` lanes,
+    is ``n``. For ``scene='legacy'`` the auto pool is ``n`` (mesh passes
+    carry more fixed cost, so the JAX package keeps them few and wide). ``pool_mult = q`` (a divisor of spp) makes it ``q·n`` lanes,
     each running ``spp / q`` items; ``pool_div = d`` makes it ``n // d``
     rounded up to a multiple of spp (at least spp), each lane running about
     ``d·spp`` items. Both need ``spp | n`` and exclude each other. The drain
@@ -121,7 +123,7 @@ def schedule(n: int, spp: int, pool_mult: int = 0, pool_div: int = 0,
         pool = -(-(n // pool_div) // spp) * spp
         if pool < spp:
             raise ValueError(f"pool_div={pool_div} leaves a pool below spp={spp}")
-    else:
+    elif scene != "legacy":
         while pool // 2 >= POOL_FLOOR:
             pool //= 2
         pool = -(-pool // spp) * spp
@@ -272,13 +274,13 @@ def _persistent_core(world_data, cam: CameraParams, resolution, n: int,
     ``[sample_base, sample_base + spp)`` of pixels ``[pixel_base,
     pixel_base + n)`` of the ``resolution`` image. The schedule, the drain
     cascade and the accumulator are local to the range (``schedule(n,
-    spp, ...)`` with the knobs of ``render_persistent``; ``acc`` row ``i``
+    spp, ..., scene)`` with the knobs of ``render_persistent``; ``acc`` row ``i``
     is pixel ``pixel_base + i``), and the camera and the RNG key on absolute
     ids, so a range's samples are those of the whole render:
     ``parallel.mesh`` runs one range a rank. Returns ``(acc int64[n, 3]
     fixed-point radiance sums, segments int, stats dict)``; the stats hold
     the schedule, the passes and ``host_reads``, the live-count reads."""
-    sched = schedule(n, spp, pool_mult, pool_div, drain_ratio, drain_floor)
+    sched = schedule(n, spp, pool_mult, pool_div, drain_ratio, drain_floor, scene)
     unroll = max(drain_unroll, 1)
     dev = cam.device
     hit_fn, background_fn = _scene_fns(scene)

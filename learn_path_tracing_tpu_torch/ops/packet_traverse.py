@@ -32,13 +32,17 @@ its mesh path, template flags of the same kernel:
 
 - K2r, the treelet restart (``packet_traverse_sorted(restart=True)``, the
   JAX package's ``seed_init``): rays sorted by the treelet key start their
-  walk from the seed row of their 1024-ray block (``seed_rows``: the
-  depth-2 treelets any ray of the block enters, at most 8) instead of the
-  root; exact, so ``(t, prim)`` are the root walk's;
+  walk from the depth-2 treelets each of them enters itself (``RaySeeds``:
+  its entered words and its two nearest treelets, at most 8 treelets)
+  instead of the root; exact, so ``(t, prim)`` are the root walk's. The
+  TPU seeds a 1024-ray packet with its block's union (``seed_rows``, kept
+  to pin the JAX package's rows); a thread walks one ray here, so the
+  union would only add pops;
 - K2h, the bf16 slabs: a ``bfloat16`` node table (``nodes_to_bf16``,
-  boxes rounded outward) and the slab test in bf16. It loses hits whose
-  ray terms round past a box face, so its image is not the f32 one (an
-  ablation, as in the JAX package); K2rh is both.
+  boxes rounded outward) and the slab test in bf16 (packed bf16x2
+  arithmetic on the card). It loses hits whose ray terms round past a box
+  face, so its image is not the f32 one (an ablation, as in the JAX
+  package); K2rh is both.
 
 Sphere leaves take version 2 only, as in the JAX package. The data
 contract is the JAX package's:
@@ -92,8 +96,10 @@ The coherence keys are the JAX package's (``_coherence_key``: 'treelet',
 the default, or 'morton'). In both packages an empty treelet slot's box
 (``lo = +inf``, ``hi = -inf``) passes the key's slab test for every ray, so
 on a tree whose top two levels have empty slots every ray "enters" them:
-the treelet pair then sorts by those slots, and a block is seeded only
-where at most 8 slots are entered in all.
+the treelet pair then sorts by those slots, and a block's seed row
+(``seed_rows``) is filled only where at most 8 slots are entered in all.
+``RaySeeds`` drops those empty slots from a ray's words, so a ray is seeded
+wherever it enters at most 8 real treelets.
 
 ``traverse`` dispatches on the device: CUDA tensors launch the version's
 kernel or K2's mode (and count the launch in
@@ -105,6 +111,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -121,18 +128,20 @@ VERSIONS = (1, 2, 3)
 SORT_KEYS = ("treelet", "morton")
 # the kernel that carries each (leaf kind, version), as traverse.launches counts
 KERNELS = {("tri", 2): "k2", ("sphere", 2): "k3", ("tri", 1): "k5a", ("tri", 3): "k5b"}
-# K2's modes (version 2, triangle leaves): seeded from per-block seed rows
-# (the treelet restart), bf16 node boxes, or both
+# K2's modes (version 2, triangle leaves): seeded from each ray's own
+# treelets (the treelet restart), bf16 node boxes, or both
 MODES = {(True, False): "k2r", (False, True): "k2h", (True, True): "k2rh"}
 SLABS = {1: "direct", 2: "hoisted", 3: "hoisted"}
 # stack entries K2 and K3 hold (csrc kMaxStack); K5a and K5b size their
 # shared memory by the tables' stack_cap
 MAX_STACK = 256
 _INF = float("inf")
-# The JAX package's RAY_BLOCK: the lanes of one seed row (the treelet
-# restart seeds a block of 1024 sorted rays), and the divisor nstacks takes.
+# The JAX package's RAY_BLOCK: the lanes of one of its seed rows (its
+# treelet restart seeds a block of 1024 sorted rays), and the divisor
+# nstacks takes.
 SEED_BLOCK = 1024
 SEED_COLS = 16          # seed row: codes at 0..7, their count at column 8
+NO_TREELET = WIDTH * WIDTH   # m1/m2 of RaySeeds.words: no such treelet
 # the bf16 slab test's initial bounds: the TPU kernel's jnp.bfloat16(3.0e38)
 _BMAX16 = float(torch.tensor(3.0e38).to(torch.bfloat16))
 
@@ -412,13 +421,15 @@ def _coherence_key(nodes, ro, rd, treelets, eps: float = 0.0, kind: str = "treel
 
 
 def seed_rows(w0, w1, seed_codes):
-    """Treelet-restart seed rows ``i32[ceil(N/1024), 16]`` from the sorted
-    rays' entered words ``w0, w1`` (``_treelet_entry_key(want_mask=True)``
-    in sorted order, 0 for inactive rays) and the tables' ``seed_codes``
-    (``treelet_seed_codes``): the JAX package's rows. Row ``b`` seeds rays
-    ``[1024 b, 1024 b + 1024)``: columns 0..7 hold the codes of the
-    treelets any of them enters, in slot order (then the rest of the slots'
-    codes), column 8 their count, 0 (a root walk) when it is above 8."""
+    """The JAX package's treelet-restart seed rows ``i32[ceil(N/1024), 16]``
+    from the sorted rays' entered words ``w0, w1``
+    (``_treelet_entry_key(want_mask=True)`` in sorted order, 0 for inactive
+    rays) and the tables' ``seed_codes`` (``treelet_seed_codes``). Row
+    ``b`` seeds rays ``[1024 b, 1024 b + 1024)``: columns 0..7 hold the
+    codes of the treelets any of them enters, in slot order (then the rest
+    of the slots' codes), column 8 their count, 0 (a root walk) when it is
+    above 8. K2r seeds each ray from its own treelets instead
+    (``RaySeeds``); these rows report what the TPU's packets would take."""
     n = w0.shape[0]
     nblk = -(-n // SEED_BLOCK)
     bits = torch.arange(32, dtype=torch.int64, device=w0.device)
@@ -433,6 +444,77 @@ def seed_rows(w0, w1, seed_codes):
     rows[:, :WIDTH] = codes[:, :WIDTH]
     rows[:, WIDTH] = torch.where((cnt >= 1) & (cnt <= WIDTH), cnt, 0).to(torch.int32)
     return rows
+
+
+class RaySeeds(NamedTuple):
+    """K2r's seeds (``sorted_rays(restart=True)``, ``ray_seeds``): ray
+    ``i`` starts its walk from the treelet slots set in its words, when
+    they are at most 8.
+
+    - ``words i32[N,4]``: ``(w0, w1, m1, m2)``: bit ``t`` of ``w0`` (``t <
+      32``) or ``w1`` (``t >= 32``) set when the ray enters treelet slot
+      ``t``; ``m1``, ``m2`` its nearest and second-nearest slots
+      (``NO_TREELET``: none), which pop first, then the rest in slot order;
+    - ``codes i32[64]``: each slot's stack entry code
+      (``treelet_seed_codes``): a node is pushed at entry distance +0, a
+      leaf run tested at once, an empty slot (``_PAD``) skipped.
+
+    More than 8 set bits walk from the root; none, an active ray walks
+    nothing."""
+    words: torch.Tensor
+    codes: torch.Tensor
+
+    def to(self, device) -> "RaySeeds":
+        return RaySeeds(self.words.to(device), self.codes.to(device))
+
+    def counts(self):
+        """``i64[N]``: the slots each ray's words set (seeded at most 8)."""
+        return _entered(self.words).sum(dim=1)
+
+
+def _entered(words):
+    """``bool[N,64]``: the treelet slots set in ``RaySeeds.words``."""
+    w = words.to(torch.int64)
+    bits = torch.arange(32, dtype=torch.int64, device=words.device)
+    return torch.cat([((w[:, h, None] >> bits) & 1).bool() for h in range(2)], dim=1)
+
+
+def _u32_as_i32(w):
+    """int64 values in [0, 2^32) as the int32 of the same bits."""
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def ray_seeds(w0, w1, tkey, seed_codes) -> RaySeeds:
+    """K2r's ``RaySeeds`` of rays with entered words ``w0, w1`` and treelet
+    key ``tkey`` (``_treelet_entry_key(want_mask=True)``: the words int64,
+    the key ``m1*65 + m2``, ``65²`` for none) over tables with
+    ``seed_codes`` (``treelet_seed_codes``). Empty slots, which the key's
+    slab test enters for every ray, are dropped from the words, so they
+    neither seed nor count."""
+    codes = torch.as_tensor(seed_codes, device=w0.device).to(torch.int32)
+    real = (codes != int(_PAD)).to(torch.int64)
+    bits = torch.arange(32, dtype=torch.int64, device=w0.device)
+    masks = [int(torch.sum(real[h * 32:(h + 1) * 32] << bits)) for h in range(2)]
+    m1 = torch.where(tkey < _TREELET_NONE, tkey // (NO_TREELET + 1), NO_TREELET)
+    m2 = torch.where(tkey < _TREELET_NONE, tkey % (NO_TREELET + 1), NO_TREELET)
+    words = torch.stack([_u32_as_i32(w0 & masks[0]), _u32_as_i32(w1 & masks[1]),
+                         m1.to(torch.int32), m2.to(torch.int32)], dim=1)
+    return RaySeeds(words.contiguous(), codes.contiguous())
+
+
+def _seed_slots(words):
+    """The treelet slots ray ``i`` of ``words`` (``RaySeeds.words``) pushes,
+    in push order: ``(slots i64[N,64], count i64[N])``, the first
+    ``count`` columns valid. Pops run m1, m2, then the rest in slot order,
+    so the rest are pushed from the highest slot down, then m2, then m1."""
+    w = words.to(torch.int64)
+    ent = _entered(words)
+    slot = torch.arange(WIDTH * WIDTH, dtype=torch.int64, device=words.device)
+    rank = torch.where(slot[None, :] == w[:, 2:3], WIDTH * WIDTH + 1,
+                       torch.where(slot[None, :] == w[:, 3:4], WIDTH * WIDTH,
+                                   WIDTH * WIDTH - 1 - slot[None, :]))
+    rank = torch.where(ent, rank, 2 * WIDTH * WIDTH)
+    return torch.sort(rank, dim=1, stable=True).indices, ent.sum(dim=1)
 
 
 # ----------------------------------------------------------- entry points --
@@ -457,7 +539,10 @@ def _check(nodes, entries, runs, ro, rd, t_init, active, leaf_kind, version=2, s
               ("t_init", t_init, torch.float32, (n,)),
               ("active", active, torch.bool, (n,))]
     if seeds is not None:
-        checks.append(("seeds", seeds, torch.int32, (-(-n // SEED_BLOCK), SEED_COLS)))
+        if not isinstance(seeds, RaySeeds):
+            raise ValueError(f"packet traversal: seeds must be RaySeeds, got {type(seeds)}")
+        checks += [("seeds.words", seeds.words, torch.int32, (n, 4)),
+                   ("seeds.codes", seeds.codes, torch.int32, (WIDTH * WIDTH,))]
     for name, x, dtype, shape in checks:
         if x.dtype != dtype or tuple(x.shape) != shape:
             raise ValueError(f"packet traversal: {name} must be {dtype}{list(shape)}, "
@@ -486,10 +571,10 @@ def traverse(nodes, entries, runs, ro, rd, t_init, active, eps: float = 1e-4,
     packet's in K5a/K5b). ``stack`` is the tables' ``stack_cap`` (computed
     from ``entries`` when None); ``version`` picks the kernel (1, 2 or 3).
 
-    K2's modes (version 2, triangle leaves): ``seeds`` (``seed_rows``,
-    ``i32[ceil(N/1024), 16]``) starts ray ``i``'s walk from the seeds of
-    row ``i // 1024`` instead of the root (K2r); a ``bfloat16`` ``nodes``
-    table (``nodes_to_bf16``) runs the slab test in bf16 (K2h); both, K2rh.
+    K2's modes (version 2, triangle leaves): ``seeds`` (``RaySeeds``)
+    starts ray ``i``'s walk from the treelets its words name instead of the
+    root (K2r); a ``bfloat16`` ``nodes`` table (``nodes_to_bf16``) runs the
+    slab test in bf16 (K2h); both, K2rh.
     Versions 1 and 3 widen a bf16 table to f32 and walk it, as the JAX
     package's v1 and v3 kernels promote it.
 
@@ -596,13 +681,14 @@ def packet_traverse_sorted(nodes, entries, runs, ro, rd, active,
     given, the result gains a 7th element, the payload in sorted order.
 
     ``restart`` (version 2 only): the JAX package's treelet restart. Each
-    block of 1024 sorted rays starts its walks from the treelets any of its
-    active rays enters (``seed_rows``, from ``seed_codes``, the tables'
-    ``treelet_seed_codes``, computed when None) instead of the root: K2r.
-    Exact, since a ray can only hit a primitive below a treelet it enters
-    (the key's slab test is eps-relaxed like the kernel's), so ``(t_s,
-    prim_s)`` equal the root walk's. A block entering more than 8 treelets
-    walks from the root."""
+    sorted ray starts its walk from the depth-2 treelets it enters itself
+    (``RaySeeds``, from ``seed_codes``, the tables' ``treelet_seed_codes``,
+    computed when None) instead of the root: K2r. Exact, since a ray can
+    only hit a primitive below a treelet it enters (the primitive lies in
+    the treelet's box, and the key's slab test is eps-relaxed like the
+    kernel's), so ``(t_s, prim_s)`` equal the root walk's. A ray entering
+    more than 8 treelets walks from the root. (The JAX package seeds a
+    1024-ray block with the union of its rays' treelets, ``seed_rows``.)"""
     if sort_key != "treelet":
         # the entered prefix (hits in the first entered_n sorted rays) holds
         # for the treelet-major key only
@@ -628,8 +714,8 @@ def sorted_rays(nodes, entries, ro, rd, active, eps: float = 1e-4, treelets=None
     """``packet_traverse_sorted``'s ray order: ``(order_idx, active_s,
     entered_n, seeds)``, the stable sort by the treelet coherence key with
     inactive rays last, the sorted rays' active mask, the count of sorted
-    rays that enter a treelet, and with ``restart`` the seed rows of the
-    sorted blocks (``seed_rows``; else None)."""
+    rays that enter a treelet, and with ``restart`` the sorted rays' own
+    seeds (``ray_seeds``; inactive rays none; else None)."""
     if treelets is None:
         treelets = _treelets(nodes, entries, ro.device)
     if restart:
@@ -646,9 +732,8 @@ def sorted_rays(nodes, entries, ro, rd, active, eps: float = 1e-4, treelets=None
     if restart:
         if seed_codes is None:
             seed_codes = treelet_seed_codes(nodes, entries)
-        # inactive rays contribute no treelet to their block
         w0_s, w1_s = (torch.where(active_s, w[order_idx], 0) for w in (w0, w1))
-        seeds = seed_rows(w0_s, w1_s, seed_codes)
+        seeds = ray_seeds(w0_s, w1_s, tkey[order_idx], seed_codes)
     return order_idx, active_s, entered_n, seeds
 
 
@@ -662,9 +747,11 @@ def _launch(nodes, entries, runs, ro, rd, t_init, active, eps, leaf_kind, stack,
         raise ValueError(f"packet traversal kernel: the tables need a stack of "
                          f"{stack} entries, {kernel} holds {MAX_STACK}")
     tensors = (("nodes", nodes), ("entries", entries), ("runs", runs), ("ro", ro),
-               ("rd", rd), ("t_init", t_init), ("active", active), ("seeds", seeds))
+               ("rd", rd), ("t_init", t_init), ("active", active),
+               *((("seeds.words", seeds.words), ("seeds.codes", seeds.codes))
+                 if seeds is not None else ()))
     for name, x in tensors:
-        if x is not None and not x.is_contiguous():
+        if not x.is_contiguous():
             raise ValueError(f"packet traversal kernel: {name} must be contiguous")
     lib = load_kernel()
     n, m = ro.shape[0], nodes.shape[0]
@@ -680,7 +767,8 @@ def _launch(nodes, entries, runs, ro, rd, t_init, active, eps, leaf_kind, stack,
         code = lib.lpt_packet_traverse(
             nodes.data_ptr(), entries.data_ptr(), runs.data_ptr(), ro.data_ptr(),
             rd.data_ptr(), t_init.data_ptr(), active.data_ptr(),
-            None if seeds is None else seeds.data_ptr(), t.data_ptr(),
+            None if seeds is None else seeds.words.data_ptr(),
+            None if seeds is None else seeds.codes.data_ptr(), t.data_ptr(),
             prim.data_ptr(), iters.data_ptr(), err.data_ptr(), n, stack,
             16 * m + 64, float(eps), LEAF_KINDS.index(leaf_kind), version, int(bf16),
             stream)
@@ -701,7 +789,7 @@ def load_kernel() -> ctypes.CDLL:
     """Build (first use) and load the kernel library with its C signature."""
     lib = build.load("packet_traverse")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.lpt_packet_traverse.argtypes = [vp] * 12 + [ci, ci, ci, ctypes.c_float, ci, ci, ci,
+    lib.lpt_packet_traverse.argtypes = [vp] * 13 + [ci, ci, ci, ctypes.c_float, ci, ci, ci,
                                                     vp]
     lib.lpt_packet_traverse.restype = ci
     lib.lpt_error_string.argtypes = [ci]
@@ -781,12 +869,12 @@ def packet_traverse_plain(nodes, entries, runs, ro, rd, t_init, active,
 
     K2's modes, as ``traverse`` takes them:
 
-    - ``seeds`` (K2r): ray ``i``'s walk starts from row ``i // 1024``. When
-      its count is 1..8, the row's codes are taken in slot order: a node is
-      pushed at entry distance +0 (so the last ends on top), a leaf run (a
-      root child that is a leaf) is tested at once, an empty slot skipped;
-      otherwise the walk starts at the root. Leaves at seed time are not
-      pops.
+    - ``seeds`` (K2r, ``RaySeeds``): when ray ``i``'s words set at most 8
+      slots, its walk starts from them instead of the root, pushed in
+      ``_seed_slots``' order (the rest from the highest slot down, then m2,
+      then m1, so m1 pops first): a node code at entry distance +0, a leaf
+      run (a treelet that is a leaf) tested at once, an empty slot skipped;
+      no slot set, the walk is empty. Leaves at seed time are not pops.
     - a ``bfloat16`` ``nodes`` table (K2h): the hoisted slab test in bf16,
       every operation an f32 operation rounded to the nearest even bf16:
       ``inv16 = bf(1/rd)``, ``roinv16 = bf(ro*inv)``, ``t = bf(bf(lo*inv16) -
@@ -837,12 +925,13 @@ def packet_traverse_plain(nodes, entries, runs, ro, rd, t_init, active,
             prim_best[r] = torch.where(better, p_c, pb)
 
     if seeds is not None:
-        row = seeds[torch.arange(n, device=dev) // SEED_BLOCK].to(torch.int64)
-        seeded = active & (row[:, WIDTH] >= 1) & (row[:, WIDTH] <= WIDTH)
+        slots, cnt = _seed_slots(seeds.words)
+        codes = seeds.codes.to(torch.int64)
+        seeded = active & (cnt <= WIDTH)
         sp = torch.where(seeded, -1, sp)
         for j in range(WIDTH):
-            code = row[:, j]
-            take = seeded & (j < row[:, WIDTH])
+            code = codes[slots[:, j]]
+            take = seeded & (j < cnt)
             push = torch.nonzero(take & (code >= 0)).squeeze(1)
             sp[push] += 1
             if bool((sp[push] >= stack).any()):

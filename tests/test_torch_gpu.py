@@ -243,17 +243,65 @@ def _beam_rays(n, device):
     return [torch.as_tensor(x, device=device) for x in (ro, rd.astype(np.float32), active)]
 
 
+# box values at the edges of K2h's bf16 arithmetic: signed zeros, f32 and
+# bf16 subnormals, the smallest normal, values about -/+bf(3e38) and the
+# largest finite bf16, and the infinities
+_EDGE_BOUNDS = np.float32([0.0, -0.0, 1e-39, -1e-39, 1e-45, -1e-45, 1.1754944e-38, 3e38,
+                           -3e38, 3.3895314e38, -3.3895314e38, np.inf, -np.inf])
+
+
+def _edge_case(tables, n, device):
+    """The bf16 risks: a node table in which a tenth of the box values are
+    widened to ``_EDGE_BOUNDS`` (each lo the least, each hi the greatest of
+    its value and an edge value, so every box still bounds its triangles),
+    and rays that are axis-parallel (1/rd = +/-inf), with -0 and +0
+    direction components, from origins with zero components (ro/rd = 0*inf
+    = NaN) or in the beams; ``t_init`` (for a call of ``traverse``) mixes
+    +inf, -inf and finite values."""
+    r = np.random.default_rng(n + 7)
+    nodes = tables[0].cpu().numpy().copy()
+    box = nodes[:, :48]
+    edge = r.choice(_EDGE_BOUNDS, size=box.shape)
+    widened = np.concatenate([np.minimum(box[:, :24], edge[:, :24]),
+                              np.maximum(box[:, 24:], edge[:, 24:])], axis=1)
+    nodes[:, :48] = np.where(r.uniform(size=box.shape) < 0.1, widened, box)
+    ro, rd, active = (x.cpu().numpy() for x in _beam_rays(n, "cpu"))
+    axis = r.integers(3, size=n)
+    k = np.arange(n)
+    rd_a = np.zeros((n, 3), np.float32)
+    rd_a[k, axis] = np.where(r.uniform(size=n) < 0.5, -1.0, 1.0)
+    rd_a[k, (axis + 1) % 3] = np.where(r.uniform(size=n) < 0.5, -0.0, 0.0)
+    ro_a = (r.normal(size=(n, 3)) * 3).astype(np.float32)
+    ro_a[k, (axis + 2) % 3] = np.where(r.uniform(size=n) < 0.5, 0.0, ro_a[k, (axis + 2) % 3])
+    pick = (k % 3)[:, None]
+    ro = np.where(pick == 0, ro, ro_a).astype(np.float32)
+    rd = np.where(pick == 0, rd, np.where(pick == 1, rd_a, -rd_a)).astype(np.float32)
+    t_init = np.where(k % 5 == 0, -np.inf, np.where(k % 5 == 1, r.uniform(0, 30, n),
+                                                    np.inf)).astype(np.float32)
+    out = [torch.as_tensor(nodes, device=device), *tables[1:]]
+    return out, [torch.as_tensor(x, device=device) for x in (ro, rd, active)], t_init
+
+
+@pytest.mark.parametrize("rays", ["beams", "edges"])
 @pytest.mark.parametrize("restart,bf16", [(True, False), (False, True), (True, True)])
 @pytest.mark.parametrize("n", [1, 1023, 5000])
-def test_k2_modes_match_twin_bitwise(cuda, monkeypatch, restart, bf16, n):
-    """K2r (seeded from ``packet_traverse_sorted(restart=True)``'s rows),
-    K2h (bf16 node slabs) and K2rh: bit for bit their plain twin in ``(t,
-    prim, iters)``, each counted under its own name; K2r also bit for bit
-    the root walk in ``(t, prim)``."""
+def test_k2_modes_match_twin_bitwise(cuda, monkeypatch, restart, bf16, n, rays):
+    """K2r (seeded from each ray's own treelets, ``packet_traverse_sorted(
+    restart=True)``'s ``RaySeeds``), K2h (bf16 node slabs, packed bf16x2)
+    and K2rh: bit for bit their plain twin in ``(t, prim, iters)``, each
+    counted under its own name; on the beams K2r is also bit for bit the
+    root walk in ``(t, prim)``. ``edges``: the bf16 risks of
+    ``_edge_case``; there a ray from ``ro = 0`` along a zero direction
+    component has NaN slab terms (``0 * inf``), which reject every box of
+    the root walk, while its seeds skip the top two levels and test a leaf
+    treelet at once, so K2r may hit what the root walk misses."""
     tables = [torch.as_tensor(x, device=cuda) for x in _cluster_tables()]
+    ro, rd, active = _beam_rays(n, cuda)
+    t_init = None
+    if rays == "edges":
+        tables, (ro, rd, active), t_init = _edge_case(tables, n, cuda)
     if bf16:
         tables[0] = tpt.nodes_to_bf16(tables[0]).to(cuda)
-    ro, rd, active = _beam_rays(n, cuda)
     kernel = tpt.kernel_of("tri", 2, restart, bf16)
     seen = {}
     walk = tpt.traverse
@@ -266,20 +314,21 @@ def test_k2_modes_match_twin_bitwise(cuda, monkeypatch, restart, bf16, n):
     monkeypatch.setattr(tpt, "traverse", capture)
     out = tpt.packet_traverse_sorted(*tables, ro, rd, active, restart=restart)
     monkeypatch.undo()
-    args, seeds = seen["args"], seen["seeds"]
+    args, seeds = list(seen["args"]), seen["seeds"]
+    if t_init is not None:
+        args[5] = torch.as_tensor(t_init, device=cuda)
     launches = dict(tpt.traverse.launches)
     t, p, it = tpt.traverse(*args, seeds=seeds)
     assert tpt.traverse.launches[kernel] == launches[kernel] + 1
     t2, p2, it2 = tpt.packet_traverse_plain(*[x.cpu() for x in args],
-                                            seeds=None if seeds is None else seeds.cpu())
+                                            seeds=None if seeds is None else seeds.to("cpu"))
     assert torch.equal(t.cpu().view(torch.int32), t2.view(torch.int32))
     assert torch.equal(p.cpu(), p2) and torch.equal(it.cpu(), it2)
-    if restart and not bf16:
+    if restart and not bf16 and rays == "beams":
         root = tpt.packet_traverse_sorted(*tables, ro, rd, active)
         assert torch.equal(out[0], root[0]) and torch.equal(out[1], root[1])
     if restart and n == 5000:
-        cnt = seeds[:, 8]
-        assert bool(((cnt >= 1) & (cnt <= 8)).any())
+        assert bool(((seeds.counts() <= 8) & args[6]).any())
 
 
 @pytest.mark.parametrize("knobs", [{"pool_mult": 1}, {"pool_div": 2},

@@ -3,9 +3,13 @@ on the CPU, where each mode runs its kernel's plain twin
 (``ops.packet_traverse.packet_traverse_plain``):
 
 - the treelet restart (K2r): ``treelet_seed_codes``, the entered words of
-  ``_treelet_entry_key(want_mask=True)``, the seed rows and
-  ``packet_traverse_sorted(restart=True)`` against the JAX package's
-  (``_kernel_v2``'s ``seed_init`` in Pallas interpret mode);
+  ``_treelet_entry_key(want_mask=True)``, the JAX package's block seed rows
+  (``seed_rows``) and ``packet_traverse_sorted(restart=True)`` against the
+  JAX package's (``_kernel_v2``'s ``seed_init`` in Pallas interpret mode),
+  which the port seeds from each ray's own treelets (``RaySeeds``);
+- the premise of K2h's packed bf16x2 slab test: a bf16 product or
+  difference computed in f32 and rounded once to bf16 is the correctly
+  rounded bf16 result (``test_bf16_double_rounding_is_innocuous``);
 - the bf16 slabs (K2h): ``nodes_to_bf16`` and the walk over its table
   against the JAX package's bf16 kernel in interpret mode;
 - the Morton key (``sort_key='morton'``) and the JAX package's checks of
@@ -15,17 +19,23 @@ Inputs: the JAX package's own restart test input
 (``tests/test_packet_traverse.py:184``: 40 triangles, 2,048 rays), a tree
 whose top two levels are full (600 triangles), so that blocks of coherent
 rays are seeded with nodes, and the same with a far triangle, a leaf child
-of the root, whose seed row holds its leaf code. In both packages an empty
+of the root, whose seed row holds its leaf code; and (``_many_beams``) 64
+narrow beams into the full tree, so that each ray enters at most 8
+treelets but every 1024-ray block more: the port seeds the rays where the
+JAX package's blocks walk from the root. In both packages an empty
 treelet slot has the box ``lo = +inf, hi = -inf``, which the key's slab
 test enters for every ray (``t0 = -inf``, ``t1 = +inf``), so a tree with
-empty slots in its top two levels is seeded only where at most 8 slots are
-entered in all: the JAX test input is never seeded (its rows all hold 0),
-which the restart test states.
+empty slots in its top two levels gets a block seed row only where at
+most 8 slots are entered in all: the JAX test input's rows all hold 0,
+which the seed-row test states. ``RaySeeds`` drops the empty slots from
+each ray's words, so the port seeds its rays there too.
 
 Tolerances, with their reasons:
 
-- Seed codes, entered words, keys, seed rows, the sort permutation,
-  ``entered_n`` and ``nodes_to_bf16``'s bytes: exact.
+- Seed codes, entered words, keys, seed rows, per-ray seeds, the sort
+  permutation, ``entered_n`` and ``nodes_to_bf16``'s bytes: exact. The
+  double-rounding premise: bit for bit on every finite and infinite
+  result, NaN for NaN.
 - Hits against the JAX package: ``prim`` and hit/miss equal on at least
   99.9 % of rays, each difference an exact tie or a grazing edge, ``t``
   within 1e-5 relative (``test_torch_packet._agree``): XLA on the CPU
@@ -169,17 +179,23 @@ def _jax_seed_rows(tables, ro, rd, active, monkeypatch):
     return seen["rows"]
 
 
+def _sorted_words(tables, ro, rd, active):
+    """``(order, active_s, tkey_s, w0_s, w1_s)``: the port's restart order
+    and the sorted rays' treelet keys and entered words (0 for inactive
+    rays), as ``sorted_rays(restart=True)`` computes them."""
+    nodes, entries, ro_t, rd_t, act = _t(tables[0], tables[1], ro, rd, active)
+    order, active_s, _, _ = tpt.sorted_rays(nodes, entries, ro_t, rd_t, act, restart=True)
+    tkey, w0, w1 = tpt._treelet_entry_key(ro_t, rd_t, tpt._treelets(nodes, entries, "cpu"),
+                                          eps=1e-4, want_mask=True)
+    w0_s, w1_s = (torch.where(active_s, w[order], 0) for w in (w0, w1))
+    return order, active_s, tkey[order], w0_s, w1_s
+
+
 def _port_seed_rows(tables, ro, rd, active, monkeypatch):
-    seen = {}
-    walk = tpt.traverse
-
-    def capture(*args, seeds=None, **kw):
-        seen["rows"] = seeds.numpy()
-        return walk(*args, seeds=seeds, **kw)
-
-    monkeypatch.setattr(tpt, "traverse", capture)
-    tpt.packet_traverse_sorted(*_t(*tables, ro, rd, active), restart=True)
-    return seen["rows"]
+    """``seed_rows`` of the port's sorted words: the rows the JAX package's
+    blocks would take."""
+    _, _, _, w0_s, w1_s = _sorted_words(tables, ro, rd, active)
+    return tpt.seed_rows(w0_s, w1_s, tpt.treelet_seed_codes(*tables[:2])).numpy()
 
 
 def test_seed_rows_match_jax(case, monkeypatch):
@@ -219,25 +235,99 @@ def test_restart_twin_matches_jax_and_the_root_walk(case):
 
 
 def test_seeded_walk_checks_its_rows():
+    """``traverse(seeds=RaySeeds)``'s checks, and its words' rules: more
+    than 8 slots set is a root walk, none an empty walk, and slots whose
+    code is empty are skipped."""
     _, tables = _tri_tables(1, 200, 4)
     ro, rd, ti, active = _rays(1, 1500)
     args = _t(*tables, ro, rd, ti, active)
+    codes = torch.as_tensor(tpt.treelet_seed_codes(*tables[:2]))
+    words = torch.zeros((1500, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="seeds must be"):
-        tpt.traverse(*args, seeds=torch.zeros((1, 16), dtype=torch.int32))
-    rows = torch.zeros((2, 16), dtype=torch.int32)
+        tpt.traverse(*args, seeds=torch.zeros((2, 16), dtype=torch.int32))
+    with pytest.raises(ValueError, match="seeds.words must be"):
+        tpt.traverse(*args, seeds=tpt.RaySeeds(words[:1], codes))
     with pytest.raises(ValueError, match="v2 kernel"):
-        tpt.traverse(*args, seeds=rows, version=1)
-    # a count of 0 (or above 8) is a root walk; empty slots are skipped, so
-    # a row of 8 of them walks nothing
-    rows[:, :8] = int(tpt._PAD)
+        tpt.traverse(*args, seeds=tpt.RaySeeds(words, codes), version=1)
     t0, p0, i0 = tpt.traverse(*args)
-    for cnt in (0, 9):
-        rows[:, 8] = cnt
-        t, p, it = tpt.traverse(*args, seeds=rows)
-        assert torch.equal(t, t0) and torch.equal(p, p0) and torch.equal(it, i0)
-    rows[:, 8] = 8
-    t, p, it = tpt.traverse(*args, seeds=rows)
+    words[:, :2] = -1                                   # all 64 slots: a root walk
+    t, p, it = tpt.traverse(*args, seeds=tpt.RaySeeds(words, codes))
+    assert torch.equal(t, t0) and torch.equal(p, p0) and torch.equal(it, i0)
+    words[:, :2] = 0                                    # none: nothing walked
+    t, p, it = tpt.traverse(*args, seeds=tpt.RaySeeds(words, codes))
     assert torch.equal(t, args[5]) and (p == -1).all() and (it == 0).all()
+    words[:, 0] = 0xFF                                  # 8 slots, all empty codes
+    t, p, it = tpt.traverse(*args, seeds=tpt.RaySeeds(words, torch.full_like(codes, tpt._PAD)))
+    assert torch.equal(t, args[5]) and (p == -1).all() and (it == 0).all()
+
+
+def test_ray_seeds_are_each_rays_own_treelets(case):
+    """``sorted_rays(restart=True)``'s seeds: each sorted ray's entered
+    words with the empty slots dropped, its nearest two slots from the key,
+    and the tables' codes; every case seeds most of its active rays."""
+    name, (_, tables, ro, rd, active) = case
+    order, active_s, tkey_s, w0_s, w1_s = _sorted_words(tables, ro, rd, active)
+    _, _, _, seeds = tpt.sorted_rays(*_t(tables[0], tables[1], ro, rd, active), restart=True)
+    codes = tpt.treelet_seed_codes(*tables[:2])
+    np.testing.assert_array_equal(seeds.codes.numpy(), codes)
+    real = np.flatnonzero(codes != tpt._PAD)
+    mask = sum(1 << int(b) for b in real)
+    words = seeds.words.numpy()
+    np.testing.assert_array_equal(words[:, 0].view(np.uint32), w0_s.numpy() & (mask & 0xFFFFFFFF))
+    np.testing.assert_array_equal(words[:, 1].view(np.uint32), w1_s.numpy() & (mask >> 32))
+    none = tkey_s.numpy() == 65 * 65
+    np.testing.assert_array_equal(words[:, 2], np.where(none, 64, tkey_s.numpy() // 65))
+    np.testing.assert_array_equal(words[:, 3], np.where(none, 64, tkey_s.numpy() % 65))
+    count = np.unpackbits(words[:, :2].copy().view(np.uint8), axis=1).sum(axis=1)
+    np.testing.assert_array_equal(seeds.counts().numpy(), count)
+    seeded = active_s.numpy() & (count <= 8)
+    assert seeded.sum() > 0.9 * active_s.numpy().sum()
+    if name == "jax test input":     # no block row, yet the rays are seeded
+        assert (_port_seed_rows(tables, ro, rd, active, None)[:, 8] == 0).all()
+
+
+def _many_beams():
+    """The full tree under 64 narrow beams from above, one a 32-ray group in
+    lane order, aimed at points spread over the cluster: each ray enters at
+    most 8 treelets, but every 1024-ray block of the sorted rays enters
+    more, so the JAX package's rows walk every block from the root."""
+    v, tables, _, _, _ = _case("full tree")
+    r = np.random.default_rng(8)
+    targets = r.normal(size=(64, 3)).astype(np.float32) * 3
+    parts = [_beam(r, N_RAYS // 64, tgt + np.float32([0.2, 40, 0.2]), tgt, 0.002)
+             for tgt in targets]
+    ro, rd = (np.concatenate(x) for x in zip(*parts))
+    active = r.random(N_RAYS) < 0.9
+    return v, tables, ro, rd.astype(np.float32), active
+
+
+def test_rays_are_seeded_where_their_block_is_not():
+    """(b): the per-ray seeds on rays whose 1024-ray blocks enter more than
+    8 treelets: the JAX package's rows seed no block, the port seeds the
+    rays, and the seeded walk is the root walk bit for bit (with fewer
+    pops) and the JAX package's restart walk to the stated tolerance."""
+    v, tables, ro, rd, active = _many_beams()
+    rows = _port_seed_rows(tables, ro, rd, active, None)
+    assert (rows[:, 8] == 0).all()
+    args = _t(*tables, ro, rd, active)
+    order, active_s, _, seeds = tpt.sorted_rays(args[0], args[1], *args[3:], restart=True)
+    seeded = active_s & (seeds.counts() <= 8)
+    assert int(seeded.sum()) > 0.9 * int(active_s.sum())
+    p = tpt.packet_traverse_sorted(*args, restart=True)
+    root = tpt.packet_traverse_sorted(*args)
+    for a, b in zip(p[:4], root[:4]):
+        assert torch.equal(a, b)
+    ro_s, rd_s = args[3][order], args[4][order]
+    inf = torch.full((N_RAYS,), float("inf"))
+    _, _, it_seeded = tpt.traverse(*args[:3], ro_s, rd_s, inf, active_s, seeds=seeds)
+    _, _, it_root = tpt.traverse(*args[:3], ro_s, rd_s, inf, active_s)
+    assert int(it_seeded.sum()) < int(it_root.sum())
+    j = jpt.packet_traverse_sorted(*_j(*tables, ro, rd, active), interpret=True, version=2,
+                                   restart=True)
+    np.testing.assert_array_equal(p[5].numpy(), np.asarray(j[5]))
+    tp, pp, tj, pj = p[0].numpy(), p[1].numpy(), np.asarray(j[0]), np.asarray(j[1])
+    o = order.numpy()
+    assert _agree(tp, pp, tj, pj, _tri_explain(v, ro[o], rd[o], tp, pp, tj, pj)) > 200
 
 
 # ------------------------------------------------------------- bf16 slabs --
@@ -287,6 +377,61 @@ def test_xla_rounds_each_bf16_slab_operation():
     # and the port's constants are the kernel's
     assert tpt._BMAX16 == float(jnp.bfloat16(3.0e38))
     assert float(tpt._bf16(torch.tensor(1e-4))) == float(eps16)
+
+
+def _bf16_correctly_rounded(x):
+    """f64 values rounded once to the nearest even bf16 (8 significant bits,
+    subnormal step 2^-133, overflow to inf), as f32: the reference that a
+    native bf16 operation must give."""
+    with np.errstate(over="ignore", invalid="ignore"):
+        _, e = np.frexp(x)
+        step = np.ldexp(1.0, np.maximum(e - 8, -133))
+        r = np.where(np.isfinite(x), np.rint(x / step) * step, x)
+        return r.astype(np.float32)
+
+
+@pytest.mark.parametrize("op", ["mul", "sub"])
+def test_bf16_double_rounding_is_innocuous(op):
+    """(c) The premise of K2h's packed slab test: for bf16 ``a``, ``b``, the
+    f32 result of ``a*b`` or ``a - b`` rounded to the nearest even bf16
+    (the twin's and XLA's op-by-op form) is the correctly rounded bf16
+    result that Hopper's ``mul.rn.bf16x2``/``sub.rn.bf16x2`` give (24 >= 2*8
+    + 2 significant bits, and the f32 grid is 16 bits finer than bf16's in
+    the subnormal range too). Held on 300,000 random bit patterns (every
+    exponent, subnormals, infinities and NaNs among them), 100,000 pairs
+    whose results lie about the smallest normal, and on every pair
+    of edge values: signed zeros, the extreme subnormals, the smallest
+    normal, one, values near -/+bf(3e38) and the largest finite bf16, and
+    the infinities. Bit for bit; a NaN result must be NaN on both sides
+    (its payload is never read: a NaN slab term fails every comparison)."""
+    bf = ml_dtypes.bfloat16
+    r = np.random.default_rng(13)
+    bits = r.integers(0, 1 << 16, size=(2, 300_000), dtype=np.uint32).astype(np.uint16)
+    # and 100,000 pairs whose results lie about the smallest normal: the
+    # exponent fields near 63 (products) or near 0 (differences)
+    lo, hi = (56, 69) if op == "mul" else (0, 4)
+    near = ((r.integers(0, 2, size=(2, 100_000)) << 15) | (r.integers(lo, hi, size=(2, 100_000))
+            << 7) | r.integers(0, 128, size=(2, 100_000))).astype(np.uint16)
+    bits = np.concatenate([bits, near], axis=1)
+    a, b = bits[0].view(bf), bits[1].view(bf)
+    edge = np.float32([0.0, -0.0, 2.0 ** -133, -2.0 ** -133, 2.0 ** -126 - 2.0 ** -133,
+                       2.0 ** -126, -2.0 ** -126, 1.0, -1.0, 3.0e38, -3.0e38, 1.5,
+                       3.3895314e38, -3.3895314e38, 2.0 ** 64, 2.0 ** -64, np.inf, -np.inf,
+                       np.nan]).astype(bf)
+    ea, eb = np.meshgrid(edge, edge)
+    a, b = np.concatenate([a, ea.ravel()]), np.concatenate([b, eb.ravel()])
+    fn = (lambda x, y: x * y) if op == "mul" else (lambda x, y: x - y)
+    with np.errstate(all="ignore"):
+        twin = fn(a.astype(np.float32), b.astype(np.float32)).astype(bf)
+        want = _bf16_correctly_rounded(fn(a.astype(np.float64), b.astype(np.float64))).astype(bf)
+    nan = np.isnan(want.astype(np.float32))
+    np.testing.assert_array_equal(np.isnan(twin.astype(np.float32)), nan)
+    np.testing.assert_array_equal(twin.view(np.uint16)[~nan], want.view(np.uint16)[~nan])
+    # the sets reach every class the slab test can meet
+    res = want.astype(np.float32)[~nan]
+    tiny = np.abs(res) < 2.0 ** -126
+    assert (tiny & (res != 0)).sum() > 10_000 and np.isinf(res).sum() > 100
+    assert (np.signbit(res) & (res == 0)).any() and (~np.signbit(res) & (res == 0)).any()
 
 
 @pytest.mark.parametrize("version", [2, 1, 3])

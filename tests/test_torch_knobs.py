@@ -45,6 +45,7 @@ from learn_path_tracing_tpu_torch.integrator.hybrid import render_hybrid
 from learn_path_tracing_tpu_torch.integrator.persistent import render_persistent, schedule
 from learn_path_tracing_tpu_torch.integrator.wavefront import render
 from learn_path_tracing_tpu_torch.models import random_scene, stage10_camera
+from learn_path_tracing_tpu_torch.ops import packet_traverse as tpt
 from learn_path_tracing_tpu_torch.scene import legacy_world as tlw
 from learn_path_tracing_tpu_torch.utils.checks import render_agreement
 
@@ -57,6 +58,7 @@ SIZES = [(1280 * 720, 64), (480 * 240, 4), (32 * 18, 4), (30 * 20, 7), (2304, 16
 KNOBS = [{}, {"pool_mult": 1}, {"pool_mult": 2}, {"pool_mult": 3}, {"pool_div": 2},
          {"pool_div": 16}, {"pool_div": 10 ** 6}, {"drain_ratio": 4},
          {"drain_ratio": 2, "drain_floor": 1024}, {"pool_mult": 1, "pool_div": 2}]
+LEGACY_KNOBS = [{}, {"pool_mult": 2}, {"pool_div": 16}, {"drain_ratio": 4}]
 
 
 @pytest.fixture(scope="module")
@@ -64,24 +66,28 @@ def jax_world():
     return j_random_scene(seed=SEED).device()
 
 
-def _jax_schedule(jax_world, n, spp, knobs, monkeypatch):
+def _jax_schedule(jax_world, n, spp, knobs, monkeypatch, scene="spheres"):
     """``(pool, drain widths)`` of the JAX package's ``_persistent_core``,
     from the ray widths its trace generates, or the ``ValueError`` it
-    raises."""
+    raises. ``scene`` is what its schedule reads; the trace runs the sphere
+    scene's hit and background functions (the widths do not depend on
+    them)."""
     widths = []
     camera = jpers.generate_rays_for_pixels
+    scene_fns = jpers._scene_fns
 
     def record(cam, resolution, pixel, *args, **kw):
         widths.append(int(pixel.shape[0]))
         return camera(cam, resolution, pixel, *args, **kw)
 
     monkeypatch.setattr(jpers, "generate_rays_for_pixels", record)
+    monkeypatch.setattr(jpers, "_scene_fns", lambda _: scene_fns("spheres"))
     res = (n, 1)
     cam = j_stage10_camera(res).params()
     args = {"pool_mult": 0, "pool_div": 0, "drain_ratio": 8, "drain_floor": 0, **knobs}
     try:
         jax.make_jaxpr(lambda: jpers._persistent_core(
-            jax_world, cam, res, n, 0, 0, spp, 2, 0, "modern", "thinlens", "spheres", "auto",
+            jax_world, cam, res, n, 0, 0, spp, 2, 0, "modern", "thinlens", scene, "auto",
             args["pool_mult"], args["pool_div"], args["drain_ratio"], args["drain_floor"]))()
     except ValueError as e:
         return e
@@ -95,16 +101,21 @@ def _jax_schedule(jax_world, n, spp, knobs, monkeypatch):
 
 @pytest.mark.parametrize("n,spp", SIZES)
 def test_schedule_matches_jax(jax_world, monkeypatch, n, spp):
-    for knobs in KNOBS:
-        want = _jax_schedule(jax_world, n, spp, knobs, monkeypatch)
-        if isinstance(want, ValueError):
-            with pytest.raises(ValueError) as got:
-                schedule(n, spp, **knobs)
-            assert str(got.value) == str(want), knobs
-            continue
-        s = schedule(n, spp, **knobs)
-        assert (s.pool, s.drain_widths) == want, (n, spp, knobs)
-        assert s.items_per == (math.ceil(n * spp / s.pool) if n % spp == 0 else spp)
+    """Every knob on the sphere scene; on the legacy scene (whose auto pool
+    is ``n``) the auto schedule and the pool overrides."""
+    for scene, knobs_of_scene in (("spheres", KNOBS), ("legacy", LEGACY_KNOBS)):
+        for knobs in knobs_of_scene:
+            want = _jax_schedule(jax_world, n, spp, knobs, monkeypatch, scene)
+            if isinstance(want, ValueError):
+                with pytest.raises(ValueError) as got:
+                    schedule(n, spp, **knobs, scene=scene)
+                assert str(got.value) == str(want), knobs
+                continue
+            s = schedule(n, spp, **knobs, scene=scene)
+            assert (s.pool, s.drain_widths) == want, (n, spp, knobs, scene)
+            assert s.items_per == (math.ceil(n * spp / s.pool) if n % spp == 0 else spp)
+            if scene == "legacy" and not knobs:
+                assert s.pool == n
 
 
 def test_schedule_rules():
@@ -245,8 +256,8 @@ def test_restart_frame_is_the_default_frame(standin, monkeypatch):
     """``LPT_TREELET_RESTART=1``: the hybrid's pool passes and the wavefront
     engine's hits take ``packet_traverse_sorted(restart=True)``; both frames
     are the default ones bit for bit. (At this size every 1024-ray block
-    enters more than 8 treelets, so each walks from the root; the seeded
-    walk itself is held in ``test_torch_k2_modes.py``.)"""
+    enters more than 8 treelets, so the JAX package's block rows would walk
+    each from the root; most rays are seeded from their own treelets.)"""
     wd = _build(standin, monkeypatch, bf16=False)
     monkeypatch.delenv("LPT_TREELET_RESTART", raising=False)
     ref_img, ref_segs, _ = _hybrid(wd)
@@ -254,18 +265,26 @@ def test_restart_frame_is_the_default_frame(standin, monkeypatch):
     wf = dict(spp=1, limit=4, seed=1, bsdf="legacy", scene="legacy", camera_model="jitter")
     ref_wf = render(wd, cam, (64, 64), **wf)
 
-    rows = []
-    walk = tlw.packet_traverse_sorted
+    rows, seeded = [], [0, 0]
+    walk, step = tlw.packet_traverse_sorted, tpt.traverse
 
     def counted(*args, restart=False, **kw):
         rows.append(restart)
         return walk(*args, restart=restart, **kw)
 
+    def seeds_counted(*args, seeds=None, **kw):
+        if seeds is not None:
+            seeded[0] += int(((seeds.counts() <= 8) & args[6]).sum())
+            seeded[1] += int(args[6].sum())
+        return step(*args, seeds=seeds, **kw)
+
     monkeypatch.setattr(tlw, "packet_traverse_sorted", counted)
+    monkeypatch.setattr(tpt, "traverse", seeds_counted)
     monkeypatch.setenv("LPT_TREELET_RESTART", "1")
     img, segs, _ = _hybrid(wd)
     assert rows and all(rows)
     assert segs == ref_segs and torch.equal(img, ref_img)
+    assert seeded[0] > seeded[1] // 2
     rows.clear()
     img_wf, segs_wf = render(wd, cam, (64, 64), **wf)
     assert rows and all(rows)
@@ -323,3 +342,44 @@ def test_bf16_world_tables_match_jax_and_convert(tmp_path, monkeypatch):
             np.testing.assert_array_equal(nodes.view(torch.int16).numpy().view(np.uint16), jbits)
         for a, b in zip(m.treelets, jm.treelets):
             assert a.dtype == torch.float32 and _same(a, b)
+
+
+def test_legacy_auto_pool_is_the_jax_packages(standin, monkeypatch):
+    """``render_persistent(scene='legacy')`` takes the JAX package's legacy
+    auto pool, ``n`` lanes (30,400 here, where the sphere rule gives 29,696):
+    the image and segments of the sphere rule's pool bit for bit (the
+    schedule only changes which lane traces which sample), and at limit 1
+    (no bounce: every pass consumes one item a lane, whatever it hits) the
+    pool, drain widths and passes of every level of the JAX package's
+    ``_persistent_core`` under ``scene='legacy'`` (traced with the sphere
+    scene's hit functions, which the schedule does not read)."""
+    import learn_path_tracing_tpu_torch.integrator.persistent as tpers
+
+    wd = _build(standin, monkeypatch, bf16=False)
+    res = (160, 190)
+    n = res[0] * res[1]
+    cam = chip_smoke.l14_camera(res).params()
+    kw = dict(spp=2, seed=3, bsdf="legacy", camera_model="jitter", scene="legacy",
+              stats=True)
+    img, segs, st = render_persistent(wd, cam, res, limit=2, **kw)
+    assert st["pool"] == n
+    rule = tpers.schedule
+    monkeypatch.setattr(tpers, "schedule",
+                        lambda n, spp, *a: rule(n, spp, *a[:4], "spheres"))
+    old_img, old_segs, old_st = render_persistent(wd, cam, res, limit=2, **kw)
+    monkeypatch.setattr(tpers, "schedule", rule)
+    assert old_st["pool"] == 29696     # and one pass more (3 + 1 against 3 + 0)
+    assert old_st["passes_full"] + sum(old_st["drain_passes"]) > (
+        st["passes_full"] + sum(st["drain_passes"]))
+    assert segs == old_segs and torch.equal(img.view(torch.int32), old_img.view(torch.int32))
+
+    _, _, st1 = render_persistent(wd, cam, res, limit=1, **kw)
+    scene_fns = jpers._scene_fns
+    monkeypatch.setattr(jpers, "_scene_fns", lambda _: scene_fns("spheres"))
+    _, _, j_st = j_render_persistent(j_random_scene(seed=SEED).device(),
+                                     j_stage10_camera(res).params(), res, spp=2, limit=1,
+                                     seed=3, scene="legacy", stats=True)
+    assert st1["pool"] == int(j_st["pool"]) == n
+    assert st1["drain_widths"] == tuple(int(w) for w in j_st["drain_widths"])
+    assert st1["passes_full"] == int(j_st["passes_full"])
+    assert st1["drain_passes"] == tuple(int(p) for p in j_st["drain_passes"])
