@@ -47,6 +47,8 @@ from ..bsdf.bsdf import SCATTERERS
 from ..camera.camera import CameraParams, generate_rays_for_pixels
 from ..core import rng
 from ..core.types import Rays
+from ..ops import kernel_counters
+from ..utils.profiling import host_read, recording, span, spanned
 from .persistent import radiance
 from .wavefront import _scene_fns
 
@@ -95,18 +97,23 @@ def render_hybrid(world_data, cam: CameraParams, resolution, spp: int,
     ``hit_backend``: any name of ``HIT_BACKENDS``, and none changes the
     render (the JAX package takes it and never reads it either: both walk
     the legacy world's packet tables); another name raises ``ValueError``.
+
+    The stats carry ``utils.profiling``'s ``spans``, ``host_reads`` (each
+    chunk's hit count, each pool pass's live and hit counts, and on the card
+    every traversal launch's error flag) and ``kernels``.
     """
     if scene != "legacy":
         raise ValueError("render_hybrid targets legacy mesh scenes; use "
                          "render_persistent for sphere scenes")
     check_hit_backend(hit_backend)
     w, h = resolution
-    acc, segments, st = _hybrid_core(world_data, cam, resolution, w * h, 0, sample_base,
-                                     spp, limit, seed, bsdf, camera_model, chunk_spp,
-                                     cap, pool_w, drain_ratio)
-    img = (radiance(acc) / spp).reshape(w, h, 3)
+    with recording(stats, "lpt.render.hybrid", kernel_counters) as table:
+        acc, segments, st = _hybrid_core(world_data, cam, resolution, w * h, 0, sample_base,
+                                         spp, limit, seed, bsdf, camera_model, chunk_spp,
+                                         cap, pool_w, drain_ratio)
+        img = (radiance(acc) / spp).reshape(w, h, 3)
     if stats:
-        return img, segments, st
+        return img, segments, {**st, **table.stats()}
     return img, segments
 
 
@@ -123,7 +130,12 @@ def _hybrid_core(world_data, cam: CameraParams, resolution, n: int, pixel_base: 
     camera and the RNG key on absolute ids, so a range's samples are those
     of the whole render: ``parallel.mesh`` runs one range a rank. Returns
     ``(acc int64[n, 3] fixed-point radiance sums, segments int, stats
-    dict)``."""
+    dict)``. Spans (``utils.profiling``): ``lpt.hybrid.slab`` (phase A of a
+    chunk), ``lpt.hybrid.survivors`` (the sort and extraction),
+    ``lpt.hybrid.batch`` (a batch's regeneration, shading, bounce-0 scatter
+    and splice or merge), ``lpt.hybrid.pool_pass``, ``lpt.hybrid.flush``
+    (deposits of carried radiance: a narrowing's dropped rows, the final
+    flush)."""
     from ..scene.legacy_world import shade_from_trace, trace_legacy, trace_shade_compact
 
     dev = cam.device
@@ -174,6 +186,7 @@ def _hybrid_core(world_data, cam: CameraParams, resolution, n: int, pixel_base: 
     keys = tuple(pool)
     segments = passes = primary_hits = 0
 
+    @spanned("lpt.hybrid.pool_pass")
     def pool_pass(pool, live):
         """One compacting bounce pass over ``live`` live lanes: returns the
         pool with its live lanes in the prefix ``[0, nhits)``, the live
@@ -190,7 +203,9 @@ def _hybrid_core(world_data, cam: CameraParams, resolution, n: int, pixel_base: 
         pixel = wid // spp + pixel_base
         sample = wid % spp + sample_base
         base = rng.base(rng.stream(seed, sample, bounce, rng.STREAM_BSDF), pixel)
-        sc = scatter(Rays(ro=hits.point, rd=rd_c, throughput=th, alive=alive), hits, base)
+        with span("lpt.bsdf.scatter"):
+            sc = scatter(Rays(ro=hits.point, rd=rd_c, throughput=th, alive=alive), hits,
+                         base)
         survived = alive & hits.hit & (bounce + 1 < limit)
         s3 = survived[:, None]
         # dead lanes keep finite ray state (a miss lane's point is its origin)
@@ -200,7 +215,7 @@ def _hybrid_core(world_data, cam: CameraParams, resolution, n: int, pixel_base: 
                "rad": rad, "wid": wid,
                "bounce": torch.where(survived, bounce + 1, bounce),
                "alive": survived}
-        return new, int(survived.sum()), nhits
+        return new, host_read(int, survived.sum()), nhits
 
     def run_until_live(pool, live, threshold):
         """Pool passes until at most ``threshold`` lanes are live (make-room:
@@ -235,71 +250,76 @@ def _hybrid_core(world_data, cam: CameraParams, resolution, n: int, pixel_base: 
     def compact_slice(pool, lw):
         """Narrow the pool to ``lw`` rows (every live lane sits in
         ``[0, lw)``); deposit the dropped rows' carried radiance."""
-        deposit(pool["wid"][lw:], pool["rad"][lw:])
+        with span("lpt.hybrid.flush"):
+            deposit(pool["wid"][lw:], pool["rad"][lw:])
         return {k: v[:lw] for k, v in pool.items()}
 
     # ---------------------------------------------------------- chunks --
     lanes = torch.arange(slab, dtype=torch.int64, device=dev)
     live, fill = 0, 0
     for ci in range(n_chunks):
-        # phase A: dense pixel-major primaries, traversal only
-        wid_a = (lanes // chunk_spp) * spp + ci * chunk_spp + lanes % chunk_spp
-        rays, _, _ = regen(wid_a)
-        # scanline-coherent already: no coherence sort (packet versions 1, 3)
-        t, prim, src = trace_legacy(world_data, rays, sort_rays=False)
-        segments += slab
-        hitm = torch.isfinite(t)
-        esc = ~hitm
-        contrib = torch.where(esc[:, None],
-                              background_fn(world_data, rays.rd, esc) * rays.throughput,
-                              0.0)
-        acc += _fixed(contrib).reshape(n, chunk_spp, 3).sum(dim=1)
+        with span("lpt.hybrid.slab"):
+            # phase A: dense pixel-major primaries, traversal only
+            wid_a = (lanes // chunk_spp) * spp + ci * chunk_spp + lanes % chunk_spp
+            rays, _, _ = regen(wid_a)
+            # scanline-coherent already: no coherence sort (packet versions 1, 3)
+            t, prim, src = trace_legacy(world_data, rays, sort_rays=False)
+            segments += slab
+            hitm = torch.isfinite(t)
+            esc = ~hitm
+            contrib = torch.where(esc[:, None],
+                                  background_fn(world_data, rays.rd, esc) * rays.throughput,
+                                  0.0)
+            acc += _fixed(contrib).reshape(n, chunk_spp, 3).sum(dim=1)
         if limit <= 1:
             continue
 
-        # survivor extraction: ascending t puts the hits (finite t) first
-        count = int(hitm.sum())
-        primary_hits += count
-        order = torch.argsort(t, stable=True)[:count]
-        wid_s, t_s, prim_s, src_s = wid_a[order], t[order], prim[order], src[order]
+        with span("lpt.hybrid.survivors"):
+            # survivor extraction: ascending t puts the hits (finite t) first
+            count = host_read(int, hitm.sum())
+            primary_hits += count
+            order = torch.argsort(t, stable=True)[:count]
+            wid_s, t_s, prim_s, src_s = wid_a[order], t[order], prim[order], src[order]
 
         for off in range(0, count, cap):
-            batch_n = min(cap, count - off)
-            sl = slice(off, off + batch_n)
-            # regeneration, deferred shading and the bounce-0 scatter at
-            # batch width (rows past batch_n are inert padding)
-            widb = torch.zeros((cap,), dtype=torch.int64, device=dev)
-            widb[:batch_n] = wid_s[sl]
-            tb = torch.full((cap,), float("inf"), device=dev)
-            tb[:batch_n] = t_s[sl]
-            primb = torch.full((cap,), -1, dtype=torch.int32, device=dev)
-            primb[:batch_n] = prim_s[sl]
-            srcb = torch.full((cap,), -1, dtype=torch.int32, device=dev)
-            srcb[:batch_n] = src_s[sl]
-            raysb, pixb, smpb = regen(widb)
-            hitsb = shade_from_trace(world_data, raysb, tb, primb, srcb, count=batch_n)
-            base = rng.base(rng.stream(seed, smpb, 0, rng.STREAM_BSDF), pixb)
-            scb = scatter(raysb, hitsb, base)
-            batch = empty_pool(cap)
-            batch["ro"][:batch_n] = scb.ro[:batch_n]
-            batch["rd"][:batch_n] = scb.rd[:batch_n]
-            batch["th"][:batch_n] = scb.throughput[:batch_n]
-            batch["wid"][:batch_n] = widb[:batch_n]
-            batch["bounce"][:batch_n] = 1
-            batch["alive"][:batch_n] = True
+            with span("lpt.hybrid.batch"):
+                batch_n = min(cap, count - off)
+                sl = slice(off, off + batch_n)
+                # regeneration, deferred shading and the bounce-0 scatter at
+                # batch width (rows past batch_n are inert padding)
+                widb = torch.zeros((cap,), dtype=torch.int64, device=dev)
+                widb[:batch_n] = wid_s[sl]
+                tb = torch.full((cap,), float("inf"), device=dev)
+                tb[:batch_n] = t_s[sl]
+                primb = torch.full((cap,), -1, dtype=torch.int32, device=dev)
+                primb[:batch_n] = prim_s[sl]
+                srcb = torch.full((cap,), -1, dtype=torch.int32, device=dev)
+                srcb[:batch_n] = src_s[sl]
+                raysb, pixb, smpb = regen(widb)
+                hitsb = shade_from_trace(world_data, raysb, tb, primb, srcb, count=batch_n)
+                base = rng.base(rng.stream(seed, smpb, 0, rng.STREAM_BSDF), pixb)
+                with span("lpt.bsdf.scatter"):
+                    scb = scatter(raysb, hitsb, base)
+                batch = empty_pool(cap)
+                batch["ro"][:batch_n] = scb.ro[:batch_n]
+                batch["rd"][:batch_n] = scb.rd[:batch_n]
+                batch["th"][:batch_n] = scb.throughput[:batch_n]
+                batch["wid"][:batch_n] = widb[:batch_n]
+                batch["bounce"][:batch_n] = 1
+                batch["alive"][:batch_n] = True
 
-            if fill + cap <= pool_w:
-                # splice into never-touched rows (their rad is 0): no pass
-                for k in keys:
-                    pool[k][fill:fill + cap] = batch[k]
-                fill = -(-(fill + batch_n) // FILL_ALIGN) * FILL_ALIGN
-            else:
-                # make room: live lanes are scattered from here on, so
-                # every later batch merges too
-                pool, live = run_until_live(pool, live, pool_w - batch_n)
-                pool = merge(pool, batch, batch_n)
-                fill = pool_w
-            live += batch_n
+                if fill + cap <= pool_w:
+                    # splice into never-touched rows (their rad is 0): no pass
+                    for k in keys:
+                        pool[k][fill:fill + cap] = batch[k]
+                    fill = -(-(fill + batch_n) // FILL_ALIGN) * FILL_ALIGN
+                else:
+                    # make room: live lanes are scattered from here on, so
+                    # every later batch merges too
+                    pool, live = run_until_live(pool, live, pool_w - batch_n)
+                    pool = merge(pool, batch, batch_n)
+                    fill = pool_w
+                live += batch_n
     passes_chunkphase = passes
 
     # ------------------------------------------- end-of-render cascade --
@@ -319,7 +339,8 @@ def _hybrid_core(world_data, cam: CameraParams, resolution, n: int, pixel_base: 
         nxt = levels[li + 1] if li + 1 < len(levels) else 0
         pool, live, marker = run_until_marker(pool, live, marker, nxt)
         by_level.append(passes)
-    deposit(pool["wid"], pool["rad"])   # final flush: every lane is dead
+    with span("lpt.hybrid.flush"):
+        deposit(pool["wid"], pool["rad"])   # final flush: every lane is dead
 
     # passes_by_width: chunk-phase make-room passes at pool_w, the cascade
     # head (also at pool_w), then each cascade level

@@ -60,8 +60,10 @@ from ..core import rng
 from ..core.pytree import tree_where
 from ..core.types import Rays
 from ..ops import bounce_megakernel as mk
+from ..ops import kernel_counters
 from ..ops.sphere_scan import intersect_spheres_scan_plain
 from ..scene import world as world_mod
+from ..utils.profiling import host_read, recording, span
 from .wavefront import _scene_fns
 
 # Smallest auto-policy pool, as in the JAX package (its measured knee).
@@ -229,6 +231,10 @@ def render_persistent(world_data, cam: CameraParams, resolution, spp: int,
     silently. Its samples are the modular engine's, so on the CPU the two
     images agree.
 
+    The stats of either engine carry ``utils.profiling``'s ``spans``,
+    ``host_reads`` (the device→host reads: the modular engine's live-count
+    reads, the mega engine's ``LaneList`` reads) and ``kernels``.
+
     The modular engine's schedule knobs, the JAX package's: ``pool_mult``,
     ``pool_div``, ``drain_ratio`` and ``drain_floor`` set the pool and the
     drain levels (``schedule``); ``drain_unroll = k`` runs ``k`` passes per
@@ -245,16 +251,19 @@ def render_persistent(world_data, cam: CameraParams, resolution, spp: int,
                  drain_floor=drain_floor, drain_unroll=drain_unroll)
     if engine == "mega":
         _check_mega(w * h, spp, bsdf, camera_model, scene, hit_backend, knobs)
-        acc, segments, st = _render_mega(world_data, cam, resolution, spp, limit, seed)
-    elif engine in ("auto", "modular"):
-        acc, segments, st = _persistent_core(
-            world_data, cam, resolution, w * h, 0, 0, spp, limit, seed, bsdf,
-            camera_model, scene, hit_backend, **knobs)
-    else:
+    elif engine not in ("auto", "modular"):
         raise ValueError(f"unknown engine: {engine!r}")
-    img = (radiance(acc) / spp).reshape(w, h, 3)
+    with recording(stats, "lpt.render.mega" if engine == "mega" else
+                   "lpt.render.modular", kernel_counters) as table:
+        if engine == "mega":
+            acc, segments, st = _render_mega(world_data, cam, resolution, spp, limit, seed)
+        else:
+            acc, segments, st = _persistent_core(
+                world_data, cam, resolution, w * h, 0, 0, spp, limit, seed, bsdf,
+                camera_model, scene, hit_backend, **knobs)
+        img = (radiance(acc) / spp).reshape(w, h, 3)
     if stats:
-        return img, segments, st
+        return img, segments, {**st, **table.stats()}
     return img, segments
 
 
@@ -279,7 +288,8 @@ def _persistent_core(world_data, cam: CameraParams, resolution, n: int,
     ids, so a range's samples are those of the whole render:
     ``parallel.mesh`` runs one range a rank. Returns ``(acc int64[n, 3]
     fixed-point radiance sums, segments int, stats dict)``; the stats hold
-    the schedule, the passes and ``host_reads``, the live-count reads."""
+    the schedule and the passes. Each pass is a ``lpt.persistent.pass``
+    span, its live-count read a ``host_read``."""
     sched = schedule(n, spp, pool_mult, pool_div, drain_ratio, drain_floor, scene)
     unroll = max(drain_unroll, 1)
     dev = cam.device
@@ -288,24 +298,29 @@ def _persistent_core(world_data, cam: CameraParams, resolution, n: int,
     lanes = torch.arange(sched.pool, dtype=torch.int64, device=dev)
 
     def primary(pixel, sample):
-        return generate_rays_for_pixels(cam, resolution, pixel + pixel_base, seed,
-                                        sample + sample_base, model=camera_model)
+        with span("lpt.camera.primary"):
+            return generate_rays_for_pixels(cam, resolution, pixel + pixel_base, seed,
+                                            sample + sample_base, model=camera_model)
 
     def hit(wd, rays):
-        return hit_fn(wd, rays, hit_backend)
+        with span("lpt.persistent.hit"):
+            return hit_fn(wd, rays, hit_backend)
 
-    fns = dict(hit=hit, background=background_fn, scatter=SCATTERERS[bsdf],
+    scatter_fn = SCATTERERS[bsdf]
+
+    def scatter(rays, hits, base):
+        with span("lpt.bsdf.scatter"):
+            return scatter_fn(rays, hits, base)
+
+    fns = dict(hit=hit, background=background_fn, scatter=scatter,
                primary=primary, seed=seed, limit=limit, pixel_base=pixel_base,
                sample_base=sample_base)
 
     acc = torch.zeros((n, 3), dtype=torch.int64, device=dev)
-    reads = 0
 
     def read(*counts):
         """The device counts to the host, one transfer."""
-        nonlocal reads
-        reads += 1
-        return torch.stack(counts).tolist()
+        return host_read(torch.Tensor.tolist, torch.stack(counts))
 
     def run(rays, k, bounce, items, live, stop_at, unroll=1):
         """Bounce passes while more than ``stop_at`` lanes are live, read
@@ -315,11 +330,14 @@ def _persistent_core(world_data, cam: CameraParams, resolution, n: int,
         while live > stop_at:
             later = torch.zeros((), dtype=torch.int64, device=dev)
             for j in range(unroll):
-                if j:
-                    later += rays.alive.sum()
-                rays, k, bounce, pixel, contrib, _ = step(world_data, rays, k, bounce, items,
-                                                          **fns)
-                acc.index_add_(0, pixel, torch.round(contrib * _FIXED_ONE).to(torch.int64))
+                with span("lpt.persistent.pass"):
+                    if j:
+                        later += rays.alive.sum()
+                    rays, k, bounce, pixel, contrib, _ = step(world_data, rays, k, bounce,
+                                                              items, **fns)
+                    with span("lpt.persistent.accumulate"):
+                        acc.index_add_(0, pixel,
+                                       torch.round(contrib * _FIXED_ONE).to(torch.int64))
                 passes += 1
             segments += live
             if unroll > 1:
@@ -342,10 +360,11 @@ def _persistent_core(world_data, cam: CameraParams, resolution, n: int,
     group, sample = lanes // spp, lanes % spp
     drain_passes = []
     for li, lw in enumerate(levels):
-        order = torch.argsort((~rays.alive).to(torch.int32), stable=True)
-        sel = order[:lw]
-        group, sample = group[sel], sample[sel]
-        rays, k, bounce = rays.take(sel), k[sel], bounce[sel]
+        with span("lpt.persistent.drain"):
+            order = torch.argsort((~rays.alive).to(torch.int32), stable=True)
+            sel = order[:lw]
+            group, sample = group[sel], sample[sel]
+            rays, k, bounce = rays.take(sel), k[sel], bounce[sel]
 
         def item_of_d(kv, group=group, sample=sample):
             return item_of(kv, group, sample)
@@ -361,7 +380,6 @@ def _persistent_core(world_data, cam: CameraParams, resolution, n: int,
         "passes_full": passes_full,
         "drain_widths": levels,
         "drain_passes": tuple(drain_passes),
-        "host_reads": reads,
     }
 
 

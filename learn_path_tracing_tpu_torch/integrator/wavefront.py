@@ -21,6 +21,7 @@ from ..camera.camera import CameraParams, generate_rays_for_pixels, pixel_grid
 from ..core import rng
 from ..core.pytree import tree_where
 from ..scene import world as world_mod
+from ..utils.profiling import host_read, spanned
 
 
 def sky_background(rd):
@@ -73,7 +74,7 @@ def trace_sample_pixels(world_data, cam: CameraParams, resolution, pixel_ids,
     radiance = torch.zeros((n, 3), dtype=torch.float32, device=pix.device)
     segments = torch.zeros((), dtype=torch.int64, device=pix.device)
     for b in range(limit):
-        if early_exit and not bool(rays.alive.any()):
+        if early_exit and not host_read(bool, rays.alive.any()):
             break
         hits = hit_fn(world_data, rays, hit_backend)
         segments = segments + rays.alive.sum()
@@ -89,7 +90,7 @@ def trace_sample_pixels(world_data, cam: CameraParams, resolution, pixel_ids,
         scattered = scatter(rays, hits, base)
         survived = rays.alive & hits.hit
         rays = tree_where(survived, scattered, rays).with_alive(survived)
-    return radiance, int(segments)
+    return radiance, host_read(int, segments)
 
 
 def trace_sample(world_data, cam: CameraParams, resolution, seed, sample,
@@ -118,6 +119,7 @@ def render(world_data, cam: CameraParams, resolution, spp: int, limit: int = 32,
                           scene=scene, hit_backend=hit_backend, early_exit=early_exit)
 
 
+@spanned("lpt.render.wavefront")
 def render_accumulate(world_data, cam: CameraParams, acc, sample_start: int,
                       resolution, spp_per_call: int, limit: int = 32, seed=0,
                       bsdf: str = "modern", camera_model: str = "thinlens",

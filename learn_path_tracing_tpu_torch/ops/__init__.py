@@ -2,3 +2,22 @@
 plain PyTorch twin in the same module, except K4 (``bounce_megakernel``):
 its plain version is the persistent integrator's own step, so it lives
 there (``integrator.persistent.bounce_pass_plain``)."""
+
+from . import bounce_megakernel, packet_traverse, row_gather, sphere_scan
+
+
+def kernel_counters() -> dict:
+    """``{kernel: {counter: total}}`` of the hand-written kernels' launch
+    counters, the snapshot a render's stats table takes its ``kernels``
+    deltas from (``utils.profiling.recording``): K1 and K4 count launches;
+    K2's modes, K3, K5a and K5b also the lanes they take
+    (``traverse.lanes``); K6a and K6b the bytes of the rows they write
+    (``gather.bytes``)."""
+    out = {"k1": {"launches": sphere_scan.intersect_spheres_scan.launches},
+           "k4": {"launches": bounce_megakernel.bounce_pass.launches}}
+    t, g = packet_traverse.traverse, row_gather.gather
+    for k, n in t.launches.items():
+        out[k] = {"launches": n, "lanes": t.lanes[k]}
+    for k, n in g.launches.items():
+        out[k] = {"launches": n, "bytes": g.bytes[k]}
+    return out

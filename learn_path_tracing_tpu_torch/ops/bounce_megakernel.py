@@ -63,6 +63,7 @@ import functools
 import torch
 
 from ..camera.camera import LensFrame, lens_frame, thin_lens_rays
+from ..utils.profiling import host_read
 from . import build
 
 T_MIN = 1e-4
@@ -150,7 +151,8 @@ class LaneList:
     place, and writes the next list into ``next`` and ``counters`` (the
     lanes alive after the pass, then the lanes that died in it: each lane
     is listed once more after its death); ``advance`` then reads the two
-    counts (the pass's one host read) and makes that list the current one."""
+    counts (the pass's one host read, ``utils.profiling.host_read``) and
+    makes that list the current one."""
 
     def __init__(self, lanes, count: int, alive: int):
         self.lanes = lanes                       # i32[N]
@@ -167,8 +169,8 @@ class LaneList:
         alive = stf[ALIVE] > 0.5
         settled = (~alive & (stf[CONTRIB:].view(torch.int32) == 0).all(0)
                    & (sti[BOUNCE] == 0) & (sti[OBJ] == -1) & (sti[OBJ + 1:] == 0).all(0))
-        first = torch.nonzero(alive).flatten()
-        rest = torch.nonzero(~alive & ~settled).flatten()
+        first = host_read(torch.nonzero, alive).flatten()
+        rest = host_read(torch.nonzero, ~alive & ~settled).flatten()
         lanes = torch.zeros((stf.shape[1],), dtype=torch.int32, device=stf.device)
         lanes[:first.numel()] = first.to(torch.int32)
         lanes[first.numel():first.numel() + rest.numel()] = rest.to(torch.int32)
@@ -177,7 +179,7 @@ class LaneList:
     def advance(self) -> int:
         """After a pass over the list: the next list becomes the current one;
         returns the number of lanes alive after the pass."""
-        live, died = self.counters.tolist()
+        live, died = host_read(self.counters.tolist)
         if live + died != self.alive:
             raise RuntimeError(f"lane list: {live} alive + {died} died after the pass, "
                                f"but {self.alive} were alive on entry")

@@ -103,8 +103,9 @@ wherever it enters at most 8 real treelets.
 
 ``traverse`` dispatches on the device: CUDA tensors launch the version's
 kernel or K2's mode (and count the launch in
-``traverse.launches[<kernel>]``, ``kernel_of``), CPU tensors run the plain
-twin. There is no fallback between the two.
+``traverse.launches[<kernel>]``, ``kernel_of``, and its lanes in
+``traverse.lanes[<kernel>]``), CPU tensors run the plain twin. There is no
+fallback between the two.
 """
 
 from __future__ import annotations
@@ -117,6 +118,7 @@ import numpy as np
 import torch
 
 from ..accel.wide import _PAD, WIDTH, WideBVH, decode_leaf
+from ..utils.profiling import host_read
 from . import build
 
 SLOT_F = 12                 # floats per triangle slot (n, d, g1, c1, g2, c2)
@@ -494,7 +496,7 @@ def ray_seeds(w0, w1, tkey, seed_codes) -> RaySeeds:
     codes = torch.as_tensor(seed_codes, device=w0.device).to(torch.int32)
     real = (codes != int(_PAD)).to(torch.int64)
     bits = torch.arange(32, dtype=torch.int64, device=w0.device)
-    masks = [int(torch.sum(real[h * 32:(h + 1) * 32] << bits)) for h in range(2)]
+    masks = [host_read(int, torch.sum(real[h * 32:(h + 1) * 32] << bits)) for h in range(2)]
     m1 = torch.where(tkey < _TREELET_NONE, tkey // (NO_TREELET + 1), NO_TREELET)
     m2 = torch.where(tkey < _TREELET_NONE, tkey % (NO_TREELET + 1), NO_TREELET)
     words = torch.stack([_u32_as_i32(w0 & masks[0]), _u32_as_i32(w1 & masks[1]),
@@ -595,6 +597,7 @@ def traverse(nodes, entries, runs, ro, rd, t_init, active, eps: float = 1e-4,
 
 
 traverse.launches = {kernel: 0 for kernel in (*KERNELS.values(), *MODES.values())}
+traverse.lanes = dict(traverse.launches)
 
 
 def _treelets(nodes, entries, device):
@@ -776,7 +779,8 @@ def _launch(nodes, entries, runs, ro, rd, t_init, active, eps, leaf_kind, stack,
         msg = lib.lpt_error_string(code).decode()
         raise RuntimeError(f"packet traversal kernel launch failed: {msg} ({code})")
     traverse.launches[kernel] += 1
-    flags = int(err.item())
+    traverse.lanes[kernel] += n
+    flags = host_read(int, err)
     if flags:
         what = {1: "stack overflow", 2: "iteration backstop reached",
                 3: "stack overflow and iteration backstop reached"}[flags]

@@ -10,7 +10,8 @@ triangle-attribute row and ``io.texture.sample_bilinear_strips``' info row
 and pair row. For a CUDA tensor it launches the hand-written kernel of
 ``csrc/row_gather.cu`` picked by the row width (K6a up to
 ``NARROW_MAX_BYTES``, K6b above) and counts the launch in
-``gather.launches``; for a CPU tensor it runs ``gather_plain``. There is no
+``gather.launches`` and the bytes of the rows it writes in
+``gather.bytes``; for a CPU tensor it runs ``gather_plain``. There is no
 fallback between the two: a CUDA tensor launches the kernel or raises.
 
 Semantics (``jnp.take``'s fill rule, as the JAX package's callers get it):
@@ -78,6 +79,7 @@ def gather(tab, idx):
 
 
 gather.launches = {"k6a": 0, "k6b": 0}
+gather.bytes = {"k6a": 0, "k6b": 0}
 
 
 def _launch(tab, idx):
@@ -100,6 +102,7 @@ def _launch(tab, idx):
         msg = lib.lpt_error_string(code).decode()
         raise RuntimeError(f"row gather kernel launch failed: {msg} ({code})")
     gather.launches[kernel] += 1
+    gather.bytes[kernel] += out.numel() * out.element_size()
     return out
 
 

@@ -25,6 +25,11 @@ and its sample split equal up to the order of the float sum.
 
 Process groups: ``parallel.launch`` starts the ranks (NCCL on the card,
 one rank a card; gloo on the CPU).
+
+Spans (``utils.profiling``): each entry is a root
+``lpt.render.sharded_<engine>``; inside it, ``lpt.mesh.core`` is the rank's
+own range and ``lpt.mesh.combine`` the collectives, its wait for the
+slowest rank included.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from ..camera.camera import CameraParams
 from ..integrator.hybrid import _hybrid_core, check_hit_backend
 from ..integrator.persistent import DRAIN_RATIO, _persistent_core, radiance
 from ..integrator.wavefront import trace_sample_pixels
+from ..utils.profiling import host_read, span, spanned
 
 
 @dataclass(frozen=True)
@@ -87,6 +93,7 @@ def make_mesh(n_tile: int | None = None, n_spp: int = 1) -> Mesh:
     return Mesh(n_tile, n_spp, tile, spp, tile_group, spp_group)
 
 
+@spanned("lpt.mesh.combine")
 def combine(acc, segments: int, mesh: Mesh):
     """The collectives of a sharded render: the local accumulator summed over
     the ``spp`` axis, the tiles gathered in tile order, the segment count
@@ -100,7 +107,7 @@ def combine(acc, segments: int, mesh: Mesh):
     dist.all_gather_into_tensor(full, acc, group=mesh.tile_group)
     segs = torch.tensor([segments], dtype=torch.int64, device=acc.device)
     dist.all_reduce(segs, op=dist.ReduceOp.SUM)
-    return full, int(segs.item())
+    return full, host_read(int, segs)
 
 
 def _split(n: int, spp: int, mesh: Mesh, engine: str, exact_tiles: bool):
@@ -114,6 +121,7 @@ def _split(n: int, spp: int, mesh: Mesh, engine: str, exact_tiles: bool):
     return -(-n // mesh.n_tile), spp // mesh.n_spp
 
 
+@spanned("lpt.render.sharded_wavefront")
 def render_sharded(world_data, cam: CameraParams, resolution, spp: int, mesh: Mesh,
                    limit: int = 32, seed=0, bsdf: str = "modern",
                    camera_model: str = "thinlens", scene: str = "spheres",
@@ -133,13 +141,14 @@ def render_sharded(world_data, cam: CameraParams, resolution, spp: int, mesh: Me
                                        device=cam.device), n - 1)
     acc = torch.zeros((n_local, 3), dtype=torch.float32, device=cam.device)
     segments = 0
-    for k in range(spp_local):
-        rad, segs = trace_sample_pixels(world_data, cam, resolution, pix, seed,
-                                        mesh.spp * spp_local + k, limit, bsdf=bsdf,
-                                        camera_model=camera_model, scene=scene,
-                                        hit_backend=hit_backend)
-        acc = acc + rad
-        segments += segs
+    with span("lpt.mesh.core"):
+        for k in range(spp_local):
+            rad, segs = trace_sample_pixels(world_data, cam, resolution, pix, seed,
+                                            mesh.spp * spp_local + k, limit, bsdf=bsdf,
+                                            camera_model=camera_model, scene=scene,
+                                            hit_backend=hit_backend)
+            acc = acc + rad
+            segments += segs
     acc, segments = combine(acc, segments, mesh)
     return (acc[:n] / spp).reshape(w, h, 3), segments
 
@@ -149,6 +158,7 @@ def render_sharded(world_data, cam: CameraParams, resolution, spp: int, mesh: Me
 render_multichip = render_sharded
 
 
+@spanned("lpt.render.sharded_persistent")
 def render_persistent_multichip(world_data, cam: CameraParams, resolution, spp: int,
                                 mesh: Mesh, limit: int = 32, seed=0,
                                 bsdf: str = "modern", camera_model: str = "thinlens",
@@ -168,14 +178,16 @@ def render_persistent_multichip(world_data, cam: CameraParams, resolution, spp: 
     ``pool_mult`` that does not divide the range's spp)."""
     w, h = resolution
     n_local, spp_local = _split(w * h, spp, mesh, "persistent", exact_tiles=True)
-    acc, segments, _ = _persistent_core(
-        world_data, cam, resolution, n_local, mesh.tile * n_local, mesh.spp * spp_local,
-        spp_local, limit, seed, bsdf, camera_model, scene, hit_backend,
-        pool_mult=pool_mult, pool_div=pool_div, drain_ratio=drain_ratio)
+    with span("lpt.mesh.core"):
+        acc, segments, _ = _persistent_core(
+            world_data, cam, resolution, n_local, mesh.tile * n_local, mesh.spp * spp_local,
+            spp_local, limit, seed, bsdf, camera_model, scene, hit_backend,
+            pool_mult=pool_mult, pool_div=pool_div, drain_ratio=drain_ratio)
     acc, segments = combine(acc, segments, mesh)
     return (radiance(acc) / spp).reshape(w, h, 3), segments
 
 
+@spanned("lpt.render.sharded_hybrid")
 def render_hybrid_multichip(world_data, cam: CameraParams, resolution, spp: int,
                             mesh: Mesh, limit: int = 32, seed=0, bsdf: str = "legacy",
                             camera_model: str = "jitter", scene: str = "legacy",
@@ -196,8 +208,9 @@ def render_hybrid_multichip(world_data, cam: CameraParams, resolution, spp: int,
     check_hit_backend(hit_backend)
     w, h = resolution
     n_local, spp_local = _split(w * h, spp, mesh, "hybrid", exact_tiles=True)
-    acc, segments, _ = _hybrid_core(
-        world_data, cam, resolution, n_local, mesh.tile * n_local, mesh.spp * spp_local,
-        spp_local, limit, seed, bsdf, camera_model, chunk_spp, cap, pool_w, drain_ratio)
+    with span("lpt.mesh.core"):
+        acc, segments, _ = _hybrid_core(
+            world_data, cam, resolution, n_local, mesh.tile * n_local, mesh.spp * spp_local,
+            spp_local, limit, seed, bsdf, camera_model, chunk_spp, cap, pool_w, drain_ratio)
     acc, segments = combine(acc, segments, mesh)
     return (radiance(acc) / spp).reshape(w, h, 3), segments

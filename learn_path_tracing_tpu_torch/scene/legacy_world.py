@@ -92,6 +92,7 @@ from ..ops.packet_traverse import (
 )
 from ..ops.row_gather import gather
 from ..ops.sphere_scan import intersect_spheres_scan, pack_spheres
+from ..utils.profiling import host_read, span, spanned
 from . import serialize
 
 EPSILON = 1e-4
@@ -682,6 +683,7 @@ def _attrs_block(world: LegacyWorldData, point, pidx, src_best, hit_mask):
     return normal, uv, albedo, roughness, metallic, transparency
 
 
+@spanned("lpt.legacy.attrs")
 def _attrs_rows(world, point, pidx, src_best, hit_mask, rows):
     """``_attrs_block`` on the lanes ``rows`` (an index tensor, or an int
     ``k`` for the prefix ``[0, k)``); every other lane gets the miss
@@ -733,6 +735,7 @@ def _assemble_hits_at(rd, point, t_best, prim_best, hit_mask, normal, uv,
                 material=mat)
 
 
+@spanned("lpt.legacy.trace")
 def trace_legacy(world: LegacyWorldData, rays: Rays, eps: float = EPSILON,
                  sort_rays: bool = True):
     """Traversal-only nearest hit across the sphere set and every mesh.
@@ -792,7 +795,7 @@ def shade_from_trace(world: LegacyWorldData, rays: Rays, t_best, prim_best,
     t_safe = torch.where(hit_mask, t_best, 0.0)
     point = rays.ro + t_safe[:, None] * rays.rd
     pidx = torch.clamp_min(prim_best, 0)
-    rows = count if count is not None else torch.nonzero(hit_mask).squeeze(1)
+    rows = count if count is not None else host_read(torch.nonzero, hit_mask).squeeze(1)
     attrs = _attrs_rows(world, point, pidx, src_best, hit_mask, rows)
     return _assemble_hits(world, rays, t_best, prim_best, hit_mask, *attrs)
 
@@ -844,17 +847,18 @@ def trace_shade_compact(world: LegacyWorldData, ro, rd, alive, payload,
     ``[N, ...]`` state, carried through the stable hit-compaction sort.
     Returns ``(hits, rd_c, payload_c, nhits)`` in compacted order: rows
     ``[0, nhits)`` are the hits, the rest misses and inactive lanes;
-    ``nhits`` is an int (one host read).
+    ``nhits`` is an int (one ``host_read``).
     """
     n = ro.shape[0]
     restart = _restarts(world, n)
     if ((world.packet_version != 2 or restart) and world.spheres is None
             and len(world.meshes) == 1 and n >= 4096):
         mesh = world.meshes[0]
-        t_s, prim_s, ro, rd, _, _, payload = packet_traverse_sorted(
-            *mesh.packet, ro, rd, alive, eps=eps, treelets=mesh.treelets,
-            version=world.packet_version, restart=restart, payload=payload,
-            stack=mesh.stack)
+        with span("lpt.legacy.trace"):
+            t_s, prim_s, ro, rd, _, _, payload = packet_traverse_sorted(
+                *mesh.packet, ro, rd, alive, eps=eps, treelets=mesh.treelets,
+                version=world.packet_version, restart=restart, payload=payload,
+                stack=mesh.stack)
         src_s = torch.where(prim_s >= 0, 1, -1).to(torch.int32)
     else:
         rays = Rays(ro=ro, rd=rd, throughput=torch.ones_like(ro), alive=alive)
@@ -863,7 +867,7 @@ def trace_shade_compact(world: LegacyWorldData, ro, rd, alive, payload,
     hit_s = prim_s >= 0
     point_s = ro + torch.where(hit_s, t_s, 0.0)[:, None] * rd
     order = torch.argsort((~hit_s).to(torch.int32), stable=True)
-    nhits = int(hit_s.sum())
+    nhits = host_read(int, hit_s.sum())
     t_c, prim_c, src_c = t_s[order], prim_s[order], src_s[order]
     point_c, rd_c = point_s[order], rd[order]
     payload_c = tuple(p[order] for p in payload)
@@ -880,6 +884,7 @@ def trace_shade_compact(world: LegacyWorldData, ro, rd, alive, payload,
 _GRAD_DELTA = tuple(float(np.float32(t) - np.float32(1.0)) for t in (0.5, 0.7, 1.0))
 
 
+@spanned("lpt.legacy.env")
 def environment_color(envs: StripAtlas, env_id, rd, mask=None,
                       gradient_h: int | None = None):
     """Equirect IBL lookup (15_module.py:970-977) of environment ``env_id``

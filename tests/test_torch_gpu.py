@@ -310,7 +310,7 @@ def test_k2_modes_match_twin_bitwise(cuda, monkeypatch, restart, bf16, n, rays):
         seen["args"], seen["seeds"] = args, seeds
         return walk(*args, seeds=seeds, **kw)
 
-    capture.launches = walk.launches
+    capture.launches, capture.lanes = walk.launches, walk.lanes
     monkeypatch.setattr(tpt, "traverse", capture)
     out = tpt.packet_traverse_sorted(*tables, ro, rd, active, restart=restart)
     monkeypatch.undo()

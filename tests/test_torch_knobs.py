@@ -208,7 +208,7 @@ def test_bench_pool_flags(capsys):
     assert row["segments"] == auto["segments"] and torch.equal(row["image"], auto["image"])
     mega = bench_torch.run_cell(engine="mega", resolution=RES, spp=4, limit=4, device="cpu",
                                 frames=1)
-    assert set(mega["schedule"]) == {"passes"}
+    assert set(mega["schedule"]) == {"passes", "host_reads"}
     with pytest.raises(ValueError, match="hybrid engine does not take them"):
         bench_torch.run_cell(resolution=RES, pool_div=2, device="cpu", engine="hybrid")
     for argv in (["--engine", "hybrid", "--pool-mult", "1"],
@@ -278,6 +278,7 @@ def test_restart_frame_is_the_default_frame(standin, monkeypatch):
             seeded[1] += int(args[6].sum())
         return step(*args, seeds=seeds, **kw)
 
+    seeds_counted.launches, seeds_counted.lanes = step.launches, step.lanes
     monkeypatch.setattr(tlw, "packet_traverse_sorted", counted)
     monkeypatch.setattr(tpt, "traverse", seeds_counted)
     monkeypatch.setenv("LPT_TREELET_RESTART", "1")
