@@ -32,9 +32,9 @@ Prints one JSON line a cell:
   persistent engines (``render_persistent``'s ``pool_mult``/``pool_div``;
   the mega engine takes neither and raises, the hybrid engine does not
   take them). ``schedule``: what the last frame ran: the modular engine's
-  ``pool``, ``passes_full``, ``drain_widths``, ``drain_passes`` and
-  ``host_reads``; the mega engine's ``passes``; the hybrid's ``passes``
-  and ``n_chunks``.
+  ``pool``, ``pool_rule`` (``card``, ``jax`` or ``override``),
+  ``passes_full``, ``drain_widths``, ``drain_passes`` and ``host_reads``;
+  the mega engine's ``passes``; the hybrid's ``passes`` and ``n_chunks``.
 
 A missing world file prints its path and exits 2 with no result line, as
 does a pool override for an engine that does not take it. The JAX
@@ -57,8 +57,8 @@ TIME1024_CHUNK = 512           # the modular engine's spp per call under --time1
 SWEEP = ((1280, 720), (1920, 1080), (2560, 1440), (3840, 2160))
 ROW_KEYS = ("metric", "value", "unit", "frames", "segments", "card", "schedule")
 # the stats of a render that say what schedule ran (see the module docstring)
-SCHEDULE_KEYS = ("pool", "passes_full", "drain_widths", "drain_passes", "host_reads", "passes",
-                 "n_chunks")
+SCHEDULE_KEYS = ("pool", "pool_rule", "passes_full", "drain_widths", "drain_passes", "host_reads",
+                 "passes", "n_chunks")
 
 
 def card(device) -> str:

@@ -336,7 +336,10 @@ def bound(n_bytes, flops, flop_per_s=FP32_FLOP_PER_S) -> dict:
 
 
 def scan_inputs(device):
-    """Ray sets for the sphere-scan check, at the main path's shapes."""
+    """Ray sets for the sphere-scan check: the primary rays of the first
+    57,344 lanes of the 10_final frame (the JAX rule's pool, lane ``i``
+    pixel ``i // SPP``), their first bounce, random rays and rays inside
+    glass. ``check_sphere_scan`` repeats them to the frame's pass widths."""
     import torch
 
     from learn_path_tracing_tpu_torch.bsdf.bsdf import scatter_modern
@@ -382,15 +385,32 @@ def scan_inputs(device):
     return wd, sets
 
 
-# the modular 10_final frame's pass widths: the full pool, then the drains
-K1_WIDTHS = (57344, 7168, 1024, 256)
+def frame_widths(device) -> tuple:
+    """The modular 10_final frame's pass widths on ``device``: the pool of
+    the rule that ``pool_rule`` picks there (the card's rule on a CUDA
+    device), then the drain levels."""
+    from learn_path_tracing_tpu_torch.integrator.persistent import rule_schedule
+
+    _, sched = rule_schedule(device, RES[0] * RES[1], SPP)
+    return (sched.pool, *sched.drain_widths)
+
+
+def to_width(x, w):
+    """The rows of ``x`` repeated (or cut) to ``w`` rows, contiguous."""
+    return x.repeat(-(-w // x.shape[0]), 1)[:w].contiguous()
+
+
+# rays a call of K1's plain twin takes at most (the twin is per ray, so the
+# frame's widest passes are compared in parts, which bounds its temporaries)
+PLAIN_RAYS = 1 << 20
 
 
 def check_sphere_scan(device):
     """K1 against its plain twin on the card, on the four ray sets and on
-    the first rays of the primary and bounce sets at each drain width; then
-    the call timed by CUDA events at every pass width of the frame
-    (``K1_WIDTHS``). Returns the kernels-line entry (at 57,344 rays) and
+    the primary and bounce sets repeated (or cut) to each pass width of the
+    frame (``frame_widths``: the card rule's pool, then the drains); then
+    the call timed by CUDA events at each of those widths, on the primary
+    set. Returns the kernels-line entry (at the frame's pool) and
     ``device_times()``, to be called after the timed frames: the kernel's
     own time at each width from the profiler, with the slice count the
     wrapper picks and with each other one, as ``{width: ms}`` (it sets the
@@ -402,14 +422,22 @@ def check_sphere_scan(device):
     wd, sets = scan_inputs(device)
     table, attrs = wd.scan_table, wd.scan_attrs
     sms = torch.cuda.get_device_properties(device).multi_processor_count
+
+    def plain(ro, rd):
+        parts = [ss.intersect_spheres_scan_plain(ro[i:i + PLAIN_RAYS], rd[i:i + PLAIN_RAYS],
+                                                 table, attrs)
+                 for i in range(0, ro.shape[0], PLAIN_RAYS)]
+        return tuple(torch.cat(p) for p in zip(*parts))
+
+    pass_widths = frame_widths(device)
     cases = dict(sets)
-    for w in K1_WIDTHS[1:]:
+    for w in pass_widths:
         for name in ("primary", "bounce1"):
-            cases[f"{name}[:{w}]"] = tuple(x[:w].contiguous() for x in sets[name])
+            cases[f"{name}@{w}"] = tuple(to_width(x, w) for x in sets[name])
     max_err = 0.0
     for name, (ro, rd) in cases.items():
         t, idx, attr = ss.intersect_spheres_scan(ro, rd, table, attrs)
-        t2, idx2, attr2 = ss.intersect_spheres_scan_plain(ro, rd, table, attrs)
+        t2, idx2, attr2 = plain(ro, rd)
         torch.cuda.synchronize()
         hit_k, hit_p = torch.isfinite(t), torch.isfinite(t2)
         both = hit_k & hit_p
@@ -426,8 +454,8 @@ def check_sphere_scan(device):
         if not same:
             raise AssertionError(f"sphere-scan kernel differs from its twin on '{name}'")
 
-    ro_all, rd_all = sets["primary"]
-    widths = {w: (ro_all[:w].contiguous(), rd_all[:w].contiguous()) for w in K1_WIDTHS}
+    widths = {w: cases[f"primary@{w}"] for w in pass_widths}
+    del cases
     bounds, entry = {}, None
     for w, (ro, rd) in widths.items():
         call_ms = cuda_ms(lambda: ss.intersect_spheres_scan(ro, rd, table, attrs))
@@ -436,9 +464,10 @@ def check_sphere_scan(device):
             w * table.shape[0] * SCAN_FLOP_PER_PAIR)
         _log(f"[k1] time at {w} rays x {table.shape[0]} spheres: the call {call_ms:.4f} ms "
              f"by CUDA events (median of 20); bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-        if w == K1_WIDTHS[0]:
-            plain_ms = cuda_ms(lambda: ss.intersect_spheres_scan_plain(ro, rd, table, attrs))
-            _log(f"[k1] plain twin at {w} rays: {plain_ms:.4f} ms (median of 20)")
+        if w == pass_widths[0]:
+            plain_ms = cuda_ms(lambda: plain(ro, rd))
+            _log(f"[k1] plain twin at {w} rays, {PLAIN_RAYS} a call: {plain_ms:.4f} ms "
+                 f"(median of 20)")
             entry = {"name": "sphere_scan", "id": "k1", "route": "cuda",
                      "source": "learn_path_tracing_tpu_torch/csrc/sphere_scan.cu",
                      "replaces": "learn_path_tracing_tpu/ops/sphere_scan.py:49",
@@ -458,7 +487,7 @@ def check_sphere_scan(device):
                  f"of 20), by slice count "
                  f"{', '.join(f'{p}: {t:.4f}' for p, t in by_slices.items())} ms; "
                  f"{bounds[w]['bound_ms'] / ms:.3f} of the bound")
-        entry["device_ms"] = widths_ms[K1_WIDTHS[0]]
+        entry["device_ms"] = widths_ms[pass_widths[0]]
         return widths_ms
 
     return entry, device_times
@@ -480,8 +509,8 @@ def bvh_phase(device):
     the rays whose ``t``, sphere or hit flag differ are counted, and must
     be none. Then both calls are timed on the primary set by CUDA events.
     Returns ``device_times()``, to be called after the timed frames: their
-    kernels' own times from the profiler on the first rays of the primary
-    set at each pass width of the modular frame (``K1_WIDTHS``)."""
+    kernels' own times from the profiler on the primary set repeated (or
+    cut) to each pass width of the modular frame (``frame_widths``)."""
     import torch
 
     from learn_path_tracing_tpu_torch.core.types import Rays
@@ -519,9 +548,10 @@ def bvh_phase(device):
          f"'auto' {ms['auto']:.4f} ms (CUDA events, median of 20, hit records included)")
 
     def device_times():
-        for w in K1_WIDTHS:
-            part = Rays(ro=ro[:w].contiguous(), rd=rd[:w].contiguous(),
-                        throughput=rays.throughput[:w], alive=rays.alive[:w])
+        for w in frame_widths(device):
+            part = Rays(ro=to_width(ro, w), rd=to_width(rd, w),
+                        throughput=torch.ones((w, 3), dtype=torch.float32, device=device),
+                        alive=torch.ones((w,), dtype=torch.bool, device=device))
             dev_ms = {backend: kernel_ms(lambda backend=backend: hit(wd, part, backend=backend),
                                          name)
                       for backend, name in (("bvh", "packet_traverse_kernel"),

@@ -14,10 +14,15 @@ modular and mega engines. Every lane stays busy:
   argsort compacts the live lanes into that width (8x narrower each level),
   so the straggler tail costs a fraction of a full pass.
 
-The pool policy, the item algebra, regeneration and the drain cascade are
-the JAX package's, so the pass schedule, ``pool``, the drain widths and the
-segment counts are comparable with it. RNG streams are keyed on absolute
-(pixel, sample, bounce), so each sample's radiance is that of
+The item algebra, regeneration and the drain cascade are the JAX
+package's. So is the pool policy off the card (``schedule``), so there the
+pass schedule, ``pool``, the drain widths and the segment counts are
+comparable with it. On a CUDA device the auto pool follows the card's rule
+(``card_schedule``): a pass there costs its ~600 eager launches more than its
+width, so the pool is the widest that a lane budget allows, and a frame
+takes far fewer passes. The pool only changes which lane traces which
+sample: every rule gives the same image and segments. RNG streams are keyed
+on absolute (pixel, sample, bounce), so each sample's radiance is that of
 ``wavefront.render``.
 
 Accumulation differs. The JAX package accumulates through one-hot matrix
@@ -66,8 +71,21 @@ from ..scene import world as world_mod
 from ..utils.profiling import host_read, recording, span
 from .wavefront import _scene_fns
 
-# Smallest auto-policy pool, as in the JAX package (its measured knee).
+# Smallest pool of the JAX rule, as in the JAX package: the TPU's knee, the
+# width at which a TPU pass begins to cost more as it widens.
 POOL_FLOOR = 57600
+# Widest pool of the card's rule (CUDA devices), in lanes. Measured on an
+# NVIDIA H100 80GB HBM3 at 700 W (the cover scene at 1280x720, depth 32, the
+# frame rendered in turns at each pool in one process): a full pass's host
+# issue takes ~9 ms at any width, its device time 1.5 ms at 57,344 lanes,
+# 3.9 at 921,600, 7.0 at 1,843,200, 15.0 at 3,686,400 and 30.3 at 7,372,800,
+# so passes turn device-bound at ~2M lanes. At 8 spp the frame still
+# shortens up to 7,372,800 lanes (one work item a lane: 32 passes in
+# 0.35-0.37 s, against 64 passes in 0.58-0.59 s at 3,686,400 and 461 passes
+# in 3.9 s under the JAX rule); at 64 spp it is flat from 3,686,400 to
+# 29,491,200 lanes (1.55-1.70 s). Past 2**23 lanes nothing measured gained;
+# the peak of allocated memory is ~0.56 KiB a lane (4.1 GiB at 7,372,800).
+CARD_POOL_LANES = 8 * 1024 * 1024
 # Lanes of the pool are aligned to this block when spp allows (the JAX
 # package's kernel block; kept so the schedule stays comparable).
 POOL_ALIGN = 1024
@@ -92,13 +110,13 @@ class Schedule:
 def schedule(n: int, spp: int, pool_mult: int = 0, pool_div: int = 0,
              drain_ratio: int = DRAIN_RATIO, drain_floor: int = 0,
              scene: str = "spheres") -> Schedule:
-    """The JAX package's pool policy and drain cascade, with its overrides
-    and their errors.
+    """The JAX package's pool policy and drain cascade (the JAX rule, the
+    auto pool off the card), with its overrides and their errors.
 
     Auto (no override): when ``spp | n``, the pool halves from ``n`` while
-    it stays at or above ``POOL_FLOOR``, is rounded up to a multiple of spp
-    and aligned down to ``POOL_ALIGN`` lanes where spp allows; otherwise it
-    is ``n``. For ``scene='legacy'`` the auto pool is ``n`` (mesh passes
+    it stays at or above ``POOL_FLOOR`` (the TPU's knee), is rounded up to a
+    multiple of spp and aligned down to ``POOL_ALIGN`` lanes where spp
+    allows; otherwise it is ``n``. For ``scene='legacy'`` the auto pool is ``n`` (mesh passes
     carry more fixed cost, so the JAX package keeps them few and wide). ``pool_mult = q`` (a divisor of spp) makes it ``q·n`` lanes,
     each running ``spp / q`` items; ``pool_div = d`` makes it ``n // d``
     rounded up to a multiple of spp (at least spp), each lane running about
@@ -108,8 +126,6 @@ def schedule(n: int, spp: int, pool_mult: int = 0, pool_div: int = 0,
     """
     if pool_mult and pool_div:
         raise ValueError("pool_mult and pool_div are mutually exclusive")
-    if drain_ratio < 1:
-        raise ValueError(f"drain_ratio={drain_ratio} must be at least 1")
     grouped = n % spp == 0
     pool = n
     if not grouped:
@@ -126,12 +142,74 @@ def schedule(n: int, spp: int, pool_mult: int = 0, pool_div: int = 0,
         if pool < spp:
             raise ValueError(f"pool_div={pool_div} leaves a pool below spp={spp}")
     elif scene != "legacy":
-        while pool // 2 >= POOL_FLOOR:
-            pool //= 2
-        pool = -(-pool // spp) * spp
-        align = math.lcm(POOL_ALIGN, spp)
-        if align <= pool and (pool // align) * align * 2 >= POOL_FLOOR:
-            pool = (pool // align) * align
+        pool = _halved_pool(n, spp, lambda p: p // 2 >= POOL_FLOOR, POOL_FLOOR // 2)
+    return _with_drain(grouped, n, spp, pool, drain_ratio, drain_floor)
+
+
+def _halved_pool(n: int, spp: int, halve, min_aligned: int = 0) -> int:
+    """``n`` halved while ``halve(pool)``, rounded up to a multiple of spp,
+    then aligned down to ``POOL_ALIGN`` lanes where spp allows and the
+    aligned pool keeps at least ``min_aligned`` lanes."""
+    pool = n
+    while halve(pool):
+        pool //= 2
+    pool = -(-pool // spp) * spp
+    align = math.lcm(POOL_ALIGN, spp)
+    if align <= pool and (pool // align) * align >= min_aligned:
+        pool = (pool // align) * align
+    return pool
+
+
+def card_schedule(n: int, spp: int, drain_ratio: int = DRAIN_RATIO,
+                  drain_floor: int = 0) -> Schedule:
+    """The card's auto pool (``spp | n``): the JAX rule's algorithm with the
+    card's parameter. Where the JAX rule takes the narrowest pool at or
+    above the TPU's knee, this takes the widest grouped pool ``q·n``, ``q``
+    a divisor of spp, within ``CARD_POOL_LANES``; each lane then runs
+    ``spp / q`` work items. When ``n`` alone exceeds the budget, the pool
+    halves from ``n`` until it fits, and is rounded up to a multiple of spp
+    and aligned down to ``POOL_ALIGN`` lanes where spp allows, as in the JAX
+    rule. The drain cascade is the JAX rule's, from this pool."""
+    if n <= CARD_POOL_LANES:
+        q = max(q for q in range(1, spp + 1) if spp % q == 0 and q * n <= CARD_POOL_LANES)
+        return schedule(n, spp, pool_mult=q, drain_ratio=drain_ratio, drain_floor=drain_floor)
+    pool = _halved_pool(n, spp, lambda p: p > CARD_POOL_LANES)
+    return _with_drain(True, n, spp, pool, drain_ratio, drain_floor)
+
+
+def pool_rule(device, n: int, spp: int, scene: str = "spheres", pool_mult: int = 0,
+              pool_div: int = 0) -> str:
+    """Which rule sets the modular engine's pool: 'override' when
+    ``pool_mult`` or ``pool_div`` is given, 'card' (``card_schedule``) for a
+    grouped sphere render (``spp | n``) on a CUDA device, else 'jax'
+    (``schedule``: the CPU, ungrouped renders, whose pool is ``n``, and the
+    legacy scene, whose pool is ``n``)."""
+    if pool_mult or pool_div:
+        return "override"
+    if torch.device(device).type == "cuda" and n % spp == 0 and scene == "spheres":
+        return "card"
+    return "jax"
+
+
+def rule_schedule(device, n: int, spp: int, pool_mult: int = 0, pool_div: int = 0,
+                  drain_ratio: int = DRAIN_RATIO, drain_floor: int = 0,
+                  scene: str = "spheres") -> tuple:
+    """``(rule, Schedule)`` of a modular render of ``n`` pixels at ``spp``
+    on ``device``: the rule that ``pool_rule`` picks, and its schedule
+    (``card_schedule`` for 'card', else ``schedule`` with the knobs)."""
+    rule = pool_rule(device, n, spp, scene, pool_mult, pool_div)
+    if rule == "card":
+        return rule, card_schedule(n, spp, drain_ratio, drain_floor)
+    return rule, schedule(n, spp, pool_mult, pool_div, drain_ratio, drain_floor, scene)
+
+
+def _with_drain(grouped: bool, n: int, spp: int, pool: int, drain_ratio: int,
+                drain_floor: int) -> Schedule:
+    """The schedule of a pool: its items a lane and the drain levels, which
+    narrow it by ``drain_ratio`` a level, in multiples of 256 lanes, down to
+    ``drain_floor`` (0: ``DRAIN_FLOOR``)."""
+    if drain_ratio < 1:
+        raise ValueError(f"drain_ratio={drain_ratio} must be at least 1")
     items_per = -(-(n * spp) // pool) if grouped else spp
     floor = drain_floor if drain_floor > 0 else DRAIN_FLOOR
 
@@ -231,14 +309,23 @@ def render_persistent(world_data, cam: CameraParams, resolution, spp: int,
     silently. Its samples are the modular engine's, so on the CPU the two
     images agree.
 
+    The modular engine's auto pool depends on the device (``pool_rule``): on
+    a CUDA device, for a grouped sphere render, the card's rule
+    (``card_schedule``: the widest pool of ``q·n`` lanes within
+    ``CARD_POOL_LANES``, so few passes); elsewhere the JAX package's
+    (``schedule``). The stats name it (``pool_rule``: 'card', 'jax' or
+    'override') beside the ``pool``.
+
     The stats of either engine carry ``utils.profiling``'s ``spans``,
     ``host_reads`` (the device→host reads: the modular engine's live-count
     reads, the mega engine's ``LaneList`` reads) and ``kernels``.
 
     The modular engine's schedule knobs, the JAX package's: ``pool_mult``,
     ``pool_div``, ``drain_ratio`` and ``drain_floor`` set the pool and the
-    drain levels (``schedule``); ``drain_unroll = k`` runs ``k`` passes per
-    read of the live-lane count in the drain levels (0 or 1: every pass),
+    drain levels (``schedule``; ``pool_mult`` and ``pool_div`` override
+    either rule, ``drain_ratio`` and ``drain_floor`` apply under each);
+    ``drain_unroll = k`` runs ``k`` passes per read of the live-lane count
+    in the drain levels (0 or 1: every pass),
     counting each pass and its live lanes on the device, so a level may
     overshoot its boundary by up to ``k - 1`` passes, exact no-ops once the
     pool is empty. Every setting gives the auto image bit for bit and its
@@ -282,17 +369,20 @@ def _persistent_core(world_data, cam: CameraParams, resolution, n: int,
     """Persistent render over a pixel range and a sample range: samples
     ``[sample_base, sample_base + spp)`` of pixels ``[pixel_base,
     pixel_base + n)`` of the ``resolution`` image. The schedule, the drain
-    cascade and the accumulator are local to the range (``schedule(n,
-    spp, ..., scene)`` with the knobs of ``render_persistent``; ``acc`` row ``i``
-    is pixel ``pixel_base + i``), and the camera and the RNG key on absolute
-    ids, so a range's samples are those of the whole render:
-    ``parallel.mesh`` runs one range a rank. Returns ``(acc int64[n, 3]
-    fixed-point radiance sums, segments int, stats dict)``; the stats hold
-    the schedule and the passes. Each pass is a ``lpt.persistent.pass``
-    span, its live-count read a ``host_read``."""
-    sched = schedule(n, spp, pool_mult, pool_div, drain_ratio, drain_floor, scene)
-    unroll = max(drain_unroll, 1)
+    cascade and the accumulator are local to the range
+    (``rule_schedule(cam.device, n, spp, ...)``: the rule that ``pool_rule``
+    picks from the camera's device, ``card_schedule`` or ``schedule``, with
+    the knobs of ``render_persistent``; ``acc`` row ``i`` is pixel ``pixel_base + i``),
+    and the camera and the RNG key on absolute ids, so a range's samples are
+    those of the whole render: ``parallel.mesh`` runs one range a rank.
+    Returns ``(acc int64[n, 3] fixed-point radiance sums, segments int,
+    stats dict)``; the stats hold the schedule, its rule and the passes.
+    Each pass is a ``lpt.persistent.pass`` span, its live-count read a
+    ``host_read``."""
     dev = cam.device
+    rule, sched = rule_schedule(dev, n, spp, pool_mult, pool_div, drain_ratio, drain_floor,
+                                scene)
+    unroll = max(drain_unroll, 1)
     hit_fn, background_fn = _scene_fns(scene)
     item_of = item_fn(sched, n, spp, dev)
     lanes = torch.arange(sched.pool, dtype=torch.int64, device=dev)
@@ -377,6 +467,7 @@ def _persistent_core(world_data, cam: CameraParams, resolution, n: int,
 
     return acc, segments, {
         "pool": sched.pool,
+        "pool_rule": rule,
         "passes_full": passes_full,
         "drain_widths": levels,
         "drain_passes": tuple(drain_passes),

@@ -170,7 +170,9 @@ def render_persistent_multichip(world_data, cam: CameraParams, resolution, spp: 
     axis) and sample range (spp axis), with a range-local schedule and drain
     cascade, then ``combine``. ``pool_mult``, ``pool_div`` and
     ``drain_ratio`` are ``render_persistent``'s, applied to each rank's
-    range-local schedule (``schedule(W·H / tiles, spp / spp ranks, ..., scene)``).
+    range-local schedule (``rule_schedule(device, W·H / tiles, spp / spp
+    ranks, ..., scene)``: the rule that ``pool_rule`` picks from the range's
+    device, ``card_schedule`` on a CUDA device, ``schedule`` elsewhere).
     Returns ``(image f32[W,H,3], segments int)`` on every rank: the
     single-device ``render_persistent`` image bit for bit and its segment
     count. Raises ``ValueError`` unless the tile axis divides ``W·H`` and

@@ -29,8 +29,8 @@ import torch
 from learn_path_tracing_tpu_torch.accel import build_bvh, collapse
 from learn_path_tracing_tpu_torch.camera import Camera
 from learn_path_tracing_tpu_torch.integrator.hybrid import render_hybrid
-from learn_path_tracing_tpu_torch.integrator.persistent import (bounce_pass_plain, mega_pass,
-                                                                render_persistent)
+from learn_path_tracing_tpu_torch.integrator.persistent import (bounce_pass_plain, card_schedule,
+                                                                mega_pass, render_persistent)
 from learn_path_tracing_tpu_torch.io.obj import MeshData
 from learn_path_tracing_tpu_torch.models import random_scene, stage10_camera
 from learn_path_tracing_tpu_torch.ops import bounce_megakernel as tmk
@@ -343,6 +343,31 @@ def test_pool_knobs_on_the_card_are_the_auto_frame(cuda, knobs):
     img, segs, st = render_persistent(wd, cp, (64, 36), spp=4, limit=8, stats=True, **knobs)
     assert segs == ref_segs and torch.equal(img.view(torch.int32), ref.view(torch.int32))
     assert tss.intersect_spheres_scan.launches == st["passes_full"] + sum(st["drain_passes"])
+
+
+def test_auto_pool_on_the_card_is_the_card_rule(cuda):
+    """On the card the modular engine's auto pool is the card's rule: the
+    stats report ``pool_rule == 'card'`` and ``card_schedule``'s pool and
+    drain widths. The frame is the frame under a pool override near the JAX
+    rule's pool (``pool_div=16``) bit for bit, with its segments; K1 once
+    per pass under each."""
+    wd = random_scene(seed=20230328).device(cuda)
+    res = (64, 36)
+    cp = stage10_camera(res).params(cuda)
+    frames = {}
+    for name, knobs in (("card", {}), ("override", {"pool_div": 16})):
+        tss.intersect_spheres_scan.launches = 0
+        frames[name] = render_persistent(wd, cp, res, spp=4, limit=8, stats=True, **knobs)
+        st = frames[name][2]
+        assert st["pool_rule"] == name
+        assert tss.intersect_spheres_scan.launches == (st["passes_full"]
+                                                       + sum(st["drain_passes"]))
+    (img, segs, st), (ref, ref_segs, ref_st) = frames["card"], frames["override"]
+    want = card_schedule(res[0] * res[1], 4)
+    assert (st["pool"], st["drain_widths"]) == (want.pool, want.drain_widths) == (
+        4 * res[0] * res[1], (1280, 256))
+    assert ref_st["pool"] == 144
+    assert segs == ref_segs and torch.equal(img.view(torch.int32), ref.view(torch.int32))
 
 
 def test_packet_kernels_on_axis_parallel_rays(cuda):

@@ -16,6 +16,11 @@ environment knobs of the mesh path, on the CPU at small sizes.
   exactly and the image by ``utils.checks.render_agreement`` (the bound of
   ``test_torch_integrator.py``).
 - ``bench_torch``'s ``--pool-mult``/``--pool-div`` and its ``schedule``.
+- The card's pool rule (``card_schedule``, ``pool_rule``), which no JAX
+  function has: its arithmetic over the sizes above and a few more; a CPU
+  render with ``pool_rule`` answering 'card' (as on a CUDA device) and each
+  range of a mesh under it, bit for bit the JAX rule's frame with its
+  segments; ``pool_rule`` in the stats of every path into the engine.
 - ``LPT_PACKET_BF16=1`` and ``LPT_TREELET_RESTART=1`` on a single-mesh
   world: unset, nothing changes; the restart frame is bit for bit the
   default frame (hybrid and wavefront engines); the bf16 world keeps f32
@@ -38,6 +43,7 @@ import torch
 import bench_torch
 import chip_smoke
 import learn_path_tracing_tpu.integrator.persistent as jpers
+import learn_path_tracing_tpu_torch.integrator.persistent as tpers
 from learn_path_tracing_tpu.integrator.persistent import render_persistent as j_render_persistent
 from learn_path_tracing_tpu.models import random_scene as j_random_scene
 from learn_path_tracing_tpu.models import stage10_camera as j_stage10_camera
@@ -131,11 +137,150 @@ def test_schedule_rules():
         schedule(576, 4, drain_ratio=0)
 
 
+# the existing sizes, one pixel count above the card's lane budget, and spp = 1
+CARD_SIZES = SIZES + [(4096 * 4096, 16), (3000 * 2000, 7), (600, 1)]
+
+
+@pytest.mark.parametrize("n,spp", CARD_SIZES)
+def test_card_schedule_is_the_widest_grouped_pool_in_the_budget(n, spp):
+    """The card's rule: on a CUDA device a grouped sphere render takes the
+    widest ``q·n`` lanes, ``q | spp``, within ``CARD_POOL_LANES`` (each lane
+    runs ``spp / q`` items, the drain levels are the JAX rule's from that
+    pool: ``schedule``'s under ``pool_mult = q``); above the budget the pool
+    halves from ``n`` until it fits, rounded to spp and aligned to
+    ``POOL_ALIGN``. The CPU, ungrouped renders and the legacy scene keep the
+    JAX rule; ``pool_mult``/``pool_div`` override both."""
+    budget = tpers.CARD_POOL_LANES
+    grouped = n % spp == 0
+    assert tpers.pool_rule("cuda", n, spp) == ("card" if grouped else "jax")
+    assert tpers.pool_rule(torch.device("cuda", 0), n, spp) == ("card" if grouped else "jax")
+    assert tpers.pool_rule("cpu", n, spp) == "jax"
+    assert tpers.pool_rule("cuda", n, spp, "legacy") == "jax"
+    assert tpers.pool_rule("cuda", n, spp, "spheres", 1, 0) == "override"
+    assert tpers.pool_rule("cuda", n, spp, "spheres", 0, 2) == "override"
+    if not grouped:
+        return
+    for drain in ({}, {"drain_ratio": 4}, {"drain_ratio": 2, "drain_floor": 1024}):
+        s = tpers.card_schedule(n, spp, **drain)
+        assert s.grouped and s.pool <= budget
+        if n <= budget:
+            q = s.pool // n
+            assert s.pool == q * n and spp % q == 0 and s.items_per == spp // q
+            assert all(spp % d or d * n > budget for d in range(q + 1, spp + 1))
+            assert s == schedule(n, spp, pool_mult=q, **drain)
+        else:
+            align = math.lcm(tpers.POOL_ALIGN, spp)
+            assert s.pool % align == 0 and 2 * s.pool > budget - align
+            assert s.items_per == math.ceil(n * spp / s.pool)
+            ratio, floor = drain.get("drain_ratio", 8), drain.get("drain_floor", 256)
+            widths, w = [], -(-(s.pool // ratio) // 256) * 256
+            while floor <= w < (widths[-1] if widths else s.pool):
+                widths.append(w)
+                w = -(-(w // ratio) // 256) * 256
+            assert s.drain_widths == tuple(widths)
+    with pytest.raises(ValueError, match="drain_ratio=0"):
+        tpers.card_schedule(n, spp, drain_ratio=0)
+
+
+def test_card_schedule_rules(monkeypatch):
+    """The cell's frame (1280x720, 8 spp) and the staged scripts' chunks on
+    the card, and a pool halved to a small budget by hand."""
+    assert tpers.CARD_POOL_LANES == 8 * 1024 * 1024
+    s = tpers.card_schedule(1280 * 720, 8)
+    assert (s.pool, s.items_per, s.drain_widths) == (
+        7372800, 1, (921600, 115200, 14592, 2048, 256))
+    assert tpers.card_schedule(1280 * 720, 256).items_per == 32
+    assert tpers.card_schedule(1260 * 720, 7).pool == 7 * 907200
+    with pytest.raises(ValueError, match="spp [|] n"):      # 7 does not divide 921,600
+        tpers.card_schedule(1280 * 720, 7)
+    assert tpers.card_schedule(1280 * 720, 12).pool == 6 * 921600
+    assert tpers.card_schedule(3840 * 2160, 64).pool == 3840 * 2160
+    monkeypatch.setattr(tpers, "CARD_POOL_LANES", 10_000)
+    # 921,600 halved 7 times is 7,200; up to 64s, 7,232; down to 1,024s, 7,168
+    s = tpers.card_schedule(1280 * 720, 64)
+    assert (s.pool, s.items_per, s.drain_widths) == (7168, 8229, (1024, 256))
+    # 19,600 halved once is 9,800, a multiple of 7; down to 7,168s (1,024 × 7)
+    s = tpers.card_schedule(19_600, 7)
+    assert (s.pool, s.items_per, s.drain_widths) == (7168, 20, (1024, 256))
+
+
 def _port(knobs, limit, spp=4, **kw):
     img, segs, st = render_persistent(random_scene(seed=SEED).device("cpu"),
                                       stage10_camera(RES).params("cpu"), RES, spp=spp,
                                       limit=limit, stats=True, **knobs, **kw)
     return img, segs, st
+
+
+@pytest.mark.parametrize("budget", [0, 500])
+def test_card_pool_renders_the_jax_rules_frame(monkeypatch, budget):
+    """With ``pool_rule`` answering 'card', as it does for a CUDA device,
+    the CPU render takes ``card_schedule``'s pool (4 × 576 lanes, one item a
+    lane; with a budget of 500 lanes, 576 halved to 288, eight items a
+    lane) and gives the JAX rule's image and segments bit for bit, with one
+    host read a pass and one more."""
+    ref_img, ref_segs, ref_st = _port({}, limit=8)
+    assert (ref_st["pool_rule"], ref_st["pool"]) == ("jax", 576)
+    if budget:
+        monkeypatch.setattr(tpers, "CARD_POOL_LANES", budget)
+    monkeypatch.setattr(tpers, "pool_rule", lambda *a: "card")
+    img, segs, st = _port({}, limit=8)
+    want = tpers.card_schedule(576, 4)
+    assert want.pool == (288 if budget else 2304)
+    assert st["pool_rule"] == "card"
+    assert (st["pool"], st["drain_widths"]) == (want.pool, want.drain_widths)
+    assert segs == ref_segs and torch.equal(img.view(torch.int32), ref_img.view(torch.int32))
+    passes = st["passes_full"] + sum(st["drain_passes"])
+    assert st["host_reads"] == 1 + passes
+    if not budget:
+        assert passes < ref_st["passes_full"] + sum(ref_st["drain_passes"])
+
+
+def test_card_pool_on_each_range_of_a_mesh(monkeypatch):
+    """``parallel.mesh`` runs ``_persistent_core`` over each rank's pixel
+    and sample range, with the rule of the range's device: two pixel tiles
+    × two sample ranges under the card's rule add up to the whole frame's
+    accumulator under the JAX rule, bit for bit, with its segments."""
+    wd = random_scene(seed=SEED).device("cpu")
+    cam = stage10_camera(RES).params("cpu")
+    n = RES[0] * RES[1]
+    args = (6, 0, "modern", "thinlens", "spheres", "auto")
+    acc, segs, st = tpers._persistent_core(wd, cam, RES, n, 0, 0, 4, *args)
+    assert st["pool_rule"] == "jax"
+    monkeypatch.setattr(tpers, "pool_rule", lambda *a: "card")
+    parts, part_segs = torch.zeros_like(acc), 0
+    for tile in range(2):
+        for half in range(2):
+            a, sg, st = tpers._persistent_core(wd, cam, RES, n // 2, tile * n // 2, half * 2, 2,
+                                               *args)
+            assert st["pool_rule"] == "card"
+            assert st["pool"] == tpers.card_schedule(n // 2, 2).pool == n
+            parts[tile * n // 2:(tile + 1) * n // 2] += a
+            part_segs += sg
+    assert part_segs == segs and torch.equal(parts, acc)
+
+
+@pytest.mark.parametrize("path", ["auto", "override", "ungrouped", "stage", "bench",
+                                  "bench_override"])
+def test_pool_rule_in_the_stats(tmp_path, path):
+    """Every path into the modular engine reports the rule that set its pool
+    beside the pool: the JAX rule on the CPU, 'override' under a pool knob."""
+    from learn_path_tracing_tpu_torch.stages import s10_final
+
+    if path in ("auto", "override", "ungrouped"):
+        knobs = {"pool_div": 2} if path == "override" else {}
+        _, _, st = _port(knobs, limit=2, spp=7 if path == "ungrouped" else 4)
+        rule, pool = st["pool_rule"], st["pool"]
+        assert pool == {"auto": 576, "override": 288, "ungrouped": 576}[path]
+    elif path == "stage":
+        _, rep = s10_final.main(["--width", "24", "--height", "16", "--spp", "4", "--limit",
+                                 "4", "--device", "cpu", "--out", str(tmp_path / "s.png")])
+        rule = rep["chunks"][0]["pool_rule"]
+    else:
+        row = bench_torch.run_cell(engine="persistent", resolution=RES, spp=4, limit=2,
+                                   device="cpu", frames=1,
+                                   pool_mult=2 if path == "bench_override" else 0)
+        rule = row["schedule"]["pool_rule"]
+    assert rule == ("override" if "override" in path else "jax")
 
 
 RENDER_KNOBS = [{"pool_mult": 2}, {"pool_div": 2, "drain_ratio": 2},
@@ -203,8 +348,8 @@ def test_bench_pool_flags(capsys):
     auto = bench_torch.run_cell(engine="persistent", resolution=RES, spp=4, limit=4,
                                 device="cpu", frames=1)
     assert row["schedule"]["pool"] == 2 * RES[0] * RES[1] == 2 * auto["schedule"]["pool"]
-    assert set(row["schedule"]) == {"pool", "passes_full", "drain_widths", "drain_passes",
-                                    "host_reads"}
+    assert set(row["schedule"]) == {"pool", "pool_rule", "passes_full", "drain_widths",
+                                    "drain_passes", "host_reads"}
     assert row["segments"] == auto["segments"] and torch.equal(row["image"], auto["image"])
     mega = bench_torch.run_cell(engine="mega", resolution=RES, spp=4, limit=4, device="cpu",
                                 frames=1)
