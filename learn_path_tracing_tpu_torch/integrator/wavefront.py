@@ -10,6 +10,15 @@ engine) and ``render_chunked`` add samples in the same order, so for the
 same samples they give the same bits. Each takes the JAX package's
 ``early_exit``: True stops the bounce loop once no lane is live, False runs
 all ``limit`` passes; both give the same bits.
+
+Spans (``utils.profiling``): the root ``lpt.render.wavefront``; a sample's
+primaries in ``lpt.camera.primary``; each bounce pass in
+``lpt.wavefront.pass``, and inside it the world's hit query
+(``lpt.wavefront.hit``: K3 under ``hit_backend='bvh'`` on the card, and
+the hit record), the escape term (``lpt.wavefront.escape``) and the BSDF
+(``lpt.bsdf.scatter``). With ``stats=True`` the three renders also return
+a stats dict: ``passes`` (the bounce passes of every sample, one hit query
+each) and the tables of ``utils.profiling.recording``.
 """
 
 from __future__ import annotations
@@ -20,8 +29,12 @@ from ..bsdf.bsdf import SCATTERERS
 from ..camera.camera import CameraParams, generate_rays_for_pixels, pixel_grid
 from ..core import rng
 from ..core.pytree import tree_where
+from ..ops import kernel_counters
 from ..scene import world as world_mod
-from ..utils.profiling import host_read, spanned
+from ..utils.profiling import host_read, recording, span
+
+ROOT_SPAN = "lpt.render.wavefront"
+PASS_SPAN = "lpt.wavefront.pass"
 
 
 def sky_background(rd):
@@ -65,8 +78,9 @@ def trace_sample_pixels(world_data, cam: CameraParams, resolution, pixel_ids,
     all-masked no-ops, so both give the same radiance, that of the JAX
     package's fixed ``limit``-pass scan.
     """
-    rays = generate_rays_for_pixels(cam, resolution, pixel_ids, seed, sample,
-                                    model=camera_model)
+    with span("lpt.camera.primary"):
+        rays = generate_rays_for_pixels(cam, resolution, pixel_ids, seed, sample,
+                                        model=camera_model)
     n = rays.count
     scatter = SCATTERERS[bsdf]
     hit_fn, background_fn = _scene_fns(scene)
@@ -76,20 +90,24 @@ def trace_sample_pixels(world_data, cam: CameraParams, resolution, pixel_ids,
     for b in range(limit):
         if early_exit and not host_read(bool, rays.alive.any()):
             break
-        hits = hit_fn(world_data, rays, hit_backend)
-        segments = segments + rays.alive.sum()
+        with span(PASS_SPAN):
+            with span("lpt.wavefront.hit"):
+                hits = hit_fn(world_data, rays, hit_backend)
+            segments = segments + rays.alive.sum()
 
-        escaped = rays.alive & ~hits.hit
-        radiance = radiance + torch.where(
-            escaped[:, None],
-            background_fn(world_data, rays.rd, escaped) * rays.throughput,
-            0.0,
-        )
+            escaped = rays.alive & ~hits.hit
+            with span("lpt.wavefront.escape"):
+                radiance = radiance + torch.where(
+                    escaped[:, None],
+                    background_fn(world_data, rays.rd, escaped) * rays.throughput,
+                    0.0,
+                )
 
-        base = rng.base(rng.stream(seed, sample, b, rng.STREAM_BSDF), pix)
-        scattered = scatter(rays, hits, base)
-        survived = rays.alive & hits.hit
-        rays = tree_where(survived, scattered, rays).with_alive(survived)
+            base = rng.base(rng.stream(seed, sample, b, rng.STREAM_BSDF), pix)
+            with span("lpt.bsdf.scatter"):
+                scattered = scatter(rays, hits, base)
+            survived = rays.alive & hits.hit
+            rays = tree_where(survived, scattered, rays).with_alive(survived)
     return radiance, host_read(int, segments)
 
 
@@ -108,27 +126,28 @@ def trace_sample(world_data, cam: CameraParams, resolution, seed, sample,
 def render(world_data, cam: CameraParams, resolution, spp: int, limit: int = 32,
            seed=0, bsdf: str = "modern", camera_model: str = "thinlens",
            scene: str = "spheres", hit_backend: str = "auto",
-           early_exit: bool = True):
-    """Render ``spp`` samples/pixel; returns (image f32[W,H,3], segments).
+           early_exit: bool = True, stats: bool = False):
+    """Render ``spp`` samples/pixel; returns (image f32[W,H,3], segments),
+    and the stats dict (module docstring) with ``stats``.
 
     The image is mean linear radiance. ``segments`` counts live ray segments
     actually traced — the Mrays metric numerator.
     """
     return render_chunked(world_data, cam, resolution, spp, limit=limit, seed=seed,
                           chunk_spp=max(spp, 1), bsdf=bsdf, camera_model=camera_model,
-                          scene=scene, hit_backend=hit_backend, early_exit=early_exit)
+                          scene=scene, hit_backend=hit_backend, early_exit=early_exit,
+                          stats=stats)
 
 
-@spanned("lpt.render.wavefront")
-def render_accumulate(world_data, cam: CameraParams, acc, sample_start: int,
-                      resolution, spp_per_call: int, limit: int = 32, seed=0,
-                      bsdf: str = "modern", camera_model: str = "thinlens",
-                      scene: str = "spheres", hit_backend: str = "auto",
-                      early_exit: bool = True):
-    """Progressive step: add samples ``sample_start + k`` for ``k <
-    spp_per_call`` into ``acc f32[N,3]`` (radiance sums, one row per
-    pixel). Returns ``(acc, segments int)``: a new tensor, ``acc`` itself
-    is not written."""
+def _stats(table) -> dict:
+    """A render's stats from its table: the passes are its pass spans."""
+    return {"passes": table.spans.get(PASS_SPAN, [0])[0], **table.stats()}
+
+
+def _accumulate(world_data, cam, acc, sample_start, resolution, spp_per_call, limit, seed,
+                bsdf, camera_model, scene, hit_backend, early_exit):
+    """``acc`` plus the radiance of samples ``sample_start + k``, ``k <
+    spp_per_call``, added one sample at a time; returns ``(acc, segments)``."""
     segs = 0
     for k in range(spp_per_call):
         radiance, segments = trace_sample(
@@ -141,21 +160,38 @@ def render_accumulate(world_data, cam: CameraParams, acc, sample_start: int,
     return acc, segs
 
 
+def render_accumulate(world_data, cam: CameraParams, acc, sample_start: int,
+                      resolution, spp_per_call: int, limit: int = 32, seed=0,
+                      bsdf: str = "modern", camera_model: str = "thinlens",
+                      scene: str = "spheres", hit_backend: str = "auto",
+                      early_exit: bool = True, stats: bool = False):
+    """Progressive step: add samples ``sample_start + k`` for ``k <
+    spp_per_call`` into ``acc f32[N,3]`` (radiance sums, one row per
+    pixel). Returns ``(acc, segments int)``, and the stats dict with
+    ``stats``: a new tensor, ``acc`` itself is not written."""
+    with recording(stats, ROOT_SPAN, kernel_counters) as table:
+        acc, segs = _accumulate(world_data, cam, acc, sample_start, resolution, spp_per_call,
+                                limit, seed, bsdf, camera_model, scene, hit_backend,
+                                early_exit)
+    return (acc, segs, _stats(table)) if stats else (acc, segs)
+
+
 def render_chunked(world_data, cam: CameraParams, resolution, spp: int,
                    limit: int = 32, seed=0, chunk_spp: int = 8,
                    bsdf: str = "modern", camera_model: str = "thinlens",
                    scene: str = "spheres", hit_backend: str = "auto",
-                   early_exit: bool = True):
-    """``render`` dispatched as ``render_accumulate`` calls of ``chunk_spp``
-    samples (the same RNG counters and order of adds, so the same image).
-    Returns (image f32[W,H,3], segments int)."""
+                   early_exit: bool = True, stats: bool = False):
+    """``render`` dispatched in chunks of ``chunk_spp`` samples (the same
+    RNG counters and order of adds, so the same image). Returns (image
+    f32[W,H,3], segments int), and the stats dict with ``stats``."""
     w, h = resolution
-    acc = torch.zeros((w * h, 3), dtype=torch.float32, device=cam.device)
-    segs = 0
-    for s0 in range(0, spp, chunk_spp):
-        acc, segments = render_accumulate(
-            world_data, cam, acc, s0, resolution, min(chunk_spp, spp - s0),
-            limit=limit, seed=seed, bsdf=bsdf, camera_model=camera_model,
-            scene=scene, hit_backend=hit_backend, early_exit=early_exit)
-        segs += segments
-    return (acc / spp).reshape(w, h, 3), segs
+    with recording(stats, ROOT_SPAN, kernel_counters) as table:
+        acc = torch.zeros((w * h, 3), dtype=torch.float32, device=cam.device)
+        segs = 0
+        for s0 in range(0, spp, chunk_spp):
+            acc, segments = _accumulate(
+                world_data, cam, acc, s0, resolution, min(chunk_spp, spp - s0), limit, seed,
+                bsdf, camera_model, scene, hit_backend, early_exit)
+            segs += segments
+        image = (acc / spp).reshape(w, h, 3)
+    return (image, segs, _stats(table)) if stats else (image, segs)

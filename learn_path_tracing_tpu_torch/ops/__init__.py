@@ -11,13 +11,16 @@ def kernel_counters() -> dict:
     counters, the snapshot a render's stats table takes its ``kernels``
     deltas from (``utils.profiling.recording``): K1 and K4 count launches;
     K2's modes, K3, K5a and K5b also the lanes they take
-    (``traverse.lanes``); K6a and K6b the bytes of the rows they write
-    (``gather.bytes``)."""
+    (``traverse.lanes``), and K3 the active lanes among them
+    (``packet_traverse.ACTIVE_LANES``); K6a and K6b the bytes of the rows they
+    write (``gather.bytes``)."""
     out = {"k1": {"launches": sphere_scan.intersect_spheres_scan.launches},
            "k4": {"launches": bounce_megakernel.bounce_pass.launches}}
     t, g = packet_traverse.traverse, row_gather.gather
     for k, n in t.launches.items():
         out[k] = {"launches": n, "lanes": t.lanes[k]}
+        if k in packet_traverse.ACTIVE_LANES:
+            out[k]["active_lanes"] = packet_traverse.ACTIVE_LANES[k]
     for k, n in g.launches.items():
         out[k] = {"launches": n, "bytes": g.bytes[k]}
     return out

@@ -103,9 +103,10 @@ wherever it enters at most 8 real treelets.
 
 ``traverse`` dispatches on the device: CUDA tensors launch the version's
 kernel or K2's mode (and count the launch in
-``traverse.launches[<kernel>]``, ``kernel_of``, and its lanes in
-``traverse.lanes[<kernel>]``), CPU tensors run the plain twin. There is no
-fallback between the two.
+``traverse.launches[<kernel>]``, ``kernel_of``, its lanes in
+``traverse.lanes[<kernel>]`` and, for K3, the active lanes its caller
+counted on the host in ``ACTIVE_LANES['k3']``), CPU tensors run
+the plain twin. There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -566,7 +567,7 @@ def kernel_of(leaf_kind: str = "tri", version: int = 2, seeded: bool = False,
 
 def traverse(nodes, entries, runs, ro, rd, t_init, active, eps: float = 1e-4,
              leaf_kind: str = "tri", stack: int | None = None, version: int = 2,
-             seeds=None):
+             seeds=None, active_lanes: int | None = None):
     """Nearest hit of ``N`` rays → ``(t f32[N], prim i32[N], iters i32[N])``:
     ``t`` is ``t_init`` and ``prim`` -1 where nothing beats ``t_init``;
     ``iters`` counts stack pops (each ray's in the twin and K2/K3, its
@@ -579,6 +580,10 @@ def traverse(nodes, entries, runs, ro, rd, t_init, active, eps: float = 1e-4,
     slab test in bf16 (K2h); both, K2rh.
     Versions 1 and 3 widen a bf16 table to f32 and walk it, as the JAX
     package's v1 and v3 kernels promote it.
+
+    ``active_lanes``: how many of ``active`` are set, where the caller knows
+    it without reading the device (None where it does not); a K3 launch
+    adds it to ``ACTIVE_LANES['k3']``, which never reads the device.
 
     CUDA tensors launch the kernel, CPU tensors run the plain twin."""
     if nodes.dtype == torch.bfloat16 and version != 2:
@@ -593,11 +598,23 @@ def traverse(nodes, entries, runs, ro, rd, t_init, active, eps: float = 1e-4,
     if ro.device.type != "cuda":
         raise ValueError(f"packet traversal: no kernel for device {ro.device}")
     return _launch(nodes, entries, runs, ro, rd, t_init, active, eps, leaf_kind, stack,
-                   version, seeds)
+                   version, seeds, active_lanes)
 
 
 traverse.launches = {kernel: 0 for kernel in (*KERNELS.values(), *MODES.values())}
 traverse.lanes = dict(traverse.launches)
+# the active lanes of the kernels whose callers count them on the host (K3):
+# a module table, which a wrapper of ``traverse`` leaves in place
+ACTIVE_LANES = {"k3": 0}
+
+
+def count_launch(kernel: str, lanes: int, active_lanes: int | None = None):
+    """Count one launch of ``kernel`` over ``lanes`` lanes in ``traverse``'s
+    counters, and ``active_lanes`` where the kernel keeps that count."""
+    traverse.launches[kernel] += 1
+    traverse.lanes[kernel] += lanes
+    if active_lanes is not None and kernel in ACTIVE_LANES:
+        ACTIVE_LANES[kernel] += active_lanes
 
 
 def _treelets(nodes, entries, device):
@@ -743,7 +760,7 @@ def sorted_rays(nodes, entries, ro, rd, active, eps: float = 1e-4, treelets=None
 # ------------------------------------------------------------------ kernel --
 
 def _launch(nodes, entries, runs, ro, rd, t_init, active, eps, leaf_kind, stack, version,
-            seeds=None):
+            seeds=None, active_lanes=None):
     bf16 = nodes.dtype == torch.bfloat16
     kernel = kernel_of(leaf_kind, version, seeds is not None, bf16)
     if version == 2 and stack > MAX_STACK:
@@ -778,8 +795,7 @@ def _launch(nodes, entries, runs, ro, rd, t_init, active, eps, leaf_kind, stack,
     if code != 0:
         msg = lib.lpt_error_string(code).decode()
         raise RuntimeError(f"packet traversal kernel launch failed: {msg} ({code})")
-    traverse.launches[kernel] += 1
-    traverse.lanes[kernel] += n
+    count_launch(kernel, n, active_lanes)
     flags = host_read(int, err)
     if flags:
         what = {1: "stack overflow", 2: "iteration backstop reached",

@@ -164,7 +164,13 @@ def hit(world: SphereWorldData, rays: Rays, t_min: float = 1e-4,
         kernel K3 for CUDA tensors and runs its plain twin for CPU tensors.
         Its leaf test is the scan's pair test with ``t > t_min`` (the scan
         takes ``t >= t_min``) and its ties go to the smaller sphere index,
-        as the scan's do, so it finds the scan's hits.
+        as the scan's do, so it finds the scan's hits, but for two kinds of
+        ray the walk's boxes turn away: one with a direction component of
+        exactly 0 (the hoisted slab test's ``inf - inf`` is NaN), and one
+        grazing the r = 10,000 ground, which the scan's f32 quadratic hits
+        and exact arithmetic misses (about one path in 10**7 of stage l11's
+        frames). Every lane is walked as active, dead rays too, and counted
+        so in K3's active lanes.
     """
     if backend in ("auto", "cuda"):
         if backend == "cuda" and rays.ro.device.type != "cuda":
@@ -184,7 +190,8 @@ def hit(world: SphereWorldData, rays: Rays, t_min: float = 1e-4,
                              torch.full((n,), float("inf"), dtype=torch.float32,
                                         device=rays.ro.device),
                              torch.ones((n,), dtype=torch.bool, device=rays.ro.device),
-                             eps=t_min, leaf_kind="sphere", stack=world.bvh_stack)
+                             eps=t_min, leaf_kind="sphere", stack=world.bvh_stack,
+                             active_lanes=n)
         idx = torch.clamp_min(idx, 0)
         attr = world.scan_attrs[idx.to(torch.int64)]
     else:
