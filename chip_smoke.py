@@ -65,7 +65,12 @@ Phases:
    live), in place on a copy, against the twin's all-lanes pass: its
    integer rows, deposits, live count and next list bitwise and any
    differing float row named, counted and bounded; each state's pass timed
-   with its own bound;
+   with its own bound; K7 (the legacy BSDF, ``check_legacy_scatter``) on
+   l11's 230,400 primary hits and its first bounce (``l11_lane_sets``, built
+   once and shared with l11's twins in 5.), and on random lanes of
+   every branch with the material contiguous and strided, its ``ro``,
+   ``rd`` and throughput bitwise its plain twin's, then its call on the
+   bounce timed beside the twin with its bound (124 B a lane);
    K2, K5a and K5b on the stand-in mesh's 1,843,200-ray primary slab
    (640x360, 8 samples), its first-bounce survivors, random rays with
    random ``t_init`` and half the lanes inactive, rays starting on the
@@ -95,7 +100,10 @@ Phases:
    mesh + a sphere, hybrid; the stand-in mesh built under
    ``LPT_PACKET_BF16=1``, hybrid, K2h) and holds each pair to the agreement
    bounds of ``utils.checks``;
-5. with every launch count set to 0 just before each and read just after:
+5. with every launch count set to 0 just before each and read just after
+   (K7, the legacy BSDF, once per call of ``SCATTERERS['legacy']`` on the
+   card wherever that BSDF runs, ``shading_calls``: on the hybrid path its
+   pool passes plus its batches):
    a hybrid render of the sphere world (the K3 path); the 640x360, 64 spp,
    depth-32 stand-in render through ``stages.l14_mesh`` under packet
    versions 2, 1 and 3, each after a warm-up, checking that the version's
@@ -113,7 +121,9 @@ Phases:
    way, and at 64x36 on the card and the CPU, held to
    ``render_agreement``; the bench's mesh cell on the stand-in's
    ``.world.npy`` (1280x720, 64 spp, depth 32, three frames: K2 once per
-   traversal call, K6a/K6b as its shading calls imply), then, each from
+   traversal call, K6a/K6b as its shading calls imply), ``[k7 hybrid]``:
+   the same cell's frame with the legacy BSDF's plain body in K7's place,
+   bit for bit the frame through K7 with no K7 launch, then, each from
    counts of 0, ``[mesh knobs]``: the same cell under
    ``LPT_TREELET_RESTART=1`` (K2r on the pool passes of 4,096 rays and
    more, K2 on the rest; the frame bit for bit the default one), under
@@ -129,7 +139,8 @@ Phases:
    ``hit(backend='bvh')`` (K3) bitwise against their twins on l11's world
    (the 230,400 primary rays of its first orbit frame and the bounce pass
    after them); stage l11 at its preset (640x360, 128 spp, depth 10) under ``auto`` (K1 once per
-   hit call, no K3) and ``bvh`` (the reverse), bit for bit the same frame;
+   hit call, no K3) and ``bvh`` (the reverse), K7 once per hit call under
+   both, bit for bit the same frame;
    stage l12 at its preset on the script ``w,.,.`` (K3 once per hit call,
    no K1; spp 128, 256, 384; its peak device memory); the bench's modular
    10_final cell (1280x720, 64 spp, depth 32, one frame;
@@ -155,7 +166,7 @@ Phases:
    width with every slice count (and K1's device ms in the modular frame:
    its passes at each width times its time there), K3 and K1 under
    ``hit()`` on the primary rays at every pass width, K4's pass from each
-   of its three states, K2, K3, K5a and K5b on
+   of its three states, K7 on l11's bounce lanes, K2, K3, K5a and K5b on
    every ray set in lane and sorted order with their pops per ray, K2's
    modes on the primary slab (``[k2 modes device]``), and K6a
    and K6b on every gather set. They
@@ -192,9 +203,9 @@ the ``nvidia-smi`` name and power limit, a JSON line of the kernels, and
 kernels line is from its first path's run (K1: the bench's modular cell;
 K2, K5a, K5b, K6a, K6b: the l14 frame under its version; K2r, K2h, K2rh:
 the bench's mesh cell under the restart, bf16 and both knobs; K3: the
-sphere world's render; K4: the bench's mega cell) and ``paths`` holds its
-launches on every further path of this slice, each run with the counts
-set to 0 just before. Every kernel's ``ms`` in the kernels
+sphere world's render; K4: the bench's mega cell; K7: stage l11) and
+``paths`` holds its launches on every further path of this slice, each
+run with the counts set to 0 just before. Every kernel's ``ms`` in the kernels
 line is CUDA events around one wrapper call (the host's issue time
 included, and for the packet kernels the read-back of their error word,
 one host round trip); every kernel also gives ``device_ms``, its own
@@ -1278,26 +1289,32 @@ PACKET_ENTRIES = {   # kernels-line name and TPU kernel of each packet kernel
 def zero_launches():
     """Every kernel's launch count to 0 (``all_launches`` reads them)."""
     from learn_path_tracing_tpu_torch.ops import bounce_megakernel as mk
+    from learn_path_tracing_tpu_torch.ops import legacy_scatter as ls
     from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
     from learn_path_tracing_tpu_torch.ops import row_gather as rg
     from learn_path_tracing_tpu_torch.ops import sphere_scan as ss
 
     ss.intersect_spheres_scan.launches = 0
     mk.bounce_pass.launches = 0
+    ls.scatter.launches = ls.scatter.lanes = 0
     pt.traverse.launches.update(dict.fromkeys(pt.traverse.launches, 0))
     rg.gather.launches.update(dict.fromkeys(rg.gather.launches, 0))
 
 
 @contextlib.contextmanager
 def shading_calls():
-    """Counts the calls that launch the row gathers on the mesh path while
-    the block runs: attribute blocks (``_attrs_block``, on at least one
-    lane) and environment taps (``environment_color`` on at least one lane,
-    off the sky-gradient closed form)."""
+    """Counts the shading calls that launch kernels while the block runs:
+    attribute blocks (``_attrs_block``, on at least one lane) and
+    environment taps (``environment_color`` on at least one lane, off the
+    sky-gradient closed form), which launch the row gathers on the mesh
+    path, and the legacy BSDF's calls on at least one lane
+    (``SCATTERERS['legacy']``, looked up by every integrator at its start),
+    each one launch of K7 on the card."""
     import learn_path_tracing_tpu_torch.scene.legacy_world as lw
+    from learn_path_tracing_tpu_torch.bsdf.bsdf import SCATTERERS
 
-    counts = {"attrs": 0, "env": 0}
-    attrs, env = lw._attrs_block, lw.environment_color
+    counts = {"attrs": 0, "env": 0, "scatter": 0}
+    attrs, env, scatter = lw._attrs_block, lw.environment_color, SCATTERERS["legacy"]
 
     def attrs_counted(world, point, *args):
         counts["attrs"] += point.shape[0] > 0
@@ -1307,11 +1324,17 @@ def shading_calls():
         counts["env"] += gradient_h is None and rd.shape[0] > 0
         return env(envs, env_id, rd, mask=mask, gradient_h=gradient_h)
 
+    def scatter_counted(rays, hits, base):
+        counts["scatter"] += rays.rd.shape[0] > 0
+        return scatter(rays, hits, base)
+
     lw._attrs_block, lw.environment_color = attrs_counted, env_counted
+    SCATTERERS["legacy"] = scatter_counted
     try:
         yield counts
     finally:
         lw._attrs_block, lw.environment_color = attrs, env
+        SCATTERERS["legacy"] = scatter
 
 
 def expected_gathers(wd, counts) -> dict:
@@ -1704,9 +1727,13 @@ def check_mesh_gpu_vs_cpu(device, directory):
 
 
 def sphere_path(wd, device):
-    """The K3 path: a hybrid render of the sphere world, counts from 0."""
+    """The K3 path: a hybrid render of the sphere world, counts from 0: K3
+    once per traversal call (slabs plus pool passes), K7 once per legacy
+    BSDF call (pool passes plus batches), no other traversal kernel.
+    Returns ``{kernel: launches}``."""
     from learn_path_tracing_tpu_torch.camera import Camera
     from learn_path_tracing_tpu_torch.integrator.hybrid import render_hybrid
+    from learn_path_tracing_tpu_torch.ops import legacy_scatter as ls
     from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
 
     res = (320, 180)
@@ -1714,14 +1741,18 @@ def sphere_path(wd, device):
     cam.set_position((0.0, 8.0, -10.0))
     cam.look_at((0.0, 8.0, 40.0))
     zero_launches()
-    img, segs, st = render_hybrid(wd, cam.params(device), res, spp=4, limit=8, stats=True)
-    launches = dict(pt.traverse.launches)
+    with shading_calls() as shading:
+        img, segs, st = render_hybrid(wd, cam.params(device), res, spp=4, limit=8, stats=True)
+    launches, k7 = dict(pt.traverse.launches), ls.scatter.launches
     _log(f"[sphere path] {res[0]}x{res[1]} spp 4 limit 8 over {N_SPHERES} spheres: "
          f"{segs} segments, {st['n_chunks']} slabs + {st['passes']} pool passes, "
-         f"launches {launches}, image mean {float(img.mean()):.5f}")
+         f"launches {launches}, K7 {k7} for {shading['scatter']} legacy BSDF calls, image "
+         f"mean {float(img.mean()):.5f}")
     if launches.pop("k3") != st["n_chunks"] + st["passes"] or any(launches.values()):
         raise AssertionError(f"K3 launches != traversal calls {st['n_chunks'] + st['passes']}")
-    return st["n_chunks"] + st["passes"]
+    if k7 != shading["scatter"] or not k7:
+        raise AssertionError(f"K7 launches {k7} != legacy BSDF calls {shading['scatter']}")
+    return {"k3": st["n_chunks"] + st["passes"], "k7": k7}
 
 
 def mesh_headline(world, device, directory):
@@ -1730,14 +1761,15 @@ def mesh_headline(world, device, directory):
     set to 0 just before each frame: the version's kernel is launched once
     per traversal call (slabs plus pool passes) and no other, the row
     gathers (K6a, K6b) as often as the frame's attribute blocks and
-    environment taps imply (``expected_gathers``), and versions 1 and 3
-    give version 2's segments and linear image bit for bit. Returns
-    ``{kernel: launches}``, the row gathers' from each frame (equal in
-    all three)."""
+    environment taps imply (``expected_gathers``), K7 once per legacy BSDF
+    call (pool passes plus batches), and versions 1 and 3 give version 2's
+    segments and linear image bit for bit. Returns ``{kernel: launches}``,
+    the row gathers' and K7's from each frame (equal in all three)."""
     import numpy as np
     import torch
 
     from learn_path_tracing_tpu_torch.integrator.hybrid import render_hybrid
+    from learn_path_tracing_tpu_torch.ops import legacy_scatter as ls
     from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
     from learn_path_tracing_tpu_torch.ops import row_gather as rg
     from learn_path_tracing_tpu_torch.stages import l14_mesh
@@ -1772,8 +1804,8 @@ def mesh_headline(world, device, directory):
                 "--packet-version", str(v),
                 "--out", f"outputs/chip_smoke_l14_standin{'' if v == 2 else f'_v{v}'}.png"])
         launches = dict(pt.traverse.launches)
-        gathers = dict(rg.gather.launches)
-        expected = expected_gathers(world.device(device), shading)
+        gathers = {**rg.gather.launches, "k7": ls.scatter.launches}
+        expected = {**expected_gathers(world.device(device), shading), "k7": shading["scatter"]}
         calls = rep["n_chunks"] + rep["passes"]
         arr = frame.cpu().numpy()
         mean = float(arr.mean())
@@ -1783,14 +1815,15 @@ def mesh_headline(world, device, directory):
              f"{rep['primary_hit_fraction']:.4f}, slabs {rep['n_chunks']} (chunk_spp "
              f"{rep['chunk_spp']}), pool {rep['pool_w']} lanes, cap {rep['cap']}, "
              f"passes_by_width {rep['passes_by_width']}, launches {launches}, row gathers "
-             f"{gathers} for {shading['attrs']} attribute blocks and {shading['env']} "
-             f"environment taps, frame mean {mean:.5f}, load warnings "
+             f"and K7 {gathers} for {shading['attrs']} attribute blocks, {shading['env']} "
+             f"environment taps and {shading['scatter']} legacy BSDF calls, frame mean "
+             f"{mean:.5f}, load warnings "
              f"{len(rep['load_warnings'])}, sky-gradient fallback {rep['env_gradient']}")
         if launches.pop(kernel) != calls or any(launches.values()):
             raise AssertionError(f"{kernel} launches != traversal calls {calls}, or "
                                  f"another kernel ran: {pt.traverse.launches}")
         if gathers != expected or not all(gathers.values()):
-            raise AssertionError(f"row-gather launches {gathers}, expected {expected}")
+            raise AssertionError(f"row-gather and K7 launches {gathers}, expected {expected}")
         if rep["load_warnings"] or rep["env_gradient"]:
             raise AssertionError(f"the stand-in's textures or EXR fell back: "
                                  f"{rep['load_warnings']}, sky gradient {rep['env_gradient']}")
@@ -1817,9 +1850,11 @@ def viewer_wavefront(world, device):
     frame of the hybrid engine, then one of ``engine='wavefront'`` under
     each packet version (``hit_legacy`` per bounce pass, so K2, K5a or K5b),
     each held to the hybrid frame by ``render_agreement``, with the row
-    gathers launched as its shading calls imply."""
+    gathers launched as its shading calls imply and K7 once per legacy BSDF
+    call. Returns ``{"viewer <engine> v<version>": {"k7": launches}}``."""
     import torch
 
+    from learn_path_tracing_tpu_torch.ops import legacy_scatter as ls
     from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
     from learn_path_tracing_tpu_torch.ops import row_gather as rg
     from learn_path_tracing_tpu_torch.utils.checks import render_agreement
@@ -1838,23 +1873,27 @@ def viewer_wavefront(world, device):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         img = (pr.acc / pr.spp).reshape(VIEWER_RES[0], VIEWER_RES[1], 3).cpu().numpy()
-        gathers = dict(rg.gather.launches)
-        if gathers != expected_gathers(wd, shading) or not all(gathers.values()):
-            raise AssertionError(f"row-gather launches {gathers} for {shading}")
+        gathers = {**rg.gather.launches, "k7": ls.scatter.launches}
+        if (gathers != {**expected_gathers(wd, shading), "k7": shading["scatter"]}
+                or not all(gathers.values())):
+            raise AssertionError(f"row-gather and K7 launches {gathers} for {shading}")
+        paths[f"viewer {engine} v{v}"] = {"k7": gathers["k7"]}
         return img, pr.last_stats["segments"], seconds, dict(pt.traverse.launches), gathers
 
+    paths = {}
     ref = frame("hybrid", 2)
     _log(f"[viewer] hybrid v2 {VIEWER_RES[0]}x{VIEWER_RES[1]} spp {VIEWER_SPP} depth "
          f"{VIEWER_DEPTH}: {ref[2]:.3f} s, {ref[1]} segments, launches {ref[3]}, row "
-         f"gathers {ref[4]}")
+         f"gathers and K7 {ref[4]}")
     for v in (2, 1, 3):
         kernel = pt.KERNELS["tri", v]
         img, segs, seconds, launches, gathers = frame("wavefront", v)
         rep = render_agreement(img, ref[0], segs, ref[1])
         _log(f"[viewer] wavefront v{v}: {seconds:.3f} s, {segs} segments, launches "
-             f"{launches}, row gathers {gathers}; against the hybrid frame: {rep}")
+             f"{launches}, row gathers and K7 {gathers}; against the hybrid frame: {rep}")
         if not rep["ok"] or not launches.pop(kernel) or any(launches.values()):
             raise AssertionError(f"the wavefront frame (v{v}) fails: {rep}, {launches}")
+    return paths
 
 
 # ------------------------------------------- the row gathers (K6a, K6b) --
@@ -2023,11 +2062,13 @@ def l13_phase(device, directory):
     """Stage l13 (one textured sphere under the environment, the wavefront
     integrator) on the stand-in's assets: at the viewer cell's shape
     (640x360, 8 spp, depth 10) on the card with the counts set to 0 just
-    before, checking that the row gathers ran as its shading calls imply
-    and that both assets loaded; then at 64x36 on the card and on the CPU,
-    held to ``render_agreement``. Returns the card frame's report."""
+    before, checking that the row gathers ran as its shading calls imply,
+    K7 once per legacy BSDF call, and that both assets loaded; then at
+    64x36 on the card and on the CPU, held to ``render_agreement``. Returns
+    K7's launches in the card frame as ``{"k7": launches}``."""
     import numpy as np
 
+    from learn_path_tracing_tpu_torch.ops import legacy_scatter as ls
     from learn_path_tracing_tpu_torch.ops import row_gather as rg
     from learn_path_tracing_tpu_torch.ops import sphere_scan as ss
     from learn_path_tracing_tpu_torch.stages import l13_texture
@@ -2044,6 +2085,7 @@ def l13_phase(device, directory):
                 "--width", str(VIEWER_RES[0]), "--height", str(VIEWER_RES[1]),
                 "--device", device, "--out", "outputs/chip_smoke_l13.png"])
         gathers, scans = dict(rg.gather.launches), ss.intersect_spheres_scan.launches
+        k7 = ls.scatter.launches
         small = {dev: l13_texture.main(common + [
             "--width", str(SMALL_RES[0]), "--height", str(SMALL_RES[1]), "--device", dev,
             "--out", f"outputs/chip_smoke_l13_small_{dev}.png"])[1] for dev in (device, "cpu")}
@@ -2055,18 +2097,21 @@ def l13_phase(device, directory):
     _log(f"[l13] {VIEWER_RES[0]}x{VIEWER_RES[1]} spp {VIEWER_SPP} depth {VIEWER_DEPTH}: "
          f"{rep['seconds']:.3f} s, {rep['segments']} segments, {rep['mrays']:.3f} Mrays/s, "
          f"row gathers {gathers} for {shading['attrs']} attribute blocks and "
-         f"{shading['env']} environment taps, sphere-scan launches {scans}, image mean "
+         f"{shading['env']} environment taps, sphere-scan launches {scans}, K7 {k7} for "
+         f"{shading['scatter']} legacy BSDF calls, image mean "
          f"{mean:.5f}, sky-gradient fallback {rep['env_gradient']}; {SMALL_RES[0]}x"
          f"{SMALL_RES[1]} card vs CPU: segments {small[device]['segments']} vs "
          f"{small['cpu']['segments']}, {agree}")
     if rep["env_gradient"] or gathers != expected or not gathers["k6b"]:
         raise AssertionError(f"l13: sky gradient {rep['env_gradient']}, row gathers "
                              f"{gathers}, expected {expected}")
+    if k7 != shading["scatter"]:
+        raise AssertionError(f"l13: K7 launches {k7} != legacy BSDF calls {shading['scatter']}")
     if not np.isfinite(lin).all() or not 0.02 < mean < 10.0:
         raise AssertionError(f"l13 image is not sane: mean {mean}")
     if not agree["ok"]:
         raise AssertionError(f"the l13 card render disagrees with the CPU render: {agree}")
-    return rep
+    return {"k7": k7}
 
 
 # ------------------------------ the bench's mesh cell, l11, l12 and l15 --
@@ -2105,11 +2150,13 @@ def bench_standin(world, device, path, knob="default"):
     by default; under the restart K2r on the pool passes of 4,096 rays and
     more and K2 on the rest, each at least once; under bf16 K2h, and with
     the restart K2rh in K2r's place; no other traversal kernel runs. K6a and
-    K6b launch as often as the shading calls imply. Prints the row as the
-    CLI does; returns ``({kernel: launches}, row)``."""
+    K6b launch as often as the shading calls imply, K7 once per legacy BSDF
+    call (pool passes plus batches). Prints the row as the CLI does;
+    returns ``({kernel: launches}, row)``."""
     import numpy as np
 
     import bench_torch
+    from learn_path_tracing_tpu_torch.ops import legacy_scatter as ls
     from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
     from learn_path_tracing_tpu_torch.ops import row_gather as rg
 
@@ -2119,15 +2166,16 @@ def bench_standin(world, device, path, knob="default"):
     with environ(env), shading_calls() as shading:
         row = bench_torch.run_cell(scene="yoimiya", world=path, resolution=RES, spp=SPP,
                                    limit=DEPTH, device=device)
-    launches, gathers = dict(pt.traverse.launches), dict(rg.gather.launches)
+    launches = dict(pt.traverse.launches)
+    gathers = {**rg.gather.launches, "k7": ls.scatter.launches}
     print(bench_torch.row_line(row), flush=True)
-    expected = expected_gathers(world.device(device), shading)
+    expected = {**expected_gathers(world.device(device), shading), "k7": shading["scatter"]}
     mean = float(row["image"].mean())
     _log(f"[bench stand-in {knob}] {row['metric']}: frames {row['frames']} s, "
          f"{row['segments']} segments, {row['value']:.3f} Mrays/s, traversal calls "
-         f"{row['calls']} (warm-up, frames), launches {launches}, row gathers {gathers} for "
-         f"{shading['attrs']} attribute blocks and {shading['env']} environment taps, linear "
-         f"mean {mean:.5f}")
+         f"{row['calls']} (warm-up, frames), launches {launches}, row gathers and K7 "
+         f"{gathers} for {shading['attrs']} attribute blocks, {shading['env']} environment "
+         f"taps and {shading['scatter']} legacy BSDF calls, linear mean {mean:.5f}")
     if row["metric"] != "bvh_mrays_per_sec_chip_standin" or row["engine"] != "hybrid":
         raise AssertionError(f"the stand-in cell ran as {row['metric']}, {row['engine']}")
     walk = pt.kernel_of(bf16=bf16)
@@ -2138,7 +2186,7 @@ def bench_standin(world, device, path, knob="default"):
         raise AssertionError(f"traversal launches {pt.traverse.launches} under {knob}: not "
                              f"{'+'.join(ran)} = traversal calls {row['calls']}, each run")
     if gathers != expected or not all(gathers.values()):
-        raise AssertionError(f"row-gather launches {gathers}, expected {expected}")
+        raise AssertionError(f"row-gather and K7 launches {gathers}, expected {expected}")
     if not np.isfinite(row["image"].cpu().numpy()).all() or not 0.02 < mean < 10.0:
         raise AssertionError(f"the stand-in cell's image is not sane: mean {mean}")
     return {**counts, **gathers}, row
@@ -2175,6 +2223,37 @@ def mesh_knobs_phase(world, device, path, default):
     return paths
 
 
+def bench_standin_plain_scatter(device, path, default):
+    """``[k7 hybrid]``: the bench's mesh cell (``bench_standin``'s call, one
+    timed frame) with the legacy BSDF's plain body in K7's place
+    (``SCATTERERS['legacy']`` set to ``scatter_legacy_plain``). K7 must not
+    launch, and the segments and linear image must be those of the default
+    row ``default``, rendered through K7, bit for bit. The frame holds K7 to
+    its twin on what it meets on the hybrid path: the stand-in's atlas
+    materials, the pool passes at every compacted width and the cap-padded
+    batches of bounce 0."""
+    import bench_torch
+    from learn_path_tracing_tpu_torch.bsdf import bsdf
+    from learn_path_tracing_tpu_torch.ops import legacy_scatter as ls
+
+    zero_launches()
+    saved = bsdf.SCATTERERS["legacy"]
+    bsdf.SCATTERERS["legacy"] = bsdf.scatter_legacy_plain
+    try:
+        row = bench_torch.run_cell(scene="yoimiya", world=path, resolution=RES, spp=SPP,
+                                   limit=DEPTH, device=device, frames=1)
+    finally:
+        bsdf.SCATTERERS["legacy"] = saved
+    same = (row["segments"] == default["segments"]
+            and bitwise_equal(row["image"], default["image"]))
+    _log(f"[k7 hybrid] the bench's mesh cell through the plain body: frame {row['frames'][0]:.4f} "
+         f"s against {sorted(default['frames'])[1]:.4f} s through K7, {row['segments']} "
+         f"segments, K7 launches {ls.scatter.launches}; segments and linear image bit for "
+         f"bit the K7 frame's: {same}")
+    if ls.scatter.launches or not same:
+        raise AssertionError("the hybrid frame through K7 differs from the plain body's")
+
+
 # the persistent engine on the stand-in mesh: the l14 shape, cut to 8 spp
 # and depth 8 so that the sphere rule's narrower pool runs in seconds too
 LEGACY_PERSISTENT_SPP, LEGACY_PERSISTENT_DEPTH = 8, 8
@@ -2185,8 +2264,8 @@ def legacy_persistent_phase(wd, device):
     persistent engine (``render_persistent(scene='legacy')``, as ``l14
     --engine persistent`` runs it) at 640x360, 8 spp, depth 8, with the
     counts set to 0 just before: the JAX package's legacy auto pool (``n``
-    lanes), K2 once per pass, K6a/K6b as the shading calls imply, no other
-    kernel. Then the same frame under the pool the port took before for
+    lanes), K2 once per pass, K6a/K6b as the shading calls imply, K7 once
+    per legacy BSDF call, no other kernel. Then the same frame under the pool the port took before for
     every scene (the sphere rule: halved and aligned) is the same image and
     segments bit for bit, with more passes. Returns ``{kernel: launches}``
     of the legacy pool's frame."""
@@ -2218,9 +2297,12 @@ def legacy_persistent_phase(wd, device):
              f"+ drains {st['drain_passes']} at {st['drain_widths']} = {passes}, "
              f"{segs} segments, {sec:.3f} s (synchronised), launches "
              f"{ {k: v for k, v in launches.items() if v} }")
-        if not only(launches, k2=passes, **expected_gathers(wd, shading)):
+        if not only(launches, k2=passes, k7=shading["scatter"],
+                    **expected_gathers(wd, shading)) or not shading["scatter"]:
             raise AssertionError(f"{name}: launches {launches}, not K2 once per pass "
-                                 f"({passes}) and the gathers' {expected_gathers(wd, shading)}")
+                                 f"({passes}), K7 once per legacy BSDF call "
+                                 f"({shading['scatter']}) and the gathers' "
+                                 f"{expected_gathers(wd, shading)}")
     (img, segs, st), *_ = runs["legacy pool"]
     (img0, segs0, st0), *_ = runs["sphere rule's pool"]
     if st["pool"] != n or st0["pool"] == n:
@@ -2303,43 +2385,206 @@ def stage10_cli(device):
     return k1
 
 
-def l11_twins(device, res=(640, 360)):
-    """K1 and K3 held to their plain twins at l11's shapes, on l11's world
-    (485 spheres on the r = 10,000 ground): the primary rays of orbit frame 0
-    at ``res`` (230,400 at the preset's 640x360; sample 0) and the first bounce pass that follows
-    them (the legacy BSDF scattered from the twin's hits, so this set does
-    not depend on the kernels under test). K1 (``intersect_spheres_scan``)
-    bitwise against ``intersect_spheres_scan_plain`` in ``(t, idx, attr)``;
-    ``hit(backend='bvh')`` (K3) bitwise against the hit record of
-    ``packet_traverse_plain`` over the same tables."""
+def legacy_lanes(n, seed, device, strided=False):
+    """``(rays, hits, base)`` of ``n`` random lanes for the legacy BSDF from
+    ``seed``, covering its branches: ``metallic`` 0, 1 and fractional;
+    transparent and opaque; ``roughness`` 0 and not; ``ior`` 1.5, its
+    back-face inverse, 0 (l11's metal spheres), 1e9 (that ior inverted on
+    a back face) and random; ``absorptivity`` 0 and 0.5; a lane in 11 at
+    exactly grazing incidence (the normal +z, the direction in the xy
+    plane: ``cos_theta`` is 0), a lane in 13 with the direction on the
+    normal's side, the rest against it. ``strided=True`` gives the gathered
+    material as column views of one ``[n, 8]`` table, as a row gather
+    leaves them (not contiguous)."""
+    import numpy as np
     import torch
 
-    from learn_path_tracing_tpu_torch.bsdf.bsdf import SCATTERERS
+    from learn_path_tracing_tpu_torch.core.types import Hits, Materials, Rays
+
+    r = np.random.default_rng(seed)
+    lane = np.arange(n)
+
+    def unit(v):
+        return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+    nrm = unit(r.normal(size=(n, 3)))
+    d = unit(r.normal(size=(n, 3)))
+    facing = ((d * nrm).sum(-1) > 0) & (lane % 13 != 5)
+    d[facing] = -d[facing]
+    graze = lane % 11 == 3
+    a = r.uniform(0, 2 * np.pi, size=int(graze.sum()))
+    nrm[graze] = (0.0, 0.0, 1.0)
+    d[graze] = np.stack([np.cos(a), np.sin(a), np.zeros_like(a)], axis=-1)
+    ior = np.choose(lane % 5, [np.full(n, 1.5), np.full(n, 1 / 1.5), np.zeros(n),
+                               np.full(n, 1e9), r.uniform(1.0, 2.4, n)])
+    table = np.stack([*r.uniform(0, 1, (3, n)),                              # albedo
+                      np.where(lane % 3 == 0, 0.0, r.uniform(0, 0.6, n)),    # roughness
+                      np.choose(lane % 4, [np.zeros(n), np.ones(n), r.uniform(0, 1, n),
+                                           np.zeros(n)]),                     # metallic
+                      ior, (r.uniform(size=n) < 0.4).astype(np.float64),     # transparency
+                      np.where(lane % 2 == 0, 0.5, 0.0)], axis=-1)           # absorptivity
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x, dtype=np.float32), device=device)
+
+    tab = t(table)
+    cols = {"albedo": tab[:, 0:3], **{k: tab[:, 3 + i] for i, k in enumerate(
+        ("roughness", "metallic", "ior", "transparency", "absorptivity"))}}
+    if not strided:
+        cols = {k: v.contiguous() for k, v in cols.items()}
+    point = t(r.normal(size=(n, 3)) * 5)
+    rays = Rays(ro=point - t(d), rd=t(d), throughput=t(r.uniform(0.05, 1.0, (n, 3))),
+                alive=torch.as_tensor(r.uniform(size=n) < 0.8, device=device))
+    hits = Hits(t=torch.ones(n, device=device), point=point, normal=t(nrm),
+                uv=torch.zeros((n, 2), device=device),
+                obj=torch.zeros(n, dtype=torch.int32, device=device),
+                hit=torch.ones(n, dtype=torch.bool, device=device), material=Materials(**cols))
+    base = torch.as_tensor(r.integers(0, 2**32, n, dtype=np.int64), device=device)
+    return rays, hits, base
+
+
+def scatter_lanes_differ(got, want) -> dict:
+    """``{field: (lanes that differ in bits, max |diff|)}`` of two
+    ``Rays``' ``ro``, ``rd`` and ``throughput``, for the fields that
+    differ."""
+    import torch
+
+    out = {}
+    for f in ("ro", "rd", "throughput"):
+        x, y = getattr(got, f), getattr(want, f)
+        lanes = int((x.view(torch.int32) != y.view(torch.int32)).any(-1).sum())
+        if lanes:
+            out[f] = (lanes, float((x - y).abs().max()))
+    return out
+
+
+def l11_lane_sets(device, res=(640, 360)):
+    """l11's world (485 spheres on the r = 10,000 ground, with its sphere
+    BVH) and two lane sets on it at ``res`` (230,400 lanes at the preset's
+    640x360): the primary rays of orbit frame 0 (sample 0) and the first
+    bounce pass that follows them, as ``trace_sample_pixels`` makes it.
+    Returns ``(wd, {"primary" | "bounce1": (rays, hits, base)})``:
+    ``hits`` is the plain twin's hit record (``packet_traverse_plain`` over
+    the world's BVH tables) and ``base`` the lanes' BSDF hash at that
+    bounce; the bounce set is scattered from the primary one by the legacy
+    BSDF's plain body, so neither set depends on a kernel under test."""
+    import torch
+
+    from learn_path_tracing_tpu_torch.bsdf.bsdf import scatter_legacy_plain
     from learn_path_tracing_tpu_torch.camera.camera import generate_rays_for_pixels, pixel_grid
     from learn_path_tracing_tpu_torch.core import rng
     from learn_path_tracing_tpu_torch.core.pytree import tree_where
     from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
     from learn_path_tracing_tpu_torch.ops import sphere_scan as ss
-    from learn_path_tracing_tpu_torch.scene.world import hit, hit_record
+    from learn_path_tracing_tpu_torch.scene.world import hit_record
     from learn_path_tracing_tpu_torch.stages import l11_bvh
 
     wd = l11_bvh.legacy_random_scene().device(device, use_bvh=True)
     pix = pixel_grid(res, device)
     rays = generate_rays_for_pixels(l11_bvh.orbit_camera(res, 0).params(device), res, pix, 0, 0)
+    sets = {}
+    for b, name in enumerate(("primary", "bounce1")):
+        if b:
+            rays_prev, hits_prev, base_prev = sets["primary"]
+            scattered = scatter_legacy_plain(rays_prev, hits_prev, base_prev)
+            survived = rays_prev.alive & hits_prev.hit
+            rays = tree_where(survived, scattered, rays_prev).with_alive(survived)
+        n = rays.count
+        t, prim, _ = pt.packet_traverse_plain(
+            *wd.bvh, rays.ro.contiguous(), rays.rd.contiguous(),
+            torch.full((n,), float("inf"), device=device),
+            torch.ones((n,), dtype=torch.bool, device=device), eps=ss.T_MIN,
+            leaf_kind="sphere", stack=wd.bvh_stack)
+        prim = torch.clamp_min(prim, 0)
+        hits = hit_record(rays, t, prim, wd.scan_attrs[prim.to(torch.int64)])
+        base = rng.base(rng.stream(0, 0, b, rng.STREAM_BSDF), pix.to(torch.int64))
+        sets[name] = (rays, hits, base)
+    return wd, sets
+
+
+def check_legacy_scatter(device, l11):
+    """K7 (``scatter_legacy`` on the card) against its plain twin
+    ``scatter_legacy_plain`` on l11's lanes (``l11``, as
+    ``l11_lane_sets`` returns them: the primary hits of its first orbit
+    frame and the bounce pass after them), then ``legacy_lanes`` at the
+    same width, with the material contiguous and as strided views. ``ro``,
+    ``rd`` and ``throughput`` must be equal bit for bit (a field that
+    differs is named with its lanes and max |diff| before the check fails),
+    and each call launch K7 once over every lane. Then K7's call on the
+    bounce lanes is timed by CUDA events beside the twin, with its bound
+    (124 bytes a lane at the HBM rate). Returns the kernels-line entry
+    (without ``launches``) and ``device_times()``, to be called after the
+    timed frames (sets the entry's ``device_ms``)."""
+    import torch
+
+    from learn_path_tracing_tpu_torch.bsdf.bsdf import scatter_legacy, scatter_legacy_plain
+    from learn_path_tracing_tpu_torch.ops import legacy_scatter as ls
+
+    sets = {f"l11 {name}": lanes for name, lanes in l11[1].items()}
+    n = sets["l11 primary"][0].count
+    sets["random"] = legacy_lanes(n, 22, device)
+    sets["random, strided material"] = legacy_lanes(n, 23, device, strided=True)
+    for name, (r, h, base) in sets.items():
+        before = (ls.scatter.launches, ls.scatter.lanes)
+        got = scatter_legacy(r, h, base)
+        launched = (ls.scatter.launches - before[0], ls.scatter.lanes - before[1])
+        want = scatter_legacy_plain(r, h, base)
+        torch.cuda.synchronize()
+        differ = scatter_lanes_differ(got, want)
+        _log(f"[k7] {name}: {n} lanes ({int(h.hit.sum())} hit, {int(r.alive.sum())} alive), "
+             f"launches and lanes {launched}; bitwise equal to the twin: "
+             f"{'yes' if not differ else f'no, {differ}'}")
+        if differ or launched != (1, n) or got.alive is not r.alive:
+            raise AssertionError(f"K7 differs from its twin on '{name}': {differ}, {launched}")
+
+    r, h, base = sets["l11 bounce1"]
+
+    def run():
+        ls.scatter(r, h, base)
+
+    call_ms = cuda_ms(run)
+    plain_ms = cuda_ms(lambda: scatter_legacy_plain(r, h, base))
+    b = bound(n * ls.LANE_BYTES, 0)
+    _log(f"[k7] time of the l11 bounce-1 call, {n} lanes: the call {call_ms:.4f} ms by CUDA "
+         f"events, plain twin {plain_ms:.4f} ms (median of 20 each), bound "
+         f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {ls.LANE_BYTES} B a lane)")
+    entry = {"name": "legacy_scatter", "id": "k7", "route": "cuda",
+             "source": "learn_path_tracing_tpu_torch/csrc/legacy_scatter.cu",
+             "replaces": "none: XLA's fusion of learn_path_tracing_tpu/bsdf/bsdf.py:"
+                         "scatter_legacy", "ms": call_ms, "plain_ms": plain_ms, **b,
+             "library_ms": None, "max_abs_err": 0.0}
+
+    def device_times():
+        ms = kernel_ms(run, "legacy_scatter_kernel")
+        entry["device_ms"] = ms
+        _log(f"[k7 device] the l11 bounce-1 call, {n} lanes: kernel {ms:.4f} ms on the device "
+             f"(profiler, median of 20), {b['bound_ms'] / ms:.3f} of the bound")
+
+    return entry, device_times
+
+
+def l11_twins(device, l11):
+    """K1 and K3 held to their plain twins at l11's shapes, on l11's lanes
+    (``l11``, as ``l11_lane_sets`` returns them: the primary rays of its
+    first orbit frame and the first bounce pass that follows them, with the
+    twin's hit records). K1 (``intersect_spheres_scan``) bitwise against
+    ``intersect_spheres_scan_plain`` in ``(t, idx, attr)``;
+    ``hit(backend='bvh')`` (K3) bitwise against the hit record of
+    ``packet_traverse_plain`` over the same tables."""
+    import torch
+
+    from learn_path_tracing_tpu_torch.ops import sphere_scan as ss
+    from learn_path_tracing_tpu_torch.scene.world import hit
+
+    wd, sets = l11
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     table, attrs = wd.scan_table, wd.scan_attrs
-    for name in ("primary", "bounce1"):
+    for name, (rays, walk_plain, _) in sets.items():
         n = rays.count
         ro, rd = rays.ro.contiguous(), rays.rd.contiguous()
         scan = ss.intersect_spheres_scan(ro, rd, table, attrs)
         scan_plain = ss.intersect_spheres_scan_plain(ro, rd, table, attrs)
         walk = hit(wd, rays, backend="bvh")
-        t, prim, _ = pt.packet_traverse_plain(
-            *wd.bvh, ro, rd, torch.full((n,), float("inf"), device=device),
-            torch.ones((n,), dtype=torch.bool, device=device), eps=ss.T_MIN,
-            leaf_kind="sphere", stack=wd.bvh_stack)
-        prim = torch.clamp_min(prim, 0)
-        walk_plain = hit_record(rays, t, prim, attrs[prim.to(torch.int64)])
         torch.cuda.synchronize()
         same = {"k1": all(bitwise_equal(a, b) for a, b in zip(scan, scan_plain)),
                 "k3": all(bitwise_equal(getattr(walk, f), getattr(walk_plain, f))
@@ -2350,27 +2595,24 @@ def l11_twins(device, res=(640, 360)):
              f"twin: K1 {same['k1']}, hit(backend='bvh') (K3) {same['k3']}")
         if not all(same.values()):
             raise AssertionError(f"l11 '{name}': a kernel differs from its twin: {same}")
-        if name == "primary":       # the first bounce, as trace_sample_pixels makes it
-            base = rng.base(rng.stream(0, 0, 0, rng.STREAM_BSDF), pix.to(torch.int64))
-            scattered = SCATTERERS["legacy"](rays, walk_plain, base)
-            survived = rays.alive & walk_plain.hit
-            rays = tree_where(survived, scattered, rays).with_alive(survived)
 
 
-def l11_phase(device):
+def l11_phase(device, l11):
     """Stage l11 at its preset (640x360, 128 spp, depth 10, the first orbit
     frame), once under ``--hit-backend auto`` and once under ``bvh``, with
     the counts set to 0 just before each: under 'auto' K1 launches once per
-    hit call and K3 not at all, under 'bvh' the reverse; the two frames are
-    bit for bit equal. First, K1 and K3 against their twins at the stage's
-    shapes (``l11_twins``). Returns ``{kernel: launches}``."""
+    hit call and K3 not at all, under 'bvh' the reverse, and under both K7
+    (the legacy BSDF) once per hit call; the two frames are bit for bit
+    equal. First, K1 and K3 against their twins on ``l11``, the stage's
+    lanes (``l11_twins``). Returns ``{kernel: launches}``."""
     import numpy as np
 
+    from learn_path_tracing_tpu_torch.ops import legacy_scatter as ls
     from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
     from learn_path_tracing_tpu_torch.ops import sphere_scan as ss
     from learn_path_tracing_tpu_torch.stages import l11_bvh
 
-    l11_twins(device)
+    l11_twins(device, l11)
     reps, out = {}, {}
     for backend, kernel in (("auto", "k1"), ("bvh", "k3")):
         zero_launches()
@@ -2378,18 +2620,20 @@ def l11_phase(device):
         with hit_calls() as calls:
             _, reps[backend] = l11_bvh.main(["--hit-backend", backend, "--device", device,
                                              "--out", f"outputs/chip_smoke_l11_{backend}.png"])
-        got = {"k1": ss.intersect_spheres_scan.launches, "k3": pt.traverse.launches["k3"]}
+        got = {"k1": ss.intersect_spheres_scan.launches, "k3": pt.traverse.launches["k3"],
+               "k7": ls.scatter.launches}
         others = {k: n for k, n in pt.traverse.launches.items() if k != "k3" and n}
         rep = reps[backend]
         mean = float(rep["linear"].mean())
         _log(f"[l11 {backend}] 640x360 spp 128 depth 10: {rep['seconds']:.3f} s, "
              f"{rep['segments']} segments, {rep['mrays']:.3f} Mrays/s, hit calls {calls[0]}, "
              f"launches {got}, linear mean {mean:.5f}")
-        if got != {kernel: calls[0], ("k3" if kernel == "k1" else "k1"): 0} or others:
+        want = {kernel: calls[0], ("k3" if kernel == "k1" else "k1"): 0, "k7": calls[0]}
+        if got != want or others:
             raise AssertionError(f"l11 {backend}: launches {got} {others}, hit calls {calls[0]}")
         if not np.isfinite(rep["linear"].cpu().numpy()).all() or not 0.02 < mean < 10.0:
             raise AssertionError(f"the l11 frame is not sane: mean {mean}")
-        out[kernel] = calls[0]
+        out[kernel] = out["k7"] = calls[0]
     same = (reps["auto"]["segments"] == reps["bvh"]["segments"]
             and bitwise_equal(reps["auto"]["linear"], reps["bvh"]["linear"]))
     _log(f"[l11] the 'bvh' frame bit for bit the 'auto' frame: {same}")
@@ -2401,12 +2645,14 @@ def l11_phase(device):
 def l12_phase(device):
     """Stage l12 at its preset (640x360, 128 spp a keyframe, depth 10) on
     the script ``w,.,.``, with the counts set to 0 just before: K3 launches
-    once per hit call and K1 not at all, the spp resets on the move and
+    once per hit call and K1 not at all, K7 once per legacy BSDF call, no
+    other traversal kernel, the spp resets on the move and
     accumulates on the holds (128, 256, 384), the frame is finite; the
     run's peak device memory above what was allocated before it is logged.
-    Returns K3's launches."""
+    Returns ``{kernel: launches}``."""
     import torch
 
+    from learn_path_tracing_tpu_torch.ops import legacy_scatter as ls
     from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
     from learn_path_tracing_tpu_torch.ops import sphere_scan as ss
     from learn_path_tracing_tpu_torch.stages import l12_free_view
@@ -2417,28 +2663,34 @@ def l12_phase(device):
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()      # what earlier phases still hold
     t0 = time.perf_counter()
-    with hit_calls() as calls:
+    with hit_calls() as calls, shading_calls() as shading:
         frame, rep = l12_free_view.main(["--script", "w,.,.", "--device", device])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - base
     k1, launches = ss.intersect_spheres_scan.launches, dict(pt.traverse.launches)
+    k7 = ls.scatter.launches
     _log(f"[l12] 640x360, 128 spp a keyframe, depth 10, script w,.,.: {seconds:.3f} s, spp "
-         f"{rep['spp']}, hit calls {calls[0]}, launches {launches}, K1 launches {k1}, peak "
+         f"{rep['spp']}, hit calls {calls[0]}, launches {launches}, K1 launches {k1}, K7 "
+         f"launches {k7} for {shading['scatter']} legacy BSDF calls, peak "
          f"device memory {peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held "
          f"before, frame mean {float(frame.mean()):.5f}")
     if launches.pop("k3") != calls[0] or any(launches.values()) or k1:
         raise AssertionError(f"l12: K3 launches != hit calls {calls[0]}, or another kernel ran")
+    if k7 != shading["scatter"] or not k7:
+        raise AssertionError(f"l12: K7 launches {k7}, legacy BSDF calls {shading['scatter']}, "
+                             f"hit calls {calls[0]}")
     if rep["spp"] != [128, 256, 384] or not bool(torch.isfinite(frame).all()):
         raise AssertionError(f"l12: spp {rep['spp']}, or the frame is not finite")
-    return calls[0]
+    return {"k3": calls[0], "k7": k7}
 
 
 def l15_phase(device, directory):
     """Stage l15 at its preset (1500x1000, 32 spp, one pass) on the stand-in
     written as the reference's asset tree (``standin_asset_tree``: OBJ,
     MTL, PBR set, EXR), with the counts set to 0 just before: K2 launches
-    once per traversal call, K6a and K6b as the shading calls imply, the
+    once per traversal call, K6a and K6b as the shading calls imply, K7
+    once per legacy BSDF call, the
     image finite with a sane mean (``outputs/chip_smoke_l15.png``). Then its
     saved ``.world.npy`` reloads with ``rebuild_bvh=False`` and renders the
     64x36 check cell within ``render_agreement`` of the rebuilt world's.
@@ -2446,6 +2698,7 @@ def l15_phase(device, directory):
     import numpy as np
 
     from learn_path_tracing_tpu_torch.integrator.hybrid import render_hybrid
+    from learn_path_tracing_tpu_torch.ops import legacy_scatter as ls
     from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
     from learn_path_tracing_tpu_torch.ops import row_gather as rg
     from learn_path_tracing_tpu_torch.scene.legacy_world import LegacyWorld
@@ -2462,24 +2715,26 @@ def l15_phase(device, directory):
         warnings.simplefilter("error")             # every asset must load
         frame, rep = l15_module.main(["--assets", root, "--passes", "1", "--device", device,
                                       "--out", "outputs/chip_smoke_l15.png"])
-    launches, gathers = dict(pt.traverse.launches), dict(rg.gather.launches)
+    launches = dict(pt.traverse.launches)
+    gathers = {**rg.gather.launches, "k7": ls.scatter.launches}
     path_map = make_asset_path_map(root)
     t0 = time.time()
     own = LegacyWorld().load(rep["world"], path_map=path_map, rebuild_bvh=False, device=device)
     load_s = time.time() - t0
-    expected = expected_gathers(own, shading)
+    expected = {**expected_gathers(own, shading), "k7": shading["scatter"]}
     calls = rep["n_chunks"] + rep["passes"]
     mean = float(rep["linear"].mean())
     _log(f"[l15] 1500x1000 spp 32, one pass: {rep['seconds']:.3f} s, {rep['segments']} "
          f"segments, {rep['mrays']:.3f} Mrays/s, slabs {rep['n_chunks']} + pool passes "
-         f"{rep['passes']}, launches {launches}, row gathers {gathers} for {shading['attrs']} "
-         f"attribute blocks and {shading['env']} environment taps, linear mean {mean:.5f}; "
+         f"{rep['passes']}, launches {launches}, row gathers and K7 {gathers} for "
+         f"{shading['attrs']} attribute blocks, {shading['env']} environment taps and "
+         f"{shading['scatter']} legacy BSDF calls, linear mean {mean:.5f}; "
          f"the saved world reloaded with its own trees in {load_s:.2f} s "
          f"({own.meshes[0].packet[0].shape[0]} wide nodes, stack {own.meshes[0].stack})")
     if launches.pop("k2") != calls or any(launches.values()):
         raise AssertionError(f"l15: K2 launches != traversal calls {calls}: {pt.traverse.launches}")
     if gathers != expected or not all(gathers.values()):
-        raise AssertionError(f"l15: row-gather launches {gathers}, expected {expected}")
+        raise AssertionError(f"l15: row-gather and K7 launches {gathers}, expected {expected}")
     if not np.isfinite(rep["linear"].cpu().numpy()).all() or not 0.02 < mean < 10.0:
         raise AssertionError(f"the l15 image is not sane: mean {mean}")
 
@@ -2542,12 +2797,13 @@ def native_bvh_phase():
 
 def all_launches() -> dict:
     from learn_path_tracing_tpu_torch.ops import bounce_megakernel as mk
+    from learn_path_tracing_tpu_torch.ops import legacy_scatter as ls
     from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
     from learn_path_tracing_tpu_torch.ops import row_gather as rg
     from learn_path_tracing_tpu_torch.ops import sphere_scan as ss
 
     return {"k1": ss.intersect_spheres_scan.launches, **pt.traverse.launches,
-            "k4": mk.bounce_pass.launches, **rg.gather.launches}
+            "k4": mk.bounce_pass.launches, **rg.gather.launches, "k7": ls.scatter.launches}
 
 
 def counted_frame(fn):
@@ -2599,7 +2855,8 @@ def multichip_phase(device, world_path):
     its 1x1 mesh the three sharded functions, each after its single-device
     render, with the counts set to 0 just before each: the hybrid on the
     stand-in at the bench's cell (1280x720, 64 spp, depth 32: K2 once per
-    traversal call, K6a/K6b as its shading calls imply, nothing else), the
+    traversal call, K6a/K6b as its shading calls imply, K7 once per legacy
+    BSDF call, nothing else), the
     persistent engine on the cover scene at 1280x720, depth 32, spp 8, and
     the wavefront at 320x180, spp 4 (K1 once per hit call, nothing else).
     Each sharded image must be the single-device one bit for bit, with the
@@ -2640,8 +2897,8 @@ def multichip_phase(device, world_path):
                 lambda: sharded(wd, cp, res, spp, m, limit=DEPTH))
             if name == "hybrid":
                 calls = st[0]["n_chunks"] + st[0]["passes"]
-                want = dict(k2=calls, **expected_gathers(wd, shading_m))
-                kept = {k: l_sharded[k] for k in ("k2", "k6a", "k6b")}
+                want = dict(k2=calls, k7=shading_m["scatter"], **expected_gathers(wd, shading_m))
+                kept = {k: l_sharded[k] for k in ("k2", "k6a", "k6b", "k7")}
             else:
                 want = dict(k1=hits_m)
                 kept = {"k1": l_sharded["k1"]}
@@ -2790,7 +3047,8 @@ def serve_phase(device, world_path):
     /input {"move": "w"}``, after which ``X-Spp`` restarts at the full spp
     (spheres) or the preview's. With the counts set to 0 just before each
     loop: spheres launch K1 once per hit call and nothing else; the
-    stand-in K2 and K6a/K6b as its shading calls imply, and nothing else.
+    stand-in K2, K6a/K6b as its shading calls imply and K7 once per legacy
+    BSDF call, and nothing else.
     Prints each frame's ``X-Pass-Ms``. Returns the launches by path."""
     import urllib.request
     from http.server import ThreadingHTTPServer
@@ -2828,13 +3086,16 @@ def serve_phase(device, world_path):
         return pr, seen, seconds, launches, hits, shading
 
     out = {}
-    pr, seen, seconds, launches, hits, _ = loop(["--scene", "spheres", "--port", "0"], 4, 2)
+    pr, seen, seconds, launches, hits, shading = loop(["--scene", "spheres", "--port", "0"],
+                                                      4, 2)
     want = [(1, 16), (2, 32), (3, 16), (4, 32)]
     _log(f"[serve] spheres 640x360 spp 16 limit 10: frames (X-Gen, X-Spp, X-Pass-Ms) {seen}, "
-         f"loop {seconds:.3f} s, launches {launches} for {hits} hit calls")
-    if [s[:2] for s in seen] != want or not only(launches, k1=hits) or not hits:
+         f"loop {seconds:.3f} s, launches {launches} for {hits} hit calls and "
+         f"{shading['scatter']} legacy BSDF calls")
+    if ([s[:2] for s in seen] != want or not only(launches, k1=hits, k7=shading["scatter"])
+            or not hits):
         raise AssertionError(f"serve spheres: frames {seen} (want {want}), {launches}")
-    out["serve spheres"] = {"k1": launches["k1"]}
+    out["serve spheres"] = {k: launches[k] for k in ("k1", "k7")}
 
     pr, seen, seconds, launches, hits, shading = loop(["--scene", world_path, "--port", "0"],
                                                       5, 3)
@@ -2843,10 +3104,11 @@ def serve_phase(device, world_path):
     _log(f"[serve] stand-in 640x360 spp 16 limit 10, preview 4 spp limit 2: frames (X-Gen, "
          f"X-Spp, X-Pass-Ms) {seen}, loop {seconds:.3f} s, launches {launches}, row gathers "
          f"expected {gathers}")
-    if ([s[:2] for s in seen] != want or not launches["k2"]
-            or not only(launches, k2=launches["k2"], **gathers) or not all(gathers.values())):
+    if ([s[:2] for s in seen] != want or not launches["k2"] or not shading["scatter"]
+            or not only(launches, k2=launches["k2"], k7=shading["scatter"], **gathers)
+            or not all(gathers.values())):
         raise AssertionError(f"serve mesh: frames {seen} (want {want}), {launches}")
-    out["serve mesh"] = {k: launches[k] for k in ("k2", "k6a", "k6b")}
+    out["serve mesh"] = {k: launches[k] for k in ("k2", "k6a", "k6b", "k7")}
     return out
 
 
@@ -3078,13 +3340,14 @@ def build_kernels():
     from concurrent.futures import ThreadPoolExecutor
 
     from learn_path_tracing_tpu_torch.accel import native
-    from learn_path_tracing_tpu_torch.ops import (bounce_megakernel, build, packet_traverse,
-                                                  row_gather, sphere_scan)
+    from learn_path_tracing_tpu_torch.ops import (bounce_megakernel, build, legacy_scatter,
+                                                  packet_traverse, row_gather, sphere_scan)
 
     loaders = {"sphere_scan": sphere_scan.load_kernel,
                "packet_traverse": packet_traverse.load_kernel,
                "bounce_megakernel": bounce_megakernel.load_kernel,
                "row_gather": row_gather.load_kernel,
+               "legacy_scatter": legacy_scatter.load_kernel,
                "bvh_builder (g++)": native.load}
     t0 = time.time()
     with ThreadPoolExecutor(len(loaders)) as pool:
@@ -3145,6 +3408,8 @@ def main(argv=None) -> int:
     k1, k1_device_times = check_sphere_scan(device)
     bvh_device_times = bvh_phase(device)
     k4, k4_device_times = check_bounce_megakernel(device)
+    l11 = l11_lane_sets(device)
+    k7, k7_device_times = check_legacy_scatter(device, l11)
     check_gpu_vs_cpu(device)
     check_mega_gpu_vs_cpu(device)
     s10_k1 = stage10_cli(device)
@@ -3179,18 +3444,23 @@ def main(argv=None) -> int:
         sph_kernels, sph_device_times = check_packet(sph_wd, sph.packet, sph.stack, "sphere",
                                                      device, seed=8)
         k3 = sph_kernels["k3"]
-        k3["launches"] = sphere_path(sph_wd, device)
+        sphere = sphere_path(sph_wd, device)
+        k3["launches"] = sphere["k3"]
+        paths = {"sphere path": {"k7": sphere["k7"]}}
         lockstep_phase(mesh_wd, sph_wd, device)
 
         check_mesh_gpu_vs_cpu(device, directory)
-        for kernel, launches in mesh_headline(mesh_world, device, directory).items():
+        headline = mesh_headline(mesh_world, device, directory)
+        paths["l14"] = {"k7": headline.pop("k7")}
+        for kernel, launches in headline.items():
             mesh_kernels[kernel]["launches"] = launches
-        viewer_wavefront(mesh_world, device)
-        l13_phase(device, directory)
+        paths.update(viewer_wavefront(mesh_world, device))
+        paths["l13"] = l13_phase(device, directory)
         # the kernels of each further path, as that path's run counted them
         world_path = os.path.join(directory, "standin.world.npy")
         launches, standin_row = bench_standin(mesh_world, device, world_path)
-        paths = {"bench stand-in": launches}
+        paths["bench stand-in"] = launches
+        bench_standin_plain_scatter(device, world_path, standin_row)
         knob_paths = mesh_knobs_phase(mesh_world, device, world_path, standin_row)
         for kernel, knob in (("k2r", "restart"), ("k2h", "bf16"), ("k2rh", "restart+bf16")):
             mesh_kernels[kernel]["launches"] = knob_paths[f"bench stand-in {knob}"][kernel]
@@ -3204,14 +3474,16 @@ def main(argv=None) -> int:
         del refs
         paths.update(serve_phase(device, world_path))
     paths["stage 10 cli"] = {"k1": s10_k1}
-    paths["l11"] = l11_phase(device)
-    paths["l12"] = {"k3": l12_phase(device)}
+    paths["l11"] = l11_phase(device, l11)
+    del l11
+    paths["l12"] = l12_phase(device)
     k1["launches"], modular = bench_modular(device)
     k4["launches"] = mega_headline(device, modular)
     paths["bench modular"] = {"k1": k1["launches"]}
     paths.update(pool_knobs_phase(device, modular))
     paths["bench mega"] = {"k4": k4["launches"]}
-    for entry in (k1, k3, k4, *mesh_kernels.values()):
+    k7["launches"] = paths["l11"]["k7"]
+    for entry in (k1, k3, k4, k7, *mesh_kernels.values()):
         entry["paths"] = {p: n[entry["id"]] for p, n in paths.items() if entry["id"] in n}
     k1_widths = k1_device_times()
     _log(f"[k1 frame] K1 device ms in the modular 10_final frame (passes x kernel ms at "
@@ -3219,6 +3491,7 @@ def main(argv=None) -> int:
          f"{k1_frame_ms(k1_widths, modular['stats']):.3f} ms")
     bvh_device_times()
     k4_device_times()
+    k7_device_times()
     tri_device_times()
     mode_device_times()
     sph_device_times()
@@ -3228,7 +3501,7 @@ def main(argv=None) -> int:
 
     kernels = [k1, mesh_kernels["k2"], mesh_kernels["k2r"], mesh_kernels["k2h"],
                mesh_kernels["k2rh"], k3, k4, mesh_kernels["k5a"], mesh_kernels["k5b"],
-               mesh_kernels["k6a"], mesh_kernels["k6b"]]
+               mesh_kernels["k6a"], mesh_kernels["k6b"], k7]
     for entry in kernels:           # a device time the profiler lost is null
         if entry.get("device_ms") != entry.get("device_ms"):
             entry["device_ms"] = None

@@ -10,7 +10,9 @@ dielectric lobe are computed for every lane and the result is selected with
 - The new ray origin is the hit point with no epsilon offset; the t ≥ 1e-4
   test of the world scan avoids self-intersection.
 
-``scatter_legacy`` is the legacy (mesh) line's scatter.
+``scatter_legacy`` is the legacy (mesh) line's scatter: on the card one
+launch of kernel K7 (``ops.legacy_scatter``), elsewhere its plain body
+``scatter_legacy_plain``.
 """
 
 from __future__ import annotations
@@ -74,7 +76,19 @@ def scatter_modern(rays: Rays, hits: Hits, base) -> Rays:
 
 
 def scatter_legacy(rays: Rays, hits: Hits, base) -> Rays:
-    """Legacy wavefront scatter (15_module.py:994-1013):
+    """Legacy wavefront scatter (``scatter_legacy_plain``): on CUDA tensors
+    one launch of kernel K7 (``ops.legacy_scatter``), which gives the plain
+    body's bits; the plain body on any other device."""
+    if rays.rd.device.type == "cuda":
+        from ..ops import legacy_scatter   # ops imports the camera, which imports bsdf
+
+        return legacy_scatter.scatter(rays, hits, base)
+    return scatter_legacy_plain(rays, hits, base)
+
+
+def scatter_legacy_plain(rays: Rays, hits: Hits, base) -> Rays:
+    """Legacy wavefront scatter (15_module.py:994-1013), in plain PyTorch
+    (K7's twin):
 
     - continuous ``metallic`` is a stochastic metal/dielectric mix prob;
     - metal: tinted Schlick, mirror about the *geometric* normal, additive

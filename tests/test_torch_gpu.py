@@ -10,7 +10,8 @@ Tolerances: the sphere-scan kernel (K1, at the frame's pass widths and
 every slice count, ties included), the packet-traversal kernels (K2
 triangle leaves, its seeded and bf16 modes K2r, K2h and K2rh, K3 sphere
 leaves; ``hit(backend='bvh')`` through K3 equals K1's hits), the bounce megakernel (K4, all lanes and a late sparse lane
-list) and the row gathers (K6a, K6b: fill rows and bf16 compared as bits)
+list), the row gathers (K6a, K6b: fill rows and bf16 compared as bits) and
+the legacy BSDF (K7; an l11 frame through it equals the plain body's)
 equal their plain twins bit for bit (the same IEEE-rounded operations in the same
 order, and an order-free tie rule); a GPU render, persistent (modular or
 mega) or hybrid, equals a rerun bit for bit (fixed-point accumulation), and
@@ -26,7 +27,9 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from learn_path_tracing_tpu_torch.accel import build_bvh, collapse
+from learn_path_tracing_tpu_torch.bsdf.bsdf import scatter_legacy, scatter_legacy_plain
 from learn_path_tracing_tpu_torch.camera import Camera
 from learn_path_tracing_tpu_torch.integrator.hybrid import render_hybrid
 from learn_path_tracing_tpu_torch.integrator.persistent import (bounce_pass_plain, card_schedule,
@@ -34,6 +37,7 @@ from learn_path_tracing_tpu_torch.integrator.persistent import (bounce_pass_plai
 from learn_path_tracing_tpu_torch.io.obj import MeshData
 from learn_path_tracing_tpu_torch.models import random_scene, stage10_camera
 from learn_path_tracing_tpu_torch.ops import bounce_megakernel as tmk
+from learn_path_tracing_tpu_torch.ops import legacy_scatter as tls
 from learn_path_tracing_tpu_torch.ops import packet_traverse as tpt
 from learn_path_tracing_tpu_torch.ops import row_gather as trg
 from learn_path_tracing_tpu_torch.ops import sphere_scan as tss
@@ -436,7 +440,9 @@ def test_packet_walk_sizes_its_stack_by_stack_cap(cuda, version):
         tpt.traverse(*tables, *args, stack=tpt.MAX_STACK + 44, version=2)
 
 
-def test_gpu_hybrid_is_deterministic_and_matches_cpu(cuda):
+def _hybrid_world():
+    """A quad mesh under two spheres (one transparent) with a missing
+    texture's fill and an environment, built: the hybrid tests' world."""
     world = LegacyWorld()
     world.add_mesh(MeshData(
         positions=np.array([[-3, 0, -3], [3, 0, -3], [3, 0, 3], [-3, 0, 3]], np.float32),
@@ -451,10 +457,20 @@ def test_gpu_hybrid_is_deterministic_and_matches_cpu(cuda):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         world.build()
-    res = (48, 27)
+    return world
+
+
+def _hybrid_camera(res):
     cam = Camera(res)
     cam.set_position((0, 2, 6))
     cam.look_at((0, 0.5, 0))
+    return cam
+
+
+def test_gpu_hybrid_is_deterministic_and_matches_cpu(cuda):
+    world = _hybrid_world()
+    res = (48, 27)
+    cam = _hybrid_camera(res)
     runs = [render_hybrid(world.device(cuda), cam.params(cuda), res, spp=4, limit=8)
             for _ in range(2)]
     assert runs[0][1] == runs[1][1] and torch.equal(runs[0][0], runs[1][0])
@@ -766,3 +782,88 @@ def test_lockstep_walk_on_the_card_matches_cpu(cuda, walk):
     second = torch.sort(t_all, dim=1).values[:, 1]
     untied = hit & ~torch.isclose(second, t_c, rtol=1e-5, atol=1e-6)
     assert torch.equal(p_g[untied], p_c[untied]) and torch.equal(p_g[~hit], p_c[~hit])
+
+
+# ------------------------------------------------------------------ K7 --
+
+@pytest.mark.parametrize("n", [1, 255, 230400])
+@pytest.mark.parametrize("strided", [False, True])
+def test_legacy_scatter_kernel_matches_twin_bitwise(cuda, n, strided):
+    """K7 (``scatter_legacy`` on the card) against its plain twin over
+    ``chip_smoke.legacy_lanes``: metallic 0, 1 and fractional, transparent
+    and opaque, roughness 0, back-face (inverted) ior, grazing incidence,
+    an absorptivity of 0.5; the material contiguous or as the strided
+    views a row gather leaves. One launch over every lane."""
+    rays, hits, base = chip_smoke.legacy_lanes(n, n + strided, cuda, strided=strided)
+    # (a view of one row is contiguous)
+    assert hits.material.albedo.is_contiguous() != strided or n == 1
+    before = (tls.scatter.launches, tls.scatter.lanes)
+    got = scatter_legacy(rays, hits, base)
+    assert (tls.scatter.launches, tls.scatter.lanes) == (before[0] + 1, before[1] + n)
+    want = scatter_legacy_plain(rays, hits, base)
+    torch.cuda.synchronize()
+    assert chip_smoke.scatter_lanes_differ(got, want) == {}
+    assert got.alive is rays.alive
+
+
+def test_legacy_scatter_kernel_rejects_mixed_devices(cuda):
+    rays, hits, base = chip_smoke.legacy_lanes(64, 3, cuda)
+    with pytest.raises(ValueError, match="base on cpu"):
+        tls.scatter(rays, hits, base.cpu())
+
+
+def test_l11_frame_with_k7_is_the_plain_frame_bitwise(cuda, monkeypatch):
+    """An l11 frame (its world and orbit frame 0's camera at 64x36, 4 spp,
+    depth 10, K3) is bit for bit the same through K7 as through the plain
+    body, and K7 launches once a pass over every lane."""
+    from learn_path_tracing_tpu_torch.bsdf import bsdf as tbsdf
+    from learn_path_tracing_tpu_torch.integrator import wavefront as twf
+    from learn_path_tracing_tpu_torch.stages.l11_bvh import legacy_random_scene, orbit_camera
+
+    res = (64, 36)
+    wd = legacy_random_scene().device(cuda, use_bvh=True)
+    cp = orbit_camera(res, 0).params(cuda)
+    kw = dict(limit=10, seed=2**31 + 11, bsdf="legacy", hit_backend="bvh", stats=True)
+    img, segs, st = twf.render(wd, cp, res, 4, **kw)
+    assert st["kernels"]["k7"] == {"launches": st["passes"],
+                                   "lanes": st["passes"] * res[0] * res[1]}
+    monkeypatch.setitem(tbsdf.SCATTERERS, "legacy", scatter_legacy_plain)
+    img_p, segs_p, st_p = twf.render(wd, cp, res, 4, **kw)
+    assert "k7" not in st_p["kernels"] and segs == segs_p
+    assert torch.equal(img.view(torch.int32), img_p.view(torch.int32))
+
+
+def test_hybrid_frame_with_k7_is_the_plain_frame_bitwise(cuda, monkeypatch):
+    """A hybrid frame (mesh and spheres at 48x27, 8 spp, depth 8) with a
+    256-lane batch and a 512-lane pool, so that batches are cap-padded and
+    merge into a compacting pool: K7 launches once per legacy BSDF call
+    (pool passes plus batches), and the frame is bit for bit the same
+    through the plain body."""
+    from learn_path_tracing_tpu_torch.bsdf import bsdf as tbsdf
+
+    res = (48, 27)
+    wd, cp = _hybrid_world().device(cuda), _hybrid_camera(res).params(cuda)
+    kw = dict(spp=8, limit=8, seed=2**31 + 5, cap=256, pool_w=512, stats=True)
+    before = tls.scatter.launches
+    with chip_smoke.shading_calls() as shading:
+        img, segs, st = render_hybrid(wd, cp, res, **kw)
+    assert tls.scatter.launches - before == shading["scatter"] > st["passes"] > 0
+    monkeypatch.setitem(tbsdf.SCATTERERS, "legacy", scatter_legacy_plain)
+    before = tls.scatter.launches
+    img_p, segs_p, _ = render_hybrid(wd, cp, res, **kw)
+    assert tls.scatter.launches == before and segs == segs_p
+    assert torch.equal(img.view(torch.int32), img_p.view(torch.int32))
+
+
+def test_torch_sum_of_three_adds_x_plus_z_then_y(cuda):
+    """K7's ``cos_theta`` adds its three products as (x + z) + y, the order
+    in which ``torch.sum(..., dim=-1)`` over three f32 values adds on the
+    card (the plain body's reduction). Should a PyTorch release change that
+    order, this test names the cause of K7's departure from its twin."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    v = torch.randn((1 << 22, 3), device=cuda, generator=g) * torch.logspace(
+        -3, 3, 3, device=cuda)[torch.randint(0, 3, (1 << 22, 3), device=cuda, generator=g)]
+    x, y, z = v.unbind(-1)
+    got = torch.sum(v, dim=-1)
+    assert torch.equal(got.view(torch.int32), ((x + z) + y).view(torch.int32))
+    assert not torch.equal(got.view(torch.int32), ((x + y) + z).view(torch.int32))

@@ -182,7 +182,7 @@ def test_host_reads_are_the_syncs_and_k3_counts_its_lanes_on_the_card(cuda):
     """One frame of the cell's call at a test's size on the card: every
     synchronising CUDA operation is a ``host_read``, a K3 error word read
     for each pass among them, and K3 launches once a pass over every lane,
-    all of them active."""
+    all of them active, as does K7 (the legacy BSDF)."""
     wd = legacy_random_scene().device(cuda, use_bvh=True)
     render = functools.partial(wf.render, wd, orbit_camera(RES, 0).params(cuda), RES, SPP,
                                limit=LIMIT, seed=SEED, bsdf="legacy", hit_backend="bvh",
@@ -201,4 +201,5 @@ def test_host_reads_are_the_syncs_and_k3_counts_its_lanes_on_the_card(cuda):
     assert 2 * st["passes"] + SPP <= st["host_reads"] <= 2 * st["passes"] + 2 * SPP
     lanes = st["passes"] * RES[0] * RES[1]
     assert st["kernels"] == {"k3": {"launches": st["passes"], "lanes": lanes,
-                                    "active_lanes": lanes}}
+                                    "active_lanes": lanes},
+                             "k7": {"launches": st["passes"], "lanes": lanes}}
