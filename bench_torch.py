@@ -105,7 +105,7 @@ def cell_scene(scene, resolution, device, world, assets):
                 stage10_camera(resolution).params(device), "spheres", "modern", "thinlens")
     import warnings
 
-    from learn_path_tracing_tpu_torch.camera import LegacyCamera
+    from learn_path_tracing_tpu_torch.models.standin import standin_camera
     from learn_path_tracing_tpu_torch.scene.legacy_world import LegacyWorld
     from learn_path_tracing_tpu_torch.stages.legacy_common import make_asset_path_map
 
@@ -114,13 +114,9 @@ def cell_scene(scene, resolution, device, world, assets):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         wd = LegacyWorld().load(world, path_map=make_asset_path_map(assets), device=device)
-    cam = LegacyCamera(resolution)
-    cam.set_fov(30)
-    cam.set_position((0, 8, -30))
-    cam.look_at((0, 8, 0))
     # the legacy camera has no lens: 'jitter' is bit for bit its degenerate
     # thin lens without the disk sample
-    return wd, cam.params(device), "legacy", "legacy", "jitter"
+    return wd, standin_camera(resolution).params(device), "legacy", "legacy", "jitter"
 
 
 def run_cell(scene="10_final", engine="auto", resolution=(1280, 720), spp=64, limit=32,

@@ -19,9 +19,19 @@ under each pool knob the auto render; a
 GPU render agrees with the CPU render within
 ``utils.checks.render_agreement``'s bounds (the transcendental functions of
 the two devices differ by ulps).
+
+Whole paths (the stages, the viewer's engines, the packet versions and the
+environment knobs on the stand-in world of ``models.standin``) launch each
+kernel once per call of the layer it replaces: the traversal kernels once
+per traversal call, K6a and K6b as the shading calls imply
+(``chip_smoke.expected_gathers``), K7 once per legacy BSDF call.
 """
 
+import os
+import subprocess
+import sys
 import warnings
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -36,6 +46,10 @@ from learn_path_tracing_tpu_torch.integrator.persistent import (bounce_pass_plai
                                                                 mega_pass, render_persistent)
 from learn_path_tracing_tpu_torch.io.obj import MeshData
 from learn_path_tracing_tpu_torch.models import random_scene, stage10_camera
+from learn_path_tracing_tpu_torch.models.standin import (STANDIN_SEED, build_quiet, sphere_world,
+                                                          standin_asset_tree, standin_assets,
+                                                          standin_camera, standin_mesh,
+                                                          standin_world)
 from learn_path_tracing_tpu_torch.ops import bounce_megakernel as tmk
 from learn_path_tracing_tpu_torch.ops import legacy_scatter as tls
 from learn_path_tracing_tpu_torch.ops import packet_traverse as tpt
@@ -784,6 +798,315 @@ def test_lockstep_walk_on_the_card_matches_cpu(cuda, walk):
     assert torch.equal(p_g[untied], p_c[untied]) and torch.equal(p_g[~hit], p_c[~hit])
 
 
+# ------------------------------------ whole paths: launches and frames --
+
+def _launches():
+    """Every kernel's launch count, by kernel."""
+    return {"k1": tss.intersect_spheres_scan.launches, **tpt.traverse.launches,
+            "k4": tmk.bounce_pass.launches, **trg.gather.launches, "k7": tls.scatter.launches}
+
+
+def _counted(fn):
+    """``(fn(), launches, shading)``: the kernels ``fn()`` launched, those
+    launched at all, and its shading calls (``chip_smoke.shading_calls``)."""
+    before = _launches()
+    with chip_smoke.shading_calls() as shading:
+        out = fn()
+    return out, {k: n - before[k] for k, n in _launches().items() if n != before[k]}, shading
+
+
+def _only(launches, **want):
+    """The launches are ``want`` on the named kernels and none on any other."""
+    assert launches == {k: n for k, n in want.items() if n}, (launches, want)
+
+
+@pytest.fixture(scope="module")
+def standin_file(tmp_path_factory):
+    """The stand-in world at level 3, built, and saved as ``.world.npy``
+    beside its texture set and EXR: ``(world, path)``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    d = tmp_path_factory.mktemp("standin")
+    world = standin_world(str(d), level=3, tex_size=64, env_size=(128, 64))
+    build_quiet(world)
+    path = str(d / "standin.world.npy")
+    world.save(path)
+    return world, path
+
+
+def _load(path, device):
+    from learn_path_tracing_tpu_torch.stages.legacy_common import make_asset_path_map
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")          # its PBR set and EXR must load
+        return LegacyWorld().load(path, path_map=make_asset_path_map(os.path.dirname(path)),
+                                  device=device)
+
+
+def test_gpu_bf16_standin_hybrid_matches_cpu(cuda, tmp_path, monkeypatch):
+    """The stand-in mesh built under ``LPT_PACKET_BF16=1`` through
+    ``render_hybrid``: K2h is the traversal kernel on the card, and the
+    card's frame agrees with the CPU's (K2h's twin) by
+    ``render_agreement``."""
+    world = standin_world(str(tmp_path), level=3, tex_size=256, env_size=(256, 128))
+    monkeypatch.setenv("LPT_PACKET_BF16", "1")
+    build_quiet(world)
+    monkeypatch.delenv("LPT_PACKET_BF16")
+    res = (64, 36)
+    cam = standin_camera(res)
+    (img, segs), launches, _ = _counted(
+        lambda: render_hybrid(world.device(cuda), cam.params(cuda), res, spp=4, limit=8))
+    assert launches.get("k2h", 0) > 0 and not {"k2", "k2r", "k2rh"} & launches.keys()
+    cpu_img, cpu_segs = render_hybrid(world.device("cpu"), cam.params("cpu"), res, spp=4,
+                                      limit=8)
+    rep = render_agreement(img.cpu().numpy(), cpu_img.numpy(), segs, cpu_segs)
+    assert rep["ok"], rep
+
+
+@pytest.mark.parametrize("version", [1, 3])
+def test_l14_versions_on_the_card_are_version_2s_frame(cuda, standin_file, tmp_path, version):
+    """Stage l14 on the saved stand-in (64x36, 8 spp, depth 8) under packet
+    version 2 and ``version``: every asset loads; the version's kernel (K2,
+    K5a, K5b) launches once per traversal call (slabs plus pool passes),
+    K6a and K6b as the shading calls imply, K7 once per legacy BSDF call,
+    nothing else; the segments and linear image are version 2's bit for
+    bit."""
+    from learn_path_tracing_tpu_torch.stages import l14_mesh
+
+    world, path = standin_file
+    reps = {}
+    for v in (2, version):
+        (_, rep), launches, shading = _counted(lambda: l14_mesh.main([
+            "--world", path, "--width", "64", "--height", "36", "--spp", "8", "--limit", "8",
+            "--device", cuda, "--packet-version", str(v), "--out", str(tmp_path / f"{v}.png")]))
+        assert not rep["load_warnings"] and not rep["env_gradient"]
+        _only(launches, **{tpt.KERNELS["tri", v]: rep["n_chunks"] + rep["passes"]},
+              k7=shading["scatter"], **chip_smoke.expected_gathers(world.device("cpu"), shading))
+        reps[v] = rep
+    assert shading["scatter"] > 0 and reps[version]["segments"] == reps[2]["segments"]
+    assert torch.equal(reps[version]["linear"].view(torch.int32),
+                       reps[2]["linear"].view(torch.int32))
+
+
+@pytest.mark.parametrize("version", [1, 2, 3])
+def test_viewer_wavefront_on_the_card_agrees_with_hybrid(cuda, standin_file, version):
+    """The viewer's wavefront engine (``hit_legacy`` per bounce pass) on the
+    stand-in (64x36, 4 spp, depth 10) under each packet version: the
+    version's kernel is the only traversal kernel, K6a and K6b launch as the
+    shading calls imply and K7 once per legacy BSDF call, as under the
+    hybrid engine; the frame agrees with the hybrid engine's by
+    ``render_agreement``."""
+    from learn_path_tracing_tpu_torch.viewer.progressive import ProgressiveRenderer
+
+    world, _ = standin_file
+    res = (64, 36)
+
+    def frame(engine, v):
+        wd = world.device(cuda, packet_version=v)
+        pr = ProgressiveRenderer(wd, standin_camera(res), res, spp_per_frame=4, limit=10,
+                                 camera_model="jitter", engine=engine)
+        _, launches, shading = _counted(lambda: pr.render(moved=True))
+        walks = {k: launches.pop(k) for k in list(launches) if k in tpt.traverse.launches}
+        _only(launches, k7=shading["scatter"], **chip_smoke.expected_gathers(wd, shading))
+        img = (pr.acc / pr.spp).reshape(res[0], res[1], 3).cpu().numpy()
+        return img, pr.last_stats["segments"], walks
+
+    ref, ref_segs, _ = frame("hybrid", 2)
+    img, segs, walks = frame("wavefront", version)
+    assert list(walks) == [tpt.KERNELS["tri", version]]
+    rep = render_agreement(img, ref, segs, ref_segs)
+    assert rep["ok"], rep
+
+
+def test_l13_on_the_card_matches_cpu(cuda, tmp_path):
+    """Stage l13 (a textured sphere under the environment, the wavefront
+    integrator) on the stand-in's texture set and EXR under the reference's
+    names, at 64x36, 4 spp, depth 10: every asset loads; K6a and K6b launch
+    as the shading calls imply (K6b at least once) and K7 once per legacy
+    BSDF call; the card's frame agrees with the CPU's by
+    ``render_agreement``."""
+    from learn_path_tracing_tpu_torch.stages import l13_texture
+
+    standin_assets(str(tmp_path), STANDIN_SEED, 64, (128, 64))
+    tex = tmp_path / "textures"
+    tex.mkdir()
+    for name in ("albedo", "roughness", "metallic", "normal"):
+        (tex / f"sandyground1_{name}.png").symlink_to(tmp_path / f"standin_{name}.png")
+    (tex / "cayley_interior_2k.exr").symlink_to(tmp_path / "standin_env.exr")
+    argv = ["--assets", str(tmp_path), "--width", "64", "--height", "36", "--spp", "4",
+            "--limit", "10"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")          # the PBR set and the EXR must load
+        (_, rep), launches, shading = _counted(lambda: l13_texture.main(
+            argv + ["--device", cuda, "--out", str(tmp_path / "card.png")]))
+        _, cpu = l13_texture.main(argv + ["--device", "cpu", "--out", str(tmp_path / "cpu.png")])
+    want = {**chip_smoke.expected_gathers(rep["world"], shading), "k7": shading["scatter"]}
+    assert not rep["env_gradient"] and want["k6b"] > 0
+    assert {k: launches.get(k, 0) for k in want} == want
+    agree = render_agreement(rep["linear"].cpu().numpy(), cpu["linear"].numpy(),
+                             rep["segments"], cpu["segments"])
+    assert agree["ok"], agree
+
+
+def test_legacy_persistent_pool_on_the_card(cuda, standin_file, monkeypatch):
+    """The stand-in through the modular persistent engine
+    (``scene='legacy'``, as ``l14 --engine persistent`` runs it) at 160x190,
+    2 spp, depth 4: the JAX package's legacy auto pool of ``n`` lanes, K2
+    once per pass, K6a and K6b as the shading calls imply, K7 once per
+    legacy BSDF call, nothing else; under the sphere rule's narrower pool
+    the same launches per pass and the same frame bit for bit."""
+    import learn_path_tracing_tpu_torch.integrator.persistent as tpers
+
+    world, _ = standin_file
+    wd = world.device(cuda)
+    res = (160, 190)
+    cp = standin_camera(res).params(cuda)
+    rule, runs = tpers.schedule, {}
+    for name in ("legacy", "spheres"):
+        if name == "spheres":
+            monkeypatch.setattr(tpers, "schedule",
+                                lambda n, spp, *a: rule(n, spp, *a[:4], "spheres"))
+        (img, segs, st), launches, shading = _counted(lambda: render_persistent(
+            wd, cp, res, spp=2, limit=4, seed=0, bsdf="legacy", camera_model="jitter",
+            scene="legacy", stats=True))
+        _only(launches, k2=st["passes_full"] + sum(st["drain_passes"]), k7=shading["scatter"],
+              **chip_smoke.expected_gathers(wd, shading))
+        runs[name] = (img, segs, st["pool"])
+    (img, segs, pool), (img0, segs0, pool0) = runs["legacy"], runs["spheres"]
+    assert pool == res[0] * res[1] != pool0
+    assert segs == segs0 and torch.equal(img.view(torch.int32), img0.view(torch.int32))
+
+
+@pytest.mark.parametrize("knob", ["restart", "bf16", "restart+bf16"])
+def test_mesh_knobs_on_the_card_launch_their_kernels(cuda, standin_file, monkeypatch, knob):
+    """The stand-in's hybrid frame (64x64, 2 spp, depth 6, a 4,096-lane
+    pool) under the JAX package's environment knobs: under
+    ``LPT_TREELET_RESTART=1`` K2r on the pool passes of 4,096 rays and K2
+    on the rest, the frame bit for bit the default frame; under
+    ``LPT_PACKET_BF16=1`` (read when the world is loaded) K2h, and with the
+    restart K2rh in K2r's place; each at least once, together once per
+    traversal call, and no other traversal kernel."""
+    _, path = standin_file
+    res = (64, 64)
+    cp = standin_camera(res).params(cuda)
+    kw = dict(spp=2, limit=6, seed=2, camera_model="jitter", pool_w=4096, stats=True)
+    for var in ("LPT_TREELET_RESTART", "LPT_PACKET_BF16"):
+        monkeypatch.delenv(var, raising=False)
+    ref, ref_segs, _ = render_hybrid(_load(path, cuda), cp, res, **kw)
+    restart, bf16 = "restart" in knob, "bf16" in knob
+    if restart:
+        monkeypatch.setenv("LPT_TREELET_RESTART", "1")
+    if bf16:
+        monkeypatch.setenv("LPT_PACKET_BF16", "1")
+    wd = _load(path, cuda)
+    (img, segs, st), launches, _ = _counted(lambda: render_hybrid(wd, cp, res, **kw))
+    walks = {k: n for k, n in launches.items() if k in tpt.traverse.launches}
+    ran = {tpt.kernel_of(bf16=bf16)} | ({tpt.kernel_of(seeded=True, bf16=bf16)} if restart
+                                        else set())
+    assert walks.keys() == ran and sum(walks.values()) == st["n_chunks"] + st["passes"]
+    if knob == "restart":
+        assert segs == ref_segs and torch.equal(img.view(torch.int32), ref.view(torch.int32))
+
+
+def test_l15_on_the_card_and_its_reloaded_world(cuda, tmp_path):
+    """Stage l15 on the stand-in written as the reference's asset tree (OBJ,
+    MTL, PBR set, EXR) at 64x36, 4 spp, one pass: every asset loads; K2
+    once per traversal call, K6a and K6b as the shading calls imply, K7
+    once per legacy BSDF call, nothing else; the saved ``.world.npy``
+    reloaded with its own trees (``rebuild_bvh=False``) renders within
+    ``render_agreement`` of the rebuilt world."""
+    from learn_path_tracing_tpu_torch.stages import l15_module
+    from learn_path_tracing_tpu_torch.stages.legacy_common import make_asset_path_map
+
+    root = str(tmp_path / "assets")
+    standin_asset_tree(root, level=3, tex_size=64, env_size=(128, 64))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")          # every asset must load
+        (_, rep), launches, shading = _counted(lambda: l15_module.main([
+            "--assets", root, "--passes", "1", "--width", "64", "--height", "36", "--spp", "4",
+            "--limit", "8", "--device", cuda, "--out", str(tmp_path / "l15.png")]))
+    path_map = make_asset_path_map(root)
+    own = LegacyWorld().load(rep["world"], path_map=path_map, rebuild_bvh=False, device=cuda)
+    _only(launches, k2=rep["n_chunks"] + rep["passes"], k7=shading["scatter"],
+          **chip_smoke.expected_gathers(own, shading))
+    assert shading["scatter"] > 0 and bool(torch.isfinite(rep["linear"]).all())
+    rebuilt = LegacyWorld().load(rep["world"], path_map=path_map, device=cuda)
+    res = (64, 36)
+    cp = standin_camera(res).params(cuda)
+    (a, sa), (b, sb) = (render_hybrid(wd, cp, res, spp=4, limit=8) for wd in (own, rebuilt))
+    agree = render_agreement(a.cpu().numpy(), b.cpu().numpy(), sa, sb)
+    assert agree["ok"], agree
+
+
+def test_sphere_world_hybrid_launches_k3_and_k7_per_call(cuda):
+    """A hybrid render of 8,192 spheres (``models.standin.sphere_world``,
+    past the scan's ceiling) at 64x36, 4 spp, depth 8: K3 once per
+    traversal call (slabs plus pool passes) and no other traversal kernel or
+    K1, K7 once per legacy BSDF call (pool passes plus batches)."""
+    wd = build_quiet(sphere_world(), device=cuda)
+    res = (64, 36)
+    cam = Camera(res, fov=60)
+    cam.set_position((0.0, 8.0, -10.0))
+    cam.look_at((0.0, 8.0, 40.0))
+    (img, _, st), launches, shading = _counted(
+        lambda: render_hybrid(wd, cam.params(cuda), res, spp=4, limit=8, stats=True))
+    walks = {k: n for k, n in launches.items() if k in tpt.traverse.launches or k == "k1"}
+    assert walks == {"k3": st["n_chunks"] + st["passes"]}
+    assert launches["k7"] == shading["scatter"] > 0 and bool(torch.isfinite(img).all())
+
+
+def test_stage10_cli_on_the_card_matches_cpu(cuda, hit_calls, tmp_path, monkeypatch):
+    """``python -m learn_path_tracing_tpu_torch render --stage 10`` in this
+    process at 64x36, 4 spp, depth 8 (``stages.common.run_path_traced``):
+    K1 once per hit call, one a pass, and no other kernel on the card; the
+    linear image agrees with the same command's on the CPU by
+    ``render_agreement``."""
+    from learn_path_tracing_tpu_torch import __main__ as cli
+    from learn_path_tracing_tpu_torch.stages import s10_final
+
+    reps, real = [], s10_final.run_path_traced
+
+    def kept(*args, **kw):          # the stage's report, which the CLI drops
+        out = real(*args, **kw)
+        reps.append(out[1])
+        return out
+
+    monkeypatch.setattr(s10_final, "run_path_traced", kept)
+    argv = ["render", "--stage", "10", "--width", "64", "--height", "36", "--spp", "4",
+            "--limit", "8"]
+    rc, launches, _ = _counted(
+        lambda: cli.main(argv + ["--device", cuda, "--out", str(tmp_path / "card.png")]))
+    assert rc == 0 and launches == {"k1": hit_calls[0]} and hit_calls[0] == reps[0]["passes"]
+    assert cli.main(argv + ["--device", "cpu", "--out", str(tmp_path / "cpu.png")]) == 0
+    card, cpu = reps
+    agree = render_agreement(card["linear"].cpu().numpy(), cpu["linear"].numpy(),
+                             card["segments"], cpu["segments"])
+    assert agree["ok"], agree
+
+
+def test_cli_smoke_exits_0_on_the_card(cuda):
+    """``python -m learn_path_tracing_tpu_torch smoke`` as its own process."""
+    proc = subprocess.run([sys.executable, "-m", "learn_path_tracing_tpu_torch", "smoke"],
+                          cwd=Path(__file__).resolve().parents[1], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_native_bvh_builder_on_the_card_host_is_numpys(cuda):
+    """The stand-in mesh's BVH (23,424 triangles, depth 24, leaves of 8)
+    from the C++ builder as the card machine's host compiles it, byte for
+    byte the numpy builder's."""
+    mesh = standin_mesh(5, STANDIN_SEED)
+    tri = mesh.positions[mesh.face_p]
+    args = (tri.min(axis=1), tri.max(axis=1))
+    kw = dict(centroid=tri.mean(axis=1), max_depth=24, max_leaf=8)
+    a, b = (build_bvh(*args, backend=backend, **kw) for backend in ("numpy", "native"))
+    for f in ("left", "right", "low", "high", "data", "cut", "prim"):
+        assert getattr(a, f).dtype == getattr(b, f).dtype, f
+        assert getattr(a, f).tobytes() == getattr(b, f).tobytes(), f
+    assert a.prim.shape[0] == tri.shape[0] and a.max_leaf == b.max_leaf
+
+
 # ------------------------------------------------------------------ K7 --
 
 @pytest.mark.parametrize("n", [1, 255, 230400])
@@ -804,6 +1127,27 @@ def test_legacy_scatter_kernel_matches_twin_bitwise(cuda, n, strided):
     torch.cuda.synchronize()
     assert chip_smoke.scatter_lanes_differ(got, want) == {}
     assert got.alive is rays.alive
+
+
+def test_l11_lanes_k1_and_k3_match_twins_bitwise(cuda):
+    """K1 and K3 on l11's lanes (``chip_smoke.l11_lane_sets``: its world,
+    the primary rays of orbit frame 0 at 640x360 and the bounce pass after
+    them): K1 bit for bit ``intersect_spheres_scan_plain``, and
+    ``hit(backend='bvh')`` (K3) bit for bit the hit record of
+    ``packet_traverse_plain`` over the same tables."""
+    from learn_path_tracing_tpu_torch.scene.world import hit
+
+    wd, sets = chip_smoke.l11_lane_sets(cuda)
+    for rays, want, _ in sets.values():
+        args = (rays.ro.contiguous(), rays.rd.contiguous(), wd.scan_table, wd.scan_attrs)
+        assert _same_scan(tss.intersect_spheres_scan(*args),
+                          tss.intersect_spheres_scan_plain(*args))
+        got = hit(wd, rays, backend="bvh")
+        for f in ("t", "obj", "hit", "point", "normal"):
+            x, y = getattr(got, f), getattr(want, f)
+            if x.dtype == torch.float32:
+                x, y = x.view(torch.int32), y.view(torch.int32)
+            assert torch.equal(x, y), f
 
 
 def test_legacy_scatter_kernel_rejects_mixed_devices(cuda):

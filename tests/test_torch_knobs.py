@@ -41,7 +41,6 @@ import pytest
 import torch
 
 import bench_torch
-import chip_smoke
 import learn_path_tracing_tpu.integrator.persistent as jpers
 import learn_path_tracing_tpu_torch.integrator.persistent as tpers
 from learn_path_tracing_tpu.integrator.persistent import render_persistent as j_render_persistent
@@ -51,6 +50,7 @@ from learn_path_tracing_tpu_torch.integrator.hybrid import render_hybrid
 from learn_path_tracing_tpu_torch.integrator.persistent import render_persistent, schedule
 from learn_path_tracing_tpu_torch.integrator.wavefront import render
 from learn_path_tracing_tpu_torch.models import random_scene, stage10_camera
+from learn_path_tracing_tpu_torch.models.standin import standin_camera, standin_world
 from learn_path_tracing_tpu_torch.ops import packet_traverse as tpt
 from learn_path_tracing_tpu_torch.scene import legacy_world as tlw
 from learn_path_tracing_tpu_torch.utils.checks import render_agreement
@@ -372,7 +372,7 @@ def standin(tmp_path_factory):
     """The stand-in world at level 3 (its top two BVH levels full, so
     blocks of coherent rays can be seeded)."""
     d = tmp_path_factory.mktemp("standin")
-    world = chip_smoke.standin_world(str(d), level=3, tex_size=64, env_size=(128, 64))
+    world = standin_world(str(d), level=3, tex_size=64, env_size=(128, 64))
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         world.build()
@@ -392,7 +392,7 @@ def _build(world, monkeypatch, bf16):
 
 
 def _hybrid(wd, **kw):
-    cam = chip_smoke.l14_camera((64, 64)).params()
+    cam = standin_camera((64, 64)).params()
     return render_hybrid(wd, cam, (64, 64), spp=2, limit=6, seed=2, camera_model="jitter",
                          pool_w=4096, stats=True, **kw)
 
@@ -406,7 +406,7 @@ def test_restart_frame_is_the_default_frame(standin, monkeypatch):
     wd = _build(standin, monkeypatch, bf16=False)
     monkeypatch.delenv("LPT_TREELET_RESTART", raising=False)
     ref_img, ref_segs, _ = _hybrid(wd)
-    cam = chip_smoke.l14_camera((64, 64)).params()
+    cam = standin_camera((64, 64)).params()
     wf = dict(spp=1, limit=4, seed=1, bsdf="legacy", scene="legacy", camera_model="jitter")
     ref_wf = render(wd, cam, (64, 64), **wf)
 
@@ -504,7 +504,7 @@ def test_legacy_auto_pool_is_the_jax_packages(standin, monkeypatch):
     wd = _build(standin, monkeypatch, bf16=False)
     res = (160, 190)
     n = res[0] * res[1]
-    cam = chip_smoke.l14_camera(res).params()
+    cam = standin_camera(res).params()
     kw = dict(spp=2, seed=3, bsdf="legacy", camera_model="jitter", scene="legacy",
               stats=True)
     img, segs, st = render_persistent(wd, cam, res, limit=2, **kw)

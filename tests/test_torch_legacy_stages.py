@@ -38,7 +38,6 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 import learn_path_tracing_tpu.ops.sphere_scan as jss
 import learn_path_tracing_tpu.viewer.progressive as jprog
 from learn_path_tracing_tpu.camera import LegacyCamera as JLegacyCamera
@@ -51,6 +50,7 @@ from learn_path_tracing_tpu.stages import legacy_common as jlc
 from learn_path_tracing_tpu_torch.camera import LegacyCamera
 from learn_path_tracing_tpu_torch.integrator.hybrid import render_hybrid
 from learn_path_tracing_tpu_torch.io.obj import load_obj
+from learn_path_tracing_tpu_torch.models.standin import standin_asset_tree
 from learn_path_tracing_tpu_torch.scene import serialize
 from learn_path_tracing_tpu_torch.scene.legacy_world import LegacyWorld
 from learn_path_tracing_tpu_torch.stages import l11_bvh, l12_free_view, l15_module
@@ -221,8 +221,8 @@ def test_l12_script_against_jax(tmp_path, monkeypatch, j_l11_world, jax_scan_int
 def assets(tmp_path_factory):
     """The stand-in's asset tree at a small size (the reference's layout)."""
     root = str(tmp_path_factory.mktemp("assets"))
-    chip_smoke.standin_asset_tree(root, level=2, tex_size=16, env_size=(64, 32), segments=8,
-                                  rings=1, rows=1)
+    standin_asset_tree(root, level=2, tex_size=16, env_size=(64, 32), segments=8, rings=1,
+                       rows=1)
     return root
 
 

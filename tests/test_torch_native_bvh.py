@@ -1,16 +1,16 @@
 """The port's native (C++) SAH builder (``accel.native``), its numpy builder
 and the JAX package's ``build_bvh``: the same arrays byte for byte (values,
 dtypes and ``max_leaf``), on random AABB sets and on the stand-in mesh of
-``chip_smoke.py``. The C++ builder is compiled here with the system's
+``models.standin``. The C++ builder is compiled here with the system's
 ``g++`` (the card machine's host builds it the same way)."""
 
 import numpy as np
 import pytest
 
-import chip_smoke
 from learn_path_tracing_tpu.accel.bvh import build_bvh as j_build_bvh
 from learn_path_tracing_tpu_torch.accel import native
 from learn_path_tracing_tpu_torch.accel.bvh import build_bvh
+from learn_path_tracing_tpu_torch.models.standin import STANDIN_SEED, standin_mesh
 
 FIELDS = ("left", "right", "low", "high", "data", "cut", "prim")
 
@@ -41,7 +41,7 @@ def test_native_numpy_and_jax_builders_agree(n, max_depth, max_leaf):
 
 
 def test_standin_mesh_level_3():
-    mesh = chip_smoke._standin_mesh(3, chip_smoke.STANDIN_SEED)
+    mesh = standin_mesh(3, STANDIN_SEED)
     tri = mesh.positions[mesh.face_p]
     args = (tri.min(axis=1), tri.max(axis=1))
     kw = dict(centroid=tri.mean(axis=1), max_depth=24, max_leaf=8)

@@ -25,10 +25,10 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from learn_path_tracing_tpu.camera import LegacyCamera as JLegacyCamera
 from learn_path_tracing_tpu.viewer import serve as jserve
 from learn_path_tracing_tpu_torch.camera import LegacyCamera
+from learn_path_tracing_tpu_torch.models.standin import standin_world
 from learn_path_tracing_tpu_torch.viewer import serve
 from learn_path_tracing_tpu_torch.viewer.serve import (ViewerState, _apply_inputs, _encode_png,
                                                        _make_handler)
@@ -137,7 +137,7 @@ def test_missing_named_world_exits_2(capsys):
 
 
 def test_world_file_loads_and_reports_fallbacks(tmp_path):
-    world = chip_smoke.standin_world(str(tmp_path), level=1, tex_size=16, env_size=(32, 16))
+    world = standin_world(str(tmp_path), level=1, tex_size=16, env_size=(32, 16))
     world.build()
     path = str(tmp_path / "standin.world.npy")
     world.save(path)

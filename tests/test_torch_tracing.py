@@ -19,12 +19,12 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from learn_path_tracing_tpu_torch.camera import Camera
 from learn_path_tracing_tpu_torch.integrator.hybrid import render_hybrid
 from learn_path_tracing_tpu_torch.integrator.persistent import render_persistent
 from learn_path_tracing_tpu_torch.io.obj import MeshData
 from learn_path_tracing_tpu_torch.models import random_scene, stage10_camera
+from learn_path_tracing_tpu_torch.models.standin import standin_camera, standin_world
 from learn_path_tracing_tpu_torch.ops import kernel_counters
 from learn_path_tracing_tpu_torch.ops import packet_traverse as tpt
 from learn_path_tracing_tpu_torch.ops import row_gather as trg
@@ -279,8 +279,8 @@ def cuda():
 def standin(tmp_path_factory):
     """The stand-in mesh world (one mesh, no spheres: the hybrid cell's
     kind of world) at a test's size."""
-    world = chip_smoke.standin_world(str(tmp_path_factory.mktemp("standin")), level=3,
-                                     tex_size=64, env_size=(128, 64))
+    world = standin_world(str(tmp_path_factory.mktemp("standin")), level=3, tex_size=64,
+                          env_size=(128, 64))
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         world.build()
@@ -292,7 +292,7 @@ def _card_scene(engine, device, standin):
     if engine == "hybrid":
         res = (96, 64)
         return (render_hybrid, standin.device(device),
-                chip_smoke.l14_camera(res).params(device), res)
+                standin_camera(res).params(device), res)
     res = (64, 36)
     return (functools.partial(render_persistent, engine=engine),
             random_scene(seed=20230328).device(device), stage10_camera(res).params(device), res)

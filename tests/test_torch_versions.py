@@ -27,7 +27,6 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 import learn_path_tracing_tpu.scene.legacy_world as jlw
 from learn_path_tracing_tpu.camera import Camera as JCamera
 from learn_path_tracing_tpu.integrator.hybrid import render_hybrid as j_render_hybrid
@@ -36,6 +35,7 @@ from learn_path_tracing_tpu.ops import packet_traverse as jpt
 from learn_path_tracing_tpu_torch.camera import Camera
 from learn_path_tracing_tpu_torch.integrator.hybrid import render_hybrid
 from learn_path_tracing_tpu_torch.io.obj import MeshData
+from learn_path_tracing_tpu_torch.models.standin import standin_camera, standin_world
 from learn_path_tracing_tpu_torch.scene import legacy_world as tlw
 from learn_path_tracing_tpu_torch.stages import l14_mesh
 from learn_path_tracing_tpu_torch.utils.checks import render_agreement
@@ -82,7 +82,7 @@ def mini():
 def standin(tmp_path_factory):
     """The stand-in world at 1,024 + 2,944 triangles, saved as .world.npy."""
     d = tmp_path_factory.mktemp("standin")
-    world = chip_smoke.standin_world(str(d), level=2, tex_size=64, env_size=(128, 64))
+    world = standin_world(str(d), level=2, tex_size=64, env_size=(128, 64))
     world.build()
     path = str(d / "standin.world.npy")
     world.save(path)
@@ -142,7 +142,7 @@ def test_sorted_pool_passes_equal_version_2(standin, monkeypatch, version):
         return sorted_walk(*args, **kw)
 
     monkeypatch.setattr(tlw, "packet_traverse_sorted", counted)
-    cam = chip_smoke.l14_camera((48, 27)).params()
+    cam = standin_camera((48, 27)).params()
     kw = dict(spp=4, limit=6, seed=2, camera_model="jitter", pool_w=4096, stats=True)
     img, segs, st = render_hybrid(world.device(packet_version=version), cam, (48, 27), **kw)
     assert calls and min(calls) >= 4096 and st["passes"] > len(calls)

@@ -1,5 +1,5 @@
 """The port's progressive viewer, the l14 mesh stage on a saved world, and
-``chip_smoke.py``'s stand-in world, on the CPU at small sizes.
+the stand-in world of ``models.standin``, on the CPU at small sizes.
 
 Tolerances: accumulation and resume are exact (the viewer sums f32 images
 times their spp, so two frames equal one frame of twice the spp to f32
@@ -13,10 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from learn_path_tracing_tpu_torch.camera import LegacyCamera
 from learn_path_tracing_tpu_torch.core.image import read_png
 from learn_path_tracing_tpu_torch.integrator.hybrid import render_hybrid
+from learn_path_tracing_tpu_torch.models.standin import (N_SPHERES, STANDIN_SEED, build_quiet,
+                                                          sphere_world, standin_camera,
+                                                          standin_mesh, standin_world)
 from learn_path_tracing_tpu_torch.stages import l14_mesh
 from learn_path_tracing_tpu_torch.utils.config import STAGE_CONFIGS
 from learn_path_tracing_tpu_torch.viewer import ProgressiveRenderer
@@ -30,7 +32,7 @@ RES = (32, 18)
 def standin(tmp_path_factory):
     """The stand-in world at 1,024 + 2,944 triangles, saved as .world.npy."""
     d = tmp_path_factory.mktemp("standin")
-    world = chip_smoke.standin_world(str(d), level=2, tex_size=64, env_size=(128, 64))
+    world = standin_world(str(d), level=2, tex_size=64, env_size=(128, 64))
     wd = world.build()
     path = str(d / "standin.world.npy")
     world.save(path)
@@ -38,8 +40,8 @@ def standin(tmp_path_factory):
 
 
 def _renderer(wd, **kw):
-    return ProgressiveRenderer(wd, chip_smoke.l14_camera(RES), RES, spp_per_frame=2,
-                               limit=6, camera_model="jitter", **kw)
+    return ProgressiveRenderer(wd, standin_camera(RES), RES, spp_per_frame=2, limit=6,
+                               camera_model="jitter", **kw)
 
 
 def test_accumulates_and_resets_on_move(standin):
@@ -48,7 +50,7 @@ def test_accumulates_and_resets_on_move(standin):
     pr.render(moved=True)
     f2 = pr.render(moved=False)
     assert pr.spp == 4 and pr.last_stats["spp"] == 2
-    img, _ = render_hybrid(wd, chip_smoke.l14_camera(RES).params(), RES, spp=4, limit=6)
+    img, _ = render_hybrid(wd, standin_camera(RES).params(), RES, spp=4, limit=6)
     np.testing.assert_allclose(f2.numpy(), (img.clamp_min(0) ** (1 / 2.2)).numpy(),
                                rtol=0, atol=1e-6)
     f_again = pr.render(moved=True)                     # a move starts over
@@ -118,7 +120,7 @@ def test_l14_renders_a_saved_world(standin, tmp_path):
 def test_l14_reports_asset_fallbacks(tmp_path):
     """A world whose textures and EXR are gone still renders, on the
     neutral fills and the sky gradient, and the report says so."""
-    world = chip_smoke.standin_world(str(tmp_path), level=1, tex_size=16, env_size=(32, 16))
+    world = standin_world(str(tmp_path), level=1, tex_size=16, env_size=(32, 16))
     world.build()
     path = str(tmp_path / "standin.world.npy")
     world.save(path)
@@ -137,7 +139,7 @@ def test_l14_reports_asset_fallbacks(tmp_path):
 def test_standin_world_shape():
     """Level 5 of the stand-in mesh has the reference mesh's size; the
     figure stands on its base, 16 units tall, in front of l14's camera."""
-    mesh = chip_smoke._standin_mesh(5, chip_smoke.STANDIN_SEED)
+    mesh = standin_mesh(5, STANDIN_SEED)
     assert mesh.n_faces == 23424
     p = mesh.positions
     assert 0.0 <= p[:, 1].min() < 0.6 and 16.0 < p[:, 1].max() < 18.0
@@ -151,6 +153,6 @@ def test_standin_world_shape():
 
 def test_sphere_world_takes_the_packet_kernel():
     """Past the 4,096-sphere ceiling ``build`` packs sphere-leaf tables (K3)."""
-    wd = chip_smoke._build_quiet(chip_smoke.sphere_world())
-    assert wd.spheres.center.shape[0] == chip_smoke.N_SPHERES > 4096
+    wd = build_quiet(sphere_world())
+    assert wd.spheres.center.shape[0] == N_SPHERES > 4096
     assert wd.spheres.packet is not None and wd.spheres.stack > 1
