@@ -60,10 +60,12 @@ from learn_path_tracing_tpu_torch.models.standin import (N_SPHERES, build_quiet,
                                                           sphere_world, standin_camera,
                                                           standin_mesh, standin_world)
 from learn_path_tracing_tpu_torch.ops import bounce_megakernel as mk
+from learn_path_tracing_tpu_torch.ops import kernel_counters
 from learn_path_tracing_tpu_torch.ops import legacy_scatter as ls
 from learn_path_tracing_tpu_torch.ops import packet_traverse as pt
 from learn_path_tracing_tpu_torch.ops import row_gather as rg
 from learn_path_tracing_tpu_torch.ops import sphere_scan as ss
+from learn_path_tracing_tpu_torch.utils.profiling import recording
 
 RES = (1280, 720)
 SPP = 64
@@ -1284,50 +1286,30 @@ MC_PERSISTENT_SPP = 8                  # the sharded cover-scene cell: spp cut f
 MC_WAVEFRONT_RES, MC_WAVEFRONT_SPP = (320, 180), 4
 
 
-def zero_launches():
-    """Every kernel's launch count to 0 (``all_launches`` reads them)."""
-    ss.intersect_spheres_scan.launches = 0
-    mk.bounce_pass.launches = 0
-    ls.scatter.launches = ls.scatter.lanes = 0
-    pt.traverse.launches.update(dict.fromkeys(pt.traverse.launches, 0))
-    rg.gather.launches.update(dict.fromkeys(rg.gather.launches, 0))
-
-
-@contextlib.contextmanager
-def hit_calls():
-    """Counts ``scene.world.hit`` calls (one per wavefront bounce pass of a
-    sphere world) while the block runs."""
-    import learn_path_tracing_tpu_torch.scene.world as world_mod
-
-    counts = [0]
-    real = world_mod.hit
-
-    def counted(*args, **kw):
-        counts[0] += 1
-        return real(*args, **kw)
-
-    world_mod.hit = counted
-    try:
-        yield counts
-    finally:
-        world_mod.hit = real
-
-
 def all_launches() -> dict:
-    return {"k1": ss.intersect_spheres_scan.launches, **pt.traverse.launches,
-            "k4": mk.bounce_pass.launches, **rg.gather.launches, "k7": ls.scatter.launches}
+    """Every kernel's launches so far, a CUDA graph's replays included
+    (``ops.kernel_counters``)."""
+    return {k: c["launches"] for k, c in kernel_counters().items()}
 
 
 def counted_frame(fn):
-    """``fn()`` with every launch count set to 0 just before; returns
-    ``(result, synchronised seconds, launches, hit calls, shading calls)``."""
-    zero_launches()
+    """``fn()``, synchronised; returns ``(result, seconds, launches during
+    it, sphere hit queries, shading calls)``. The hit queries are the
+    persistent engine's ``lpt.persistent.hit`` spans and the wavefront's
+    ``lpt.wavefront.pass`` spans (one query a pass, eager or replayed from
+    a CUDA graph, whose ``lpt.wavefront.hit`` opens only at its capture)."""
     torch.cuda.synchronize()
+    before = all_launches()
     t0 = time.perf_counter()
-    with hit_calls() as hits, shading_calls() as shading:
+    with (recording(True, "chip_smoke.frame", kernel_counters) as table,
+          shading_calls() as shading):
         out = fn()
         torch.cuda.synchronize()
-    return out, time.perf_counter() - t0, all_launches(), hits[0], shading
+    seconds = time.perf_counter() - t0
+    launches = {k: n - before[k] for k, n in all_launches().items()}
+    hits = sum(table.spans.get(name, [0])[0]
+               for name in ("lpt.persistent.hit", "lpt.wavefront.pass"))
+    return out, seconds, launches, hits, shading
 
 
 def only(launches, **want) -> bool:
@@ -1367,7 +1349,7 @@ def multichip_phase(device, world_path):
     stand-in at 1280x720, 64 spp (K2 once per traversal call, K6a/K6b as
     its shading calls imply, K7 once per legacy BSDF call), the persistent
     engine on the cover scene at 1280x720, 8 spp, and the wavefront at
-    320x180, 4 spp (K1 once per hit call), depth 32, nothing else: each
+    320x180, 4 spp (K1 once per hit query), depth 32, nothing else: each
     sharded frame the single-device one bit for bit, with its segments and
     launches. Then the int64 accumulator's collectives are timed (at world
     size 1 a copy on the card). With more than one card,
@@ -1390,7 +1372,7 @@ def multichip_phase(device, world_path):
              f"{time.perf_counter() - t0:.3f} s")
         for name, (single, sharded, wd, cp, res, spp, _) in cells.items():
             kw = dict(stats=True) if name == "hybrid" else {}
-            (img, segs, *st), t_single, l_single, hits, shading = counted_frame(
+            (img, segs, *st), t_single, l_single, _, shading = counted_frame(
                 lambda: single(wd, cp, res, spp, limit=DEPTH, **kw))
             (img_m, segs_m), t_sharded, l_sharded, hits_m, shading_m = counted_frame(
                 lambda: sharded(wd, cp, res, spp, m, limit=DEPTH))

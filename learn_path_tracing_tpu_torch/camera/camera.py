@@ -100,15 +100,24 @@ def lens_frame(params: CameraParams, resolution) -> LensFrame:
         half_aperture=params.aperture * 0.5, focal_length=params.focal_length)
 
 
-def thin_lens_rays(frame: LensFrame, resolution, pix, seed, sample):
+def _camera_stream(seed, sample, stream_h):
+    """The camera stream's hash of ``(seed, sample)``, or ``stream_h`` where
+    it is given."""
+    return rng.stream(seed, sample, 0, rng.STREAM_CAMERA) if stream_h is None else stream_h
+
+
+def thin_lens_rays(frame: LensFrame, resolution, pix, seed, sample, stream_h=None):
     """Thin-lens primary rays ``(ro, rd)``, each ``f32[N,3]``, for the
     int64 absolute pixel ids ``pix``: sub-pixel jitter ``(i+u)/W - 0.5`` and
     a disk sample on the aperture, from the camera stream of ``(seed,
-    sample, pixel)``."""
+    sample, pixel)``. ``stream_h``: that stream's hash
+    (``rng.stream(seed, sample, 0, rng.STREAM_CAMERA)``) in place of
+    ``seed`` and ``sample``, a 0-d int64 tensor that a captured CUDA graph
+    reads (``integrator.wavefront.PassGraphs``)."""
     w, h = resolution
     fi = (pix // h).to(torch.float32)
     fj = (pix % h).to(torch.float32)
-    b = rng.base(rng.stream(seed, sample, 0, rng.STREAM_CAMERA), pix)
+    b = rng.base(_camera_stream(seed, sample, stream_h), pix)
     u0, u1 = rng.uniform2(b, 0)
     u2, u3 = rng.uniform2(b, 2)
     du = ((fi + u0) / w - 0.5) * frame.view_width
@@ -125,12 +134,15 @@ def thin_lens_rays(frame: LensFrame, resolution, pix, seed, sample):
 
 
 def generate_rays_for_pixels(params: CameraParams, resolution, pixel_ids,
-                             seed, sample, model: str = "thinlens") -> Rays:
+                             seed, sample, model: str = "thinlens",
+                             stream_h=None) -> Rays:
     """Emit one primary ray for each absolute pixel id in ``pixel_ids``.
 
     RNG is keyed on the absolute pixel id, so rays for a chunk of the pixel
     grid equal those of the full grid. ``sample`` is an int or a per-lane
-    tensor. Pixel ids >= W*H produce valid dummy rays.
+    tensor. Pixel ids >= W*H produce valid dummy rays. ``stream_h``: the
+    camera stream's hash in place of ``seed`` and ``sample``
+    (``thin_lens_rays``).
     """
     w, h = resolution
     n = pixel_ids.shape[0]
@@ -154,7 +166,7 @@ def generate_rays_for_pixels(params: CameraParams, resolution, pixel_ids,
         # second RNG hash and the disk sample.
         fi = (pix // h).to(torch.float32)
         fj = (pix % h).to(torch.float32)
-        b = rng.base(rng.stream(seed, sample, 0, rng.STREAM_CAMERA), pix)
+        b = rng.base(_camera_stream(seed, sample, stream_h), pix)
         u0, u1 = rng.uniform2(b, 0)
         du = ((fi + u0) / w - 0.5) * f.view_width
         dv = ((fj + u1) / h - 0.5) * f.view_height
@@ -164,7 +176,7 @@ def generate_rays_for_pixels(params: CameraParams, resolution, pixel_ids,
         )
         ro = params.position[None, :].expand(n, 3)
     elif model == "thinlens":
-        ro, rd = thin_lens_rays(f, resolution, pix, seed, sample)
+        ro, rd = thin_lens_rays(f, resolution, pix, seed, sample, stream_h)
     else:
         raise ValueError(f"unknown camera model: {model!r}")
 

@@ -18,10 +18,22 @@ primaries in ``lpt.camera.primary``; each bounce pass in
 the hit record), the escape term (``lpt.wavefront.escape``) and the BSDF
 (``lpt.bsdf.scatter``). With ``stats=True`` the three renders also return
 a stats dict: ``passes`` (the bounce passes of every sample, one hit query
-each) and the tables of ``utils.profiling.recording``.
+each), the tables of ``utils.profiling.recording`` and ``graph`` (the CUDA
+graphs the call captured and replayed: ``captures``, ``replays``).
+
+A sphere world on the card runs as CUDA graphs (``PassGraphs``): a
+sample's primaries and the bounce pass (``bounce_pass``), each captured
+once, at the first call of its shape, and replayed for every sample and
+pass of that call and later ones, in the spans above, with the same bits
+and the same kernel counts as the eager loop. Between the pass replays the
+host reads only the live check (``early_exit``); the segment count and K3's
+error word are read once a render call. The legacy world and the CPU run
+the eager loop (``_trace_eager``), which launches every op from the host.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -29,12 +41,21 @@ from ..bsdf.bsdf import SCATTERERS
 from ..camera.camera import CameraParams, generate_rays_for_pixels, pixel_grid
 from ..core import rng
 from ..core.pytree import tree_where
-from ..ops import kernel_counters
+from ..core.types import Rays
+from ..ops import count_replay, kernel_counters, uncounted
+from ..ops.packet_traverse import check_flags
 from ..scene import world as world_mod
-from ..utils.profiling import host_read, recording, span
+from ..utils.profiling import count_delta, host_read, recording, span, unrecorded
 
 ROOT_SPAN = "lpt.render.wavefront"
 PASS_SPAN = "lpt.wavefront.pass"
+# CUDA graphs captured and replayed in this process (``PassGraphs``), whose
+# deltas a render's stats report as ``graph``
+GRAPH_COUNTS = {"captures": 0, "replays": 0}
+# ``(key, PassGraphs)`` of the last render that took the graphs
+# (``pass_graphs``): a render of another key replaces it, and its graphs'
+# memory goes with it
+_GRAPHS = (None, None)
 
 
 def sky_background(rd):
@@ -46,22 +67,76 @@ def sky_background(rd):
 
 
 def _scene_fns(scene: str):
-    """(hit_fn(world, rays, backend), background_fn(world, rd)) per scene kind.
+    """(hit_fn(world, rays, backend, err=None), background_fn(world, rd)) per
+    scene kind.
 
     'spheres': the modern-stage sphere world with the gradient sky.
     'legacy' : textured mesh/sphere world (``scene.legacy_world``) with
-    equirect IBL escape; ``hit_backend`` does not apply to it.
+    equirect IBL escape; ``hit_backend`` and ``err`` do not apply to it (its
+    traversal reads its own error word, ``hit_legacy``).
     """
     if scene == "spheres":
-        return (lambda w, r, hb: world_mod.hit(w, r, backend=hb),
+        return (lambda w, r, hb, err=None: world_mod.hit(w, r, backend=hb, err=err),
                 lambda w, rd, mask=None: sky_background(rd))
     if scene == "legacy":
         from ..scene.legacy_world import environment_color, hit_legacy
 
-        return (lambda w, r, hb: hit_legacy(w, r),
+        return (lambda w, r, hb, err=None: hit_legacy(w, r),
                 lambda w, rd, mask=None: environment_color(
                     w.envs, w.env_id, rd, mask=mask, gradient_h=w.env_gradient_h))
     raise ValueError(f"unknown scene kind: {scene!r}")
+
+
+def bounce_pass(world_data, rays, radiance, segments, stream_h, pix, hit_fn,
+                background_fn, scatter, hit_backend: str, err=None):
+    """One bounce pass over the whole wavefront: the hit query, the segment
+    count, the escape term, the BSDF's RNG base and scatter, and the
+    survivor select. Returns the next ``(rays, radiance, segments)``.
+
+    ``stream_h``: the pass's BSDF stream hash, ``rng.stream(seed, sample,
+    bounce, rng.STREAM_BSDF)``, a Python int (the eager loop) or a 0-d
+    int64 tensor (``PassGraphs``); ``pix``: the lanes' int64 pixel ids;
+    ``hit_fn``, ``background_fn``: ``_scene_fns``'; ``err``: K3's error word
+    for the hit query (``world.hit``)."""
+    with span("lpt.wavefront.hit"):
+        hits = hit_fn(world_data, rays, hit_backend, err)
+    segments = segments + rays.alive.sum()
+
+    escaped = rays.alive & ~hits.hit
+    with span("lpt.wavefront.escape"):
+        radiance = radiance + torch.where(
+            escaped[:, None],
+            background_fn(world_data, rays.rd, escaped) * rays.throughput,
+            0.0,
+        )
+
+    base = rng.base(stream_h, pix)
+    with span("lpt.bsdf.scatter"):
+        scattered = scatter(rays, hits, base)
+    survived = rays.alive & hits.hit
+    return tree_where(survived, scattered, rays).with_alive(survived), radiance, segments
+
+
+def _trace_eager(world_data, cam, resolution, pix, seed, sample, limit, bsdf,
+                 camera_model, scene, hit_backend, early_exit):
+    """``trace_sample_pixels`` with a launch of every op from the host:
+    ``(radiance f32[N,3], segments int)``."""
+    with span("lpt.camera.primary"):
+        rays = generate_rays_for_pixels(cam, resolution, pix, seed, sample,
+                                        model=camera_model)
+    scatter = SCATTERERS[bsdf]
+    hit_fn, background_fn = _scene_fns(scene)
+    radiance = torch.zeros((rays.count, 3), dtype=torch.float32, device=pix.device)
+    segments = torch.zeros((), dtype=torch.int64, device=pix.device)
+    for b in range(limit):
+        if early_exit and not host_read(bool, rays.alive.any()):
+            break
+        with span(PASS_SPAN):
+            rays, radiance, segments = bounce_pass(
+                world_data, rays, radiance, segments,
+                rng.stream(seed, sample, b, rng.STREAM_BSDF), pix, hit_fn, background_fn,
+                scatter, hit_backend)
+    return radiance, host_read(int, segments)
 
 
 def trace_sample_pixels(world_data, cam: CameraParams, resolution, pixel_ids,
@@ -76,39 +151,18 @@ def trace_sample_pixels(world_data, cam: CameraParams, resolution, pixel_ids,
     (one host read per pass); ``False`` runs all ``limit`` passes and reads
     nothing back until the segment count at the end. The skipped passes are
     all-masked no-ops, so both give the same radiance, that of the JAX
-    package's fixed ``limit``-pass scan.
+    package's fixed ``limit``-pass scan. A sphere world on the card replays
+    ``PassGraphs``; the same bits.
     """
-    with span("lpt.camera.primary"):
-        rays = generate_rays_for_pixels(cam, resolution, pixel_ids, seed, sample,
-                                        model=camera_model)
-    n = rays.count
-    scatter = SCATTERERS[bsdf]
-    hit_fn, background_fn = _scene_fns(scene)
     pix = pixel_ids.to(torch.int64)
-    radiance = torch.zeros((n, 3), dtype=torch.float32, device=pix.device)
-    segments = torch.zeros((), dtype=torch.int64, device=pix.device)
-    for b in range(limit):
-        if early_exit and not host_read(bool, rays.alive.any()):
-            break
-        with span(PASS_SPAN):
-            with span("lpt.wavefront.hit"):
-                hits = hit_fn(world_data, rays, hit_backend)
-            segments = segments + rays.alive.sum()
-
-            escaped = rays.alive & ~hits.hit
-            with span("lpt.wavefront.escape"):
-                radiance = radiance + torch.where(
-                    escaped[:, None],
-                    background_fn(world_data, rays.rd, escaped) * rays.throughput,
-                    0.0,
-                )
-
-            base = rng.base(rng.stream(seed, sample, b, rng.STREAM_BSDF), pix)
-            with span("lpt.bsdf.scatter"):
-                scattered = scatter(rays, hits, base)
-            survived = rays.alive & hits.hit
-            rays = tree_where(survived, scattered, rays).with_alive(survived)
-    return radiance, host_read(int, segments)
+    graphs = pass_graphs(world_data, cam, resolution, pix.shape[0], bsdf, camera_model,
+                         scene, hit_backend)
+    if graphs is None:
+        return _trace_eager(world_data, cam, resolution, pix, seed, sample, limit, bsdf,
+                            camera_model, scene, hit_backend, early_exit)
+    graphs.load(cam, pix)
+    radiance = graphs.sample(seed, sample, limit, early_exit).clone()
+    return radiance, graphs.finish()
 
 
 def trace_sample(world_data, cam: CameraParams, resolution, seed, sample,
@@ -139,22 +193,32 @@ def render(world_data, cam: CameraParams, resolution, spp: int, limit: int = 32,
                           stats=stats)
 
 
-def _stats(table) -> dict:
-    """A render's stats from its table: the passes are its pass spans."""
-    return {"passes": table.spans.get(PASS_SPAN, [0])[0], **table.stats()}
+def _stats(table, graphs_before) -> dict:
+    """A render's stats from its table: the passes are its pass spans;
+    ``graph``, the CUDA graphs it captured and replayed (``GRAPH_COUNTS``
+    less ``graphs_before``)."""
+    return {"passes": table.spans.get(PASS_SPAN, [0])[0], **table.stats(),
+            "graph": {k: n - graphs_before[k] for k, n in GRAPH_COUNTS.items()}}
 
 
 def _accumulate(world_data, cam, acc, sample_start, resolution, spp_per_call, limit, seed,
                 bsdf, camera_model, scene, hit_backend, early_exit):
     """``acc`` plus the radiance of samples ``sample_start + k``, ``k <
-    spp_per_call``, added one sample at a time; returns ``(acc, segments)``."""
+    spp_per_call``, added one sample at a time; returns ``(acc, segments)``.
+    ``PassGraphs`` read their segments and K3's error word once, at the end."""
+    pix = pixel_grid(resolution, cam.device)
+    graphs = pass_graphs(world_data, cam, resolution, pix.shape[0], bsdf, camera_model,
+                         scene, hit_backend)
+    if graphs is not None:
+        graphs.load(cam, pix)
+        for k in range(spp_per_call):
+            acc = acc + graphs.sample(seed, sample_start + k, limit, early_exit)
+        return acc, graphs.finish()
     segs = 0
     for k in range(spp_per_call):
-        radiance, segments = trace_sample(
-            world_data, cam, resolution, seed, sample_start + k, limit,
-            bsdf=bsdf, camera_model=camera_model, scene=scene,
-            hit_backend=hit_backend, early_exit=early_exit,
-        )
+        radiance, segments = _trace_eager(
+            world_data, cam, resolution, pix, seed, sample_start + k, limit, bsdf,
+            camera_model, scene, hit_backend, early_exit)
         acc = acc + radiance
         segs += segments
     return acc, segs
@@ -169,11 +233,12 @@ def render_accumulate(world_data, cam: CameraParams, acc, sample_start: int,
     spp_per_call`` into ``acc f32[N,3]`` (radiance sums, one row per
     pixel). Returns ``(acc, segments int)``, and the stats dict with
     ``stats``: a new tensor, ``acc`` itself is not written."""
+    graphs_before = dict(GRAPH_COUNTS)
     with recording(stats, ROOT_SPAN, kernel_counters) as table:
         acc, segs = _accumulate(world_data, cam, acc, sample_start, resolution, spp_per_call,
                                 limit, seed, bsdf, camera_model, scene, hit_backend,
                                 early_exit)
-    return (acc, segs, _stats(table)) if stats else (acc, segs)
+    return (acc, segs, _stats(table, graphs_before)) if stats else (acc, segs)
 
 
 def render_chunked(world_data, cam: CameraParams, resolution, spp: int,
@@ -185,6 +250,7 @@ def render_chunked(world_data, cam: CameraParams, resolution, spp: int,
     RNG counters and order of adds, so the same image). Returns (image
     f32[W,H,3], segments int), and the stats dict with ``stats``."""
     w, h = resolution
+    graphs_before = dict(GRAPH_COUNTS)
     with recording(stats, ROOT_SPAN, kernel_counters) as table:
         acc = torch.zeros((w * h, 3), dtype=torch.float32, device=cam.device)
         segs = 0
@@ -194,4 +260,166 @@ def render_chunked(world_data, cam: CameraParams, resolution, spp: int,
                 bsdf, camera_model, scene, hit_backend, early_exit)
             segs += segments
         image = (acc / spp).reshape(w, h, 3)
-    return (image, segs, _stats(table)) if stats else (image, segs)
+    return (image, segs, _stats(table, graphs_before)) if stats else (image, segs)
+
+
+# ------------------------------------------------------------ CUDA graphs --
+
+def _tensor_fields(x):
+    """``(name, tensor)`` of each tensor field of the dataclass ``x``."""
+    return [(f.name, getattr(x, f.name)) for f in dataclasses.fields(x)
+            if isinstance(getattr(x, f.name), torch.Tensor)]
+
+
+def _signature(x, address: bool = True):
+    """What a captured graph depends on in ``x`` (a tensor, a dataclass or
+    tuple of them, or a plain value): each tensor's device, dtype, shape,
+    strides and, with ``address``, its address; every other value."""
+    if isinstance(x, torch.Tensor):
+        return (str(x.device), x.dtype, tuple(x.shape), x.stride(),
+                x.data_ptr() if address else None)
+    if dataclasses.is_dataclass(x):
+        return tuple(_signature(getattr(x, f.name), address) for f in dataclasses.fields(x))
+    if isinstance(x, (tuple, list)):
+        return tuple(_signature(v, address) for v in x)
+    return x
+
+
+def pass_graphs(world_data, cam: CameraParams, resolution, n: int, bsdf: str,
+                camera_model: str, scene: str, hit_backend: str):
+    """The ``PassGraphs`` of a render of ``n`` lanes, captured at the first
+    call of its key and kept until a call of another key, or None where
+    the render runs eagerly: off the card, and on the legacy world, whose
+    traversal reads its error word on every call. A sphere world takes the graphs under
+    every hit backend: none reads the device (K3 defers its error word).
+
+    The key is what the graphs were captured from: the world's tables
+    where they lie (``_signature``), the camera's layout (its values are
+    copied in), the resolution, the lane count, the BSDF, hit and camera
+    functions, and the hit backend."""
+    if scene != "spheres" or cam.device.type != "cuda" or n == 0:
+        return None
+    global _GRAPHS
+    scatter, hit = SCATTERERS[bsdf], world_mod.hit
+    key = (_signature(world_data), _signature(cam, address=False), tuple(resolution), n,
+           scatter, hit, camera_model, hit_backend)
+    if _GRAPHS[0] != key:
+        _GRAPHS = (None, None)      # the old graphs' memory goes before the capture
+        _GRAPHS = (key, PassGraphs(world_data, cam, resolution, n, scatter, camera_model,
+                                   hit_backend))
+    return _GRAPHS[1]
+
+
+class PassGraphs:
+    """A sphere-world render's primaries and bounce pass on the card, each
+    captured once as a CUDA graph (``torch.cuda.CUDAGraph``) and replayed
+    for every sample and pass of the calls that share its key
+    (``pass_graphs``).
+
+    The graphs run the eager loop's own functions,
+    ``generate_rays_for_pixels`` and ``bounce_pass``, over static device
+    buffers: the camera and the pixel ids (``load`` copies them in), the
+    stream hash (a 0-d int64, filled with the eager loop's
+    ``rng.stream(...)`` before each replay), the rays (each pass copies its
+    next rays back into them), the radiance, the segment count and K3's
+    error word. They read the world's tables where they lie, and hold the
+    world. Each replay runs in the span of what it replays and counts the
+    launches its capture made (``ops.count_replay``); the warm-up and the
+    captures count nothing (``ops.uncounted``)."""
+
+    def __init__(self, world_data, cam: CameraParams, resolution, n: int, scatter,
+                 camera_model: str, hit_backend: str):
+        dev = cam.device
+        self.device, self.world, self.resolution = dev, world_data, tuple(resolution)
+        self.scatter, self.camera_model, self.hit_backend = scatter, camera_model, hit_backend
+        self.hit_fn, self.background_fn = _scene_fns("spheres")
+        self.cam = dataclasses.replace(cam, **{k: t.clone() for k, t in _tensor_fields(cam)})
+        self.pix = torch.zeros((n,), dtype=torch.int64, device=dev)
+        self.stream_h = torch.zeros((), dtype=torch.int64, device=dev)
+        self.rays = Rays(*(torch.zeros((n, 3), dtype=torch.float32, device=dev)
+                           for _ in range(3)),
+                         alive=torch.zeros((n,), dtype=torch.bool, device=dev))
+        self.radiance = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        self.segments = torch.zeros((), dtype=torch.int64, device=dev)
+        self.err = torch.zeros((1,), dtype=torch.int32, device=dev)
+        self._capture()
+
+    def _store(self, rays: Rays):
+        for name, t in _tensor_fields(self.rays):
+            t.copy_(getattr(rays, name))
+
+    def _primaries(self):
+        self._store(generate_rays_for_pixels(self.cam, self.resolution, self.pix, None, None,
+                                             model=self.camera_model,
+                                             stream_h=self.stream_h))
+        self.radiance.zero_()
+
+    def _pass(self):
+        rays, radiance, segments = bounce_pass(
+            self.world, self.rays, self.radiance, self.segments, self.stream_h, self.pix,
+            self.hit_fn, self.background_fn, self.scatter, self.hit_backend, err=self.err)
+        self._store(rays)
+        self.radiance.copy_(radiance)
+        self.segments.copy_(segments)
+
+    @staticmethod
+    def _graph(body) -> torch.cuda.CUDAGraph:
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: another thread's CUDA calls (the viewer's HTTP
+        # threads) do not break this thread's capture
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            body()
+        return graph
+
+    def _capture(self):
+        """Run both bodies once (the kernels load before the capture), then
+        capture each, keeping the launches each capture made, which its
+        replays count."""
+        with torch.cuda.device(self.device), unrecorded(), uncounted():
+            self._primaries()
+            self._pass()
+            warm = kernel_counters()
+            self.primaries = self._graph(self._primaries)
+            primed = kernel_counters()
+            self.bounce = self._graph(self._pass)
+            self.primary_counts = count_delta(warm, primed)
+            self.pass_counts = count_delta(primed, kernel_counters())
+        GRAPH_COUNTS["captures"] += 2
+
+    def _replay(self, graph, counts):
+        graph.replay()
+        count_replay(counts)
+        GRAPH_COUNTS["replays"] += 1
+
+    def load(self, cam: CameraParams, pix):
+        """Start a render call: the camera's values and the int64 pixel ids
+        into the buffers, the segment count and the error word to 0."""
+        for name, t in _tensor_fields(self.cam):
+            t.copy_(getattr(cam, name))
+        self.pix.copy_(pix)
+        self.segments.zero_()
+        self.err.zero_()
+
+    def sample(self, seed, sample, limit: int, early_exit: bool):
+        """Sample ``sample``'s primaries and up to ``limit`` bounce passes,
+        with the eager loop's live check before each under ``early_exit``.
+        Returns the radiance buffer, which the next sample overwrites."""
+        with torch.cuda.device(self.device):
+            self.stream_h.fill_(rng.stream(seed, sample, 0, rng.STREAM_CAMERA))
+            with span("lpt.camera.primary"):
+                self._replay(self.primaries, self.primary_counts)
+            for b in range(limit):
+                if early_exit and not host_read(bool, self.rays.alive.any()):
+                    break
+                with span(PASS_SPAN):
+                    self.stream_h.fill_(rng.stream(seed, sample, b, rng.STREAM_BSDF))
+                    self._replay(self.bounce, self.pass_counts)
+        return self.radiance
+
+    def finish(self) -> int:
+        """The segments traced since ``load``, in one read with K3's error
+        word; raises the error its launches would have (``check_flags``)."""
+        segments, flags = host_read(torch.Tensor.tolist, torch.cat(
+            [self.segments.view(1), self.err.to(torch.int64)]))
+        check_flags(flags)
+        return segments

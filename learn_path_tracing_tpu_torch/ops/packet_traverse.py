@@ -567,7 +567,7 @@ def kernel_of(leaf_kind: str = "tri", version: int = 2, seeded: bool = False,
 
 def traverse(nodes, entries, runs, ro, rd, t_init, active, eps: float = 1e-4,
              leaf_kind: str = "tri", stack: int | None = None, version: int = 2,
-             seeds=None, active_lanes: int | None = None):
+             seeds=None, active_lanes: int | None = None, err=None):
     """Nearest hit of ``N`` rays → ``(t f32[N], prim i32[N], iters i32[N])``:
     ``t`` is ``t_init`` and ``prim`` -1 where nothing beats ``t_init``;
     ``iters`` counts stack pops (each ray's in the twin and K2/K3, its
@@ -585,10 +585,24 @@ def traverse(nodes, entries, runs, ro, rd, t_init, active, eps: float = 1e-4,
     it without reading the device (None where it does not); a K3 launch
     adds it to ``ACTIVE_LANES['k3']``, which never reads the device.
 
+    ``err``: the caller's error word (``i32[1]`` on the rays' device). A
+    launch ORs its flags into it and reads nothing back; the caller reads it
+    when it will (``check_flags`` raises this call's errors). So the caller
+    consumes a flagged launch's outputs before the check: a walk that
+    faults stops and returns the nearest hit it had found (a prim of the
+    tables or -1; on corrupt tables, any value), and the work after it runs
+    on that until the read raises. Without ``err`` a launch reads its own
+    word and raises at once. The plain twin raises at once either way and
+    leaves ``err`` as it was.
+
     CUDA tensors launch the kernel, CPU tensors run the plain twin."""
     if nodes.dtype == torch.bfloat16 and version != 2:
         nodes = nodes.to(torch.float32)
     _check(nodes, entries, runs, ro, rd, t_init, active, leaf_kind, version, seeds)
+    if err is not None and (err.dtype != torch.int32 or tuple(err.shape) != (1,)
+                            or err.device != ro.device):
+        raise ValueError(f"packet traversal: err must be torch.int32[1] on {ro.device}, "
+                         f"got {err.dtype}{list(err.shape)} on {err.device}")
     if stack is None:
         stack = stack_cap(entries.cpu().numpy())
     if ro.device.type == "cpu":
@@ -598,7 +612,7 @@ def traverse(nodes, entries, runs, ro, rd, t_init, active, eps: float = 1e-4,
     if ro.device.type != "cuda":
         raise ValueError(f"packet traversal: no kernel for device {ro.device}")
     return _launch(nodes, entries, runs, ro, rd, t_init, active, eps, leaf_kind, stack,
-                   version, seeds, active_lanes)
+                   version, seeds, active_lanes, err)
 
 
 traverse.launches = {kernel: 0 for kernel in (*KERNELS.values(), *MODES.values())}
@@ -759,8 +773,20 @@ def sorted_rays(nodes, entries, ro, rd, active, eps: float = 1e-4, treelets=None
 
 # ------------------------------------------------------------------ kernel --
 
+# the kernels' error flags (csrc kErrStack, kErrIters), as ``check_flags`` names them
+_FLAGS = {1: "stack overflow", 2: "iteration backstop reached",
+          3: "stack overflow and iteration backstop reached"}
+
+
+def check_flags(flags: int):
+    """Raise the ``RuntimeError`` of an error word that holds ``flags``
+    (nothing for 0)."""
+    if flags:
+        raise RuntimeError(f"packet traversal kernel: {_FLAGS[flags]} (corrupt tables?)")
+
+
 def _launch(nodes, entries, runs, ro, rd, t_init, active, eps, leaf_kind, stack, version,
-            seeds=None, active_lanes=None):
+            seeds=None, active_lanes=None, err=None):
     bf16 = nodes.dtype == torch.bfloat16
     kernel = kernel_of(leaf_kind, version, seeds is not None, bf16)
     if version == 2 and stack > MAX_STACK:
@@ -781,7 +807,7 @@ def _launch(nodes, entries, runs, ro, rd, t_init, active, eps, leaf_kind, stack,
     iters = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return t, prim, iters
-    err = torch.zeros((1,), dtype=torch.int32, device=dev)
+    word = torch.zeros((1,), dtype=torch.int32, device=dev) if err is None else err
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.lpt_packet_traverse(
@@ -789,18 +815,15 @@ def _launch(nodes, entries, runs, ro, rd, t_init, active, eps, leaf_kind, stack,
             rd.data_ptr(), t_init.data_ptr(), active.data_ptr(),
             None if seeds is None else seeds.words.data_ptr(),
             None if seeds is None else seeds.codes.data_ptr(), t.data_ptr(),
-            prim.data_ptr(), iters.data_ptr(), err.data_ptr(), n, stack,
+            prim.data_ptr(), iters.data_ptr(), word.data_ptr(), n, stack,
             16 * m + 64, float(eps), LEAF_KINDS.index(leaf_kind), version, int(bf16),
             stream)
     if code != 0:
         msg = lib.lpt_error_string(code).decode()
         raise RuntimeError(f"packet traversal kernel launch failed: {msg} ({code})")
     count_launch(kernel, n, active_lanes)
-    flags = host_read(int, err)
-    if flags:
-        what = {1: "stack overflow", 2: "iteration backstop reached",
-                3: "stack overflow and iteration backstop reached"}[flags]
-        raise RuntimeError(f"packet traversal kernel: {what} (corrupt tables?)")
+    if err is None:
+        check_flags(host_read(int, word))
     return t, prim, iters
 
 

@@ -149,7 +149,7 @@ class World:
 
 
 def hit(world: SphereWorldData, rays: Rays, t_min: float = 1e-4,
-        backend: str = "auto") -> Hits:
+        backend: str = "auto", err=None) -> Hits:
     """Nearest-hit of a ray wavefront against the sphere table.
 
     ``backend``:
@@ -171,6 +171,9 @@ def hit(world: SphereWorldData, rays: Rays, t_min: float = 1e-4,
         and exact arithmetic misses (about one path in 10**7 of stage l11's
         frames). Every lane is walked as active, dead rays too, and counted
         so in K3's active lanes.
+
+    ``err``: K3's error word, which the caller reads (``traverse``'s
+    ``err``); the other backends launch no K3 and leave it as it was.
     """
     if backend in ("auto", "cuda"):
         if backend == "cuda" and rays.ro.device.type != "cuda":
@@ -191,7 +194,7 @@ def hit(world: SphereWorldData, rays: Rays, t_min: float = 1e-4,
                                         device=rays.ro.device),
                              torch.ones((n,), dtype=torch.bool, device=rays.ro.device),
                              eps=t_min, leaf_kind="sphere", stack=world.bvh_stack,
-                             active_lanes=n)
+                             active_lanes=n, err=err)
         idx = torch.clamp_min(idx, 0)
         attr = world.scan_attrs[idx.to(torch.int64)]
     else:

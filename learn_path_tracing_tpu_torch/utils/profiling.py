@@ -97,6 +97,13 @@ def trace(logdir: str = "outputs/lpt_trace"):
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
+def count_delta(before: dict, after: dict) -> dict:
+    """The counts between two snapshots of the kernels' counters (``{kernel:
+    {counter: total}}``), for each kernel whose launches changed."""
+    return {k: {c: v - before[k][c] for c, v in counts.items()}
+            for k, counts in after.items() if counts["launches"] != before[k]["launches"]}
+
+
 class SpanTable:
     """One render call's spans, host reads and kernel counts (``recording``
     opens it and closes it). Its clock runs from one span boundary to the
@@ -121,10 +128,7 @@ class SpanTable:
         return timer
 
     def close(self):
-        before, after = self.kernels, self.counters()
-        self.kernels = {k: {c: v - before[k][c] for c, v in counts.items()}
-                        for k, counts in after.items()
-                        if counts["launches"] != before[k]["launches"]}
+        self.kernels = count_delta(self.kernels, self.counters())
 
     def stats(self) -> dict:
         """The keys a render adds to its stats: ``spans``, ``host_reads``,
@@ -246,6 +250,18 @@ def recording(stats: bool, root: str, counters):
     finally:
         _TABLE.reset(token)
         table.close()
+
+
+@contextlib.contextmanager
+def unrecorded():
+    """A block whose spans and host reads count in no render's table (the
+    profiler still sees its spans): work done once for later calls, such as
+    capturing a CUDA graph."""
+    token = _TABLE.set(None)
+    try:
+        yield
+    finally:
+        _TABLE.reset(token)
 
 
 class RayStats:

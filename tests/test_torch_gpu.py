@@ -51,12 +51,14 @@ from learn_path_tracing_tpu_torch.models.standin import (STANDIN_SEED, build_qui
                                                           standin_camera, standin_mesh,
                                                           standin_world)
 from learn_path_tracing_tpu_torch.ops import bounce_megakernel as tmk
+from learn_path_tracing_tpu_torch.ops import kernel_counters
 from learn_path_tracing_tpu_torch.ops import legacy_scatter as tls
 from learn_path_tracing_tpu_torch.ops import packet_traverse as tpt
 from learn_path_tracing_tpu_torch.ops import row_gather as trg
 from learn_path_tracing_tpu_torch.ops import sphere_scan as tss
 from learn_path_tracing_tpu_torch.scene.legacy_world import LegacyWorld
 from learn_path_tracing_tpu_torch.utils.checks import render_agreement
+from learn_path_tracing_tpu_torch.utils.profiling import recording
 
 pytestmark = pytest.mark.gpu
 
@@ -481,6 +483,19 @@ def _hybrid_camera(res):
     return cam
 
 
+def test_legacy_world_wavefront_takes_no_graph(cuda):
+    """The wavefront integrator on a legacy (mesh) world keeps its eager
+    loop on the card: its traversal reads K2's error word on every call,
+    so no CUDA graph is captured or replayed."""
+    from learn_path_tracing_tpu_torch.integrator.wavefront import render
+
+    res = (48, 27)
+    _, segs, st = render(_hybrid_world().device(cuda), _hybrid_camera(res).params(cuda), res,
+                         4, limit=8, bsdf="legacy", scene="legacy", stats=True)
+    assert st["graph"] == {"captures": 0, "replays": 0}
+    assert st["passes"] > 0 and segs > 0 and st["kernels"]["k2"]["launches"] > 0
+
+
 def test_gpu_hybrid_is_deterministic_and_matches_cpu(cuda):
     world = _hybrid_world()
     res = (48, 27)
@@ -657,35 +672,42 @@ def hit_calls(monkeypatch):
     return calls
 
 
-def test_l11_bvh_equals_auto_bitwise(cuda, hit_calls, tmp_path):
+def _passes(fn):
+    """``(fn(), passes, k1, k3)``: the wavefront bounce passes ``fn()`` ran,
+    eager or replayed from a CUDA graph (its ``lpt.wavefront.pass`` spans),
+    and its K1 and K3 launches (``kernel_counters``, which count a replay's)."""
+    from learn_path_tracing_tpu_torch.integrator import wavefront as twf
+
+    with recording(True, "test", kernel_counters) as table:
+        out = fn()
+    k1, k3 = (table.kernels.get(k, {"launches": 0})["launches"] for k in ("k1", "k3"))
+    return out, table.spans.get(twf.PASS_SPAN, [0])[0], k1, k3
+
+
+def test_l11_bvh_equals_auto_bitwise(cuda, tmp_path):
     from learn_path_tracing_tpu_torch.stages import l11_bvh
 
     args = ["--width", "64", "--height", "36", "--spp", "4", "--limit", "8"]
     reps = {}
     for backend in ("auto", "bvh"):
-        hit_calls[0] = 0
-        tss.intersect_spheres_scan.launches = 0
-        tpt.traverse.launches.update(dict.fromkeys(tpt.traverse.launches, 0))
-        _, reps[backend] = l11_bvh.main(args + ["--hit-backend", backend,
-                                                "--out", str(tmp_path / f"{backend}.png")])
-        k1, k3 = tss.intersect_spheres_scan.launches, tpt.traverse.launches["k3"]
-        assert (k1, k3) == ((hit_calls[0], 0) if backend == "auto" else (0, hit_calls[0]))
+        (_, reps[backend]), passes, k1, k3 = _passes(lambda: l11_bvh.main(
+            args + ["--hit-backend", backend, "--out", str(tmp_path / f"{backend}.png")]))
+        assert passes > 0 and (k1, k3) == ((passes, 0) if backend == "auto" else (0, passes))
     assert reps["auto"]["segments"] == reps["bvh"]["segments"]
     assert torch.equal(reps["auto"]["linear"].view(torch.int32),
                        reps["bvh"]["linear"].view(torch.int32))
 
 
-def test_l12_walks_the_sphere_bvh_only(cuda, hit_calls, tmp_path, monkeypatch):
+def test_l12_walks_the_sphere_bvh_only(cuda, tmp_path, monkeypatch):
     from learn_path_tracing_tpu_torch.stages import l12_free_view
 
     monkeypatch.chdir(tmp_path)
-    tss.intersect_spheres_scan.launches = 0
-    tpt.traverse.launches.update(dict.fromkeys(tpt.traverse.launches, 0))
-    frame, rep = l12_free_view.main(["--width", "64", "--height", "36", "--spp", "4",
-                                     "--limit", "8", "--script", "w,.,."])
+    (frame, rep), passes, k1, k3 = _passes(lambda: l12_free_view.main(
+        ["--width", "64", "--height", "36", "--spp", "4", "--limit", "8",
+         "--script", "w,.,."]))
     assert rep["spp"] == [4, 8, 12]
-    assert tss.intersect_spheres_scan.launches == 0
-    assert tpt.traverse.launches["k3"] == hit_calls[0] > 0
+    assert k1 == 0
+    assert k3 == passes > 0
     assert torch.isfinite(frame).all()
 
 
@@ -801,9 +823,9 @@ def test_lockstep_walk_on_the_card_matches_cpu(cuda, walk):
 # ------------------------------------ whole paths: launches and frames --
 
 def _launches():
-    """Every kernel's launch count, by kernel."""
-    return {"k1": tss.intersect_spheres_scan.launches, **tpt.traverse.launches,
-            "k4": tmk.bounce_pass.launches, **trg.gather.launches, "k7": tls.scatter.launches}
+    """Every kernel's launch count, by kernel, a CUDA graph's replays
+    included (``kernel_counters``)."""
+    return {k: c["launches"] for k, c in kernel_counters().items()}
 
 
 def _counted(fn):

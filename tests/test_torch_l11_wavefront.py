@@ -4,10 +4,14 @@ the render's stats (passes, host reads, K3's counts) and spans.
 
 The CPU cases render the stage's world (485 spheres, its SAH sphere BVH) at
 32x18, 4 spp, depth 10 from orbit frame 0's camera, where ``hit_backend=
-'bvh'`` runs K3's plain twin. The card case (marker ``gpu``) counts the
+'bvh'`` runs K3's plain twin, and the eager loop runs (no CUDA graph). The
+card cases (marker ``gpu``) hold the CUDA-graph frame to the eager loop's
+bit for bit, with its kernel counts, K3's deferred error word, and count the
 render's synchronising CUDA operations and K3's launches. This file imports
 neither JAX nor the JAX package.
 """
+
+import dataclasses
 
 import functools
 import json
@@ -18,6 +22,7 @@ import torch
 
 from benchmark.harness import compare, registry
 from benchmark.reference import integrate
+from learn_path_tracing_tpu_torch import ops
 from learn_path_tracing_tpu_torch.integrator import wavefront as wf
 from learn_path_tracing_tpu_torch.ops import packet_traverse as tpt
 from learn_path_tracing_tpu_torch.scene import world as world_mod
@@ -99,6 +104,81 @@ def test_stats_leave_the_frame_as_it_was(world, cam, frame, entry):
     assert torch.equal(_bits(without[0]), _bits(frame[0]))
 
 
+@pytest.mark.parametrize("entry", ["render", "render_chunked", "render_accumulate"])
+def test_the_cpu_takes_no_graph(world, cam, frame, entry):
+    """Off the card the eager loop runs: no CUDA graph is captured or
+    replayed, and the frame is the one it was."""
+    img, segments, st = _render(world, cam, entry, stats=True)
+    assert st["graph"] == {"captures": 0, "replays": 0}
+    assert wf.pass_graphs(world, cam, RES, RES[0] * RES[1], "legacy", "thinlens", "spheres",
+                          "bvh") is None
+    assert segments == frame[1] and torch.equal(_bits(img), _bits(frame[0]))
+
+
+def test_the_plain_twin_takes_the_callers_error_word(world):
+    """``traverse`` with the caller's error word (what the CUDA graphs pass
+    K3) returns what it returns without it, and leaves the word 0 on sound
+    tables."""
+    rays = wf.generate_rays_for_pixels(orbit_camera(RES, 0).params("cpu"), RES,
+                                       torch.arange(RES[0] * RES[1]), SEED, 0)
+    n = rays.count
+    args = (*world.bvh, rays.ro, rays.rd, torch.full((n,), float("inf")),
+            torch.ones((n,), dtype=torch.bool))
+    kw = dict(eps=1e-4, leaf_kind="sphere", stack=world.bvh_stack)
+    err = torch.zeros((1,), dtype=torch.int32)
+    with_word = tpt.traverse(*args, err=err, **kw)
+    without = tpt.traverse(*args, **kw)
+    assert int(err[0]) == 0 and int((with_word[1] >= 0).sum()) > 0
+    for a, b in zip(with_word, without):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="err must be torch.int32"):
+        tpt.traverse(*args, err=torch.zeros((2,), dtype=torch.int32), **kw)
+
+
+def test_check_flags_names_each_error():
+    tpt.check_flags(0)
+    for flags, what in ((1, "stack overflow"), (2, "iteration backstop reached"),
+                        (3, "stack overflow and iteration backstop reached")):
+        with pytest.raises(RuntimeError, match=f"packet traversal kernel: {what} "):
+            tpt.check_flags(flags)
+
+
+def test_a_graphs_counts_add_and_undo(monkeypatch):
+    """``ops.count_replay`` adds a capture's ``count_delta`` to each kind of
+    counter (a replay's launches), and ``ops.uncounted`` leaves the
+    counters as they were before its block (a warm-up's and a capture's)."""
+    monkeypatch.setattr(ops, "_GRAPHED", {})
+    for counter in (tpt.traverse.launches, tpt.traverse.lanes, tpt.ACTIVE_LANES):
+        monkeypatch.setitem(counter, "k3", counter["k3"])
+    for k in ("k6a", "k6b"):
+        for counter in (ops.row_gather.gather.launches, ops.row_gather.gather.bytes):
+            monkeypatch.setitem(counter, k, counter[k])
+    for obj, name in ((ops.sphere_scan.intersect_spheres_scan, "launches"),
+                      (ops.bounce_megakernel.bounce_pass, "launches"),
+                      (ops.legacy_scatter.scatter, "launches"),
+                      (ops.legacy_scatter.scatter, "lanes")):
+        monkeypatch.setattr(obj, name, getattr(obj, name))
+    before = ops.kernel_counters()
+    delta = {"k1": {"launches": 2}, "k4": {"launches": 1},
+             "k7": {"launches": 3, "lanes": 30},
+             "k3": {"launches": 1, "lanes": 10, "active_lanes": 7},
+             "k2": {"launches": 4, "lanes": 40}, "k6b": {"launches": 5, "bytes": 50}}
+    ops.count_replay(delta)
+    ops.count_replay(delta)
+    assert profiling.count_delta(before, ops.kernel_counters()) == {
+        k: {c: 2 * n for c, n in counts.items()} for k, counts in delta.items()}
+    replayed = ops.kernel_counters()
+    with ops.uncounted():
+        tpt.traverse.launches["k3"] += 1
+        tpt.traverse.lanes["k3"] += 10
+        tpt.ACTIVE_LANES["k3"] += 7
+        ops.legacy_scatter.scatter.launches += 1
+        ops.legacy_scatter.scatter.lanes += 10
+        assert profiling.count_delta(replayed, ops.kernel_counters()) == {
+            "k3": delta["k3"], "k7": {"launches": 1, "lanes": 10}}
+    assert ops.kernel_counters() == replayed
+
+
 @pytest.fixture
 def counted(monkeypatch):
     """Count the world's hit queries and the integrator's host reads, and
@@ -177,11 +257,71 @@ def cuda():
     return "cuda"
 
 
+@pytest.fixture
+def card_world(cuda):
+    return legacy_random_scene().device(cuda, use_bvh=True)
+
+
+def _eager(monkeypatch):
+    """Render through the eager loop (``bounce_pass`` a pass, every op
+    launched from the host) for the rest of the test."""
+    monkeypatch.setattr(wf, "pass_graphs", lambda *args: None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hit_backend", ["bvh", "auto"])
+@pytest.mark.parametrize("early_exit", [True, False])
+@pytest.mark.parametrize("seed", [SEED, 2 ** 31 + 7])
+def test_the_graph_frame_is_the_eager_frame_on_the_card(card_world, cuda, monkeypatch,
+                                                        hit_backend, early_exit, seed):
+    """The CUDA graphs' frame, at the call that captures them and at the
+    one that replays them, is the eager loop's bit for bit, with the same
+    passes and kernel counts (K3 or K1, and K7), and a replay for each pass
+    and each sample's primaries."""
+    monkeypatch.setattr(wf, "_GRAPHS", (None, None))
+    cp = orbit_camera(RES, 0).params(cuda)
+    kw = dict(limit=LIMIT, seed=seed, bsdf="legacy", hit_backend=hit_backend,
+              early_exit=early_exit, stats=True)
+    graphed = [wf.render(card_world, cp, RES, SPP, **kw) for _ in range(2)]
+    with monkeypatch.context() as m:
+        _eager(m)
+        img, segments, st = wf.render(card_world, cp, RES, SPP, **kw)
+    assert st["graph"] == {"captures": 0, "replays": 0}
+    walk = "k3" if hit_backend == "bvh" else "k1"
+    assert set(st["kernels"]) == {walk, "k7"} and st["kernels"]["k7"]["launches"] == st["passes"]
+    for call, (g_img, g_segments, g_st) in enumerate(graphed):
+        assert g_segments == segments and g_st["passes"] == st["passes"]
+        assert g_st["kernels"] == st["kernels"]
+        assert g_st["graph"] == {"captures": 2 if call == 0 else 0,
+                                 "replays": SPP + st["passes"]}
+        assert torch.equal(g_img.view(torch.int32), img.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_a_k3_fault_raises_once_a_frame_on_the_card(card_world, cuda, monkeypatch):
+    """A stack cap too small for the tables: the graphs' render raises the
+    eager loop's ``RuntimeError`` from its one read of K3's error word at
+    the end of the frame; the same world renders again after it."""
+    bad = dataclasses.replace(card_world, bvh_stack=2)
+    cp = orbit_camera(RES, 0).params(cuda)
+    kw = dict(limit=LIMIT, seed=SEED, bsdf="legacy", hit_backend="bvh")
+    with pytest.raises(RuntimeError, match="packet traversal kernel: stack overflow") as graphed:
+        wf.render(bad, cp, RES, SPP, **kw)
+    with monkeypatch.context() as m:
+        _eager(m)
+        with pytest.raises(RuntimeError) as eager:
+            wf.render(bad, cp, RES, SPP, **kw)
+    assert str(graphed.value) == str(eager.value)
+    img, _ = wf.render(card_world, cp, RES, SPP, **kw)
+    assert bool(torch.isfinite(img).all())
+
+
 @pytest.mark.gpu
 def test_host_reads_are_the_syncs_and_k3_counts_its_lanes_on_the_card(cuda):
-    """One frame of the cell's call at a test's size on the card: every
-    synchronising CUDA operation is a ``host_read``, a K3 error word read
-    for each pass among them, and K3 launches once a pass over every lane,
+    """One frame of the cell's call at a test's size on the card, its CUDA
+    graphs replayed: every synchronising CUDA operation is a ``host_read``,
+    the live check before each pass among them and one read a frame of the
+    segments and K3's error word; K3 launches once a pass over every lane,
     all of them active, as does K7 (the legacy BSDF)."""
     wd = legacy_random_scene().device(cuda, use_bvh=True)
     render = functools.partial(wf.render, wd, orbit_camera(RES, 0).params(cuda), RES, SPP,
@@ -198,7 +338,8 @@ def test_host_reads_are_the_syncs_and_k3_counts_its_lanes_on_the_card(cuda):
         torch.cuda.set_sync_debug_mode("default")
     syncs = [w for w in caught if "synchronizing" in str(w.message)]
     assert st["host_reads"] == len(syncs)
-    assert 2 * st["passes"] + SPP <= st["host_reads"] <= 2 * st["passes"] + 2 * SPP
+    assert st["graph"] == {"captures": 0, "replays": SPP + st["passes"]}
+    assert st["passes"] + 1 <= st["host_reads"] <= st["passes"] + SPP + 1
     lanes = st["passes"] * RES[0] * RES[1]
     assert st["kernels"] == {"k3": {"launches": st["passes"], "lanes": lanes,
                                     "active_lanes": lanes},

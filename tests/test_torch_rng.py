@@ -81,3 +81,30 @@ def test_uniform2_uniform3_exact():
     for jf, tf in ((jrng.uniform2, trng.uniform2), (jrng.uniform3, trng.uniform3)):
         for w, g in zip(jf(jb, 3), tf(tb, 3)):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("stream_id", [trng.STREAM_CAMERA, trng.STREAM_BSDF])
+@pytest.mark.parametrize("seed,sample,bounce",
+                         [(0, 0, 0), (2 ** 32 - 1, 127, 9), (20261018, 3, 1),
+                          (2 ** 31 + 11, 2 ** 32 - 1, 31)])
+def test_base_of_a_tensor_stream_is_the_int_streams(seed, sample, bounce, stream_id):
+    """A CUDA graph reads its stream hash from a 0-d int64 tensor: ``base``
+    of that tensor is ``base`` of the host's int, bit for bit, on pixel ids
+    with the high bit set too; and the camera's rays from the camera
+    stream's tensor are those of ``(seed, sample)``."""
+    from learn_path_tracing_tpu_torch.camera.camera import Camera, generate_rays_for_pixels
+
+    h = trng.stream(seed, sample, bounce, stream_id)
+    assert isinstance(h, int) and 0 <= h < 2 ** 32
+    pix = torch.as_tensor(_counters(5).astype(np.int64))
+    want = trng.base(h, pix)
+    got = trng.base(torch.tensor(h, dtype=torch.int64), pix)
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    if stream_id == trng.STREAM_CAMERA and bounce == 0:
+        res = (64, 64)
+        cam = Camera(res, fov=40, focal_length=10.0, aperture=0.2).params("cpu")
+        for model in ("jitter", "thinlens"):
+            a = generate_rays_for_pixels(cam, res, pix % 4096, seed, sample, model=model)
+            b = generate_rays_for_pixels(cam, res, pix % 4096, None, None, model=model,
+                                         stream_h=torch.tensor(h, dtype=torch.int64))
+            assert torch.equal(a.ro, b.ro) and torch.equal(a.rd, b.rd), model
