@@ -1295,9 +1295,11 @@ def all_launches() -> dict:
 def counted_frame(fn):
     """``fn()``, synchronised; returns ``(result, seconds, launches during
     it, sphere hit queries, shading calls)``. The hit queries are the
-    persistent engine's ``lpt.persistent.hit`` spans and the wavefront's
-    ``lpt.wavefront.pass`` spans (one query a pass, eager or replayed from
-    a CUDA graph, whose ``lpt.wavefront.hit`` opens only at its capture)."""
+    passes: the persistent engine's ``lpt.persistent.pass`` spans and the
+    wavefront's ``lpt.wavefront.pass`` spans (one query a pass, eager or
+    replayed from a CUDA graph, whose inner spans, the hit query's among
+    them, open only at its capture). The launches are ``kernel_counters``',
+    which count a replay's."""
     torch.cuda.synchronize()
     before = all_launches()
     t0 = time.perf_counter()
@@ -1308,7 +1310,7 @@ def counted_frame(fn):
     seconds = time.perf_counter() - t0
     launches = {k: n - before[k] for k, n in all_launches().items()}
     hits = sum(table.spans.get(name, [0])[0]
-               for name in ("lpt.persistent.hit", "lpt.wavefront.pass"))
+               for name in ("lpt.persistent.pass", "lpt.wavefront.pass"))
     return out, seconds, launches, hits, shading
 
 

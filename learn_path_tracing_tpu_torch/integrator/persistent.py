@@ -41,6 +41,11 @@ share one read. The JAX package's pool and drain knobs (``pool_mult``,
 ``pool_div``, ``drain_ratio``, ``drain_floor``, ``drain_unroll``) set the
 schedule as there; none changes the image.
 
+A sphere world's modular render on the card runs as CUDA graphs
+(``ModularGraphs``): the start and one bounce pass at each pool width, each
+captured once and replayed, with the same schedule, reads and bits as the
+eager loop (``_EagerLanes``), which the CPU and the legacy world run.
+
 The mega engine (``engine='mega'``) keeps the JAX package's schedule for
 it: the grouped schedule with a pool of ``n`` lanes, no halving and no
 drain. On a card each pass is one fused kernel launch
@@ -54,6 +59,8 @@ kernel's state layout, so the two engines share one step.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 from dataclasses import dataclass
 
@@ -66,9 +73,11 @@ from ..core.pytree import tree_where
 from ..core.types import Rays
 from ..ops import bounce_megakernel as mk
 from ..ops import kernel_counters
+from ..ops.packet_traverse import check_flags
 from ..ops.sphere_scan import intersect_spheres_scan_plain
 from ..scene import world as world_mod
 from ..utils.profiling import host_read, recording, span
+from . import graphs
 from .wavefront import _scene_fns
 
 # Smallest pool of the JAX rule, as in the JAX package: the TPU's knee, the
@@ -95,6 +104,7 @@ DRAIN_RATIO = 8
 DRAIN_FLOOR = 256
 
 _FIXED_ONE = mk.FIXED_ONE  # fixed-point accumulator units per unit radiance
+PASS_SPAN = "lpt.persistent.pass"
 
 
 @dataclass(frozen=True)
@@ -376,16 +386,48 @@ def _persistent_core(world_data, cam: CameraParams, resolution, n: int,
     and the camera and the RNG key on absolute ids, so a range's samples are
     those of the whole render: ``parallel.mesh`` runs one range a rank.
     Returns ``(acc int64[n, 3] fixed-point radiance sums, segments int,
-    stats dict)``; the stats hold the schedule, its rule and the passes.
-    Each pass is a ``lpt.persistent.pass`` span, its live-count read a
-    ``host_read``."""
+    stats dict)``; the stats hold the schedule, its rule, the passes and
+    ``graph`` (the CUDA graphs the call captured and replayed).
+
+    A sphere world on the card replays ``ModularGraphs`` (``modular_graphs``);
+    elsewhere the eager loop runs (``_EagerLanes``). Both run ``_cascade``'s
+    schedule, each pass a ``lpt.persistent.pass`` span and its live-count
+    read a ``host_read``, with the same bits."""
     dev = cam.device
     rule, sched = rule_schedule(dev, n, spp, pool_mult, pool_div, drain_ratio, drain_floor,
                                 scene)
-    unroll = max(drain_unroll, 1)
+    graphs_before = dict(graphs.GRAPH_COUNTS)
+    lanes = modular_graphs(world_data, cam, resolution, n, spp, limit, sched, bsdf,
+                           camera_model, scene, hit_backend)
+    if lanes is None:
+        lanes = _EagerLanes(world_data, sched, spp, item_fn(sched, n, spp, dev),
+                            _pass_fns(cam, resolution, seed, pixel_base, sample_base, limit,
+                                      bsdf, camera_model, scene, hit_backend),
+                            torch.zeros((n, 3), dtype=torch.int64, device=dev))
+    else:
+        lanes.load(cam, seed, pixel_base, sample_base)
+    segments, passes_full, drain_passes = _cascade(lanes, sched.drain_widths,
+                                                   max(drain_unroll, 1))
+    return lanes.finish(), segments, {
+        "pool": sched.pool,
+        "pool_rule": rule,
+        "passes_full": passes_full,
+        "drain_widths": sched.drain_widths,
+        "drain_passes": drain_passes,
+        "graph": graphs.graph_stats(graphs_before),
+    }
+
+
+def _pass_fns(cam: CameraParams, resolution, seed, pixel_base, sample_base, limit: int,
+              bsdf: str, camera_model: str, scene: str, hit_backend: str, err=None) -> dict:
+    """``step``'s keywords for a modular render: the scene's hit query, its
+    background, the BSDF and the camera's primaries, each in its span, and
+    the values they key on. ``seed``, ``pixel_base`` and ``sample_base`` are
+    Python ints (the eager loop) or 0-d int64 tensors (``ModularGraphs``),
+    which the camera and ``rng.stream`` hash to the same bits; ``err``: K3's
+    error word for the hit query (``world.hit``)."""
     hit_fn, background_fn = _scene_fns(scene)
-    item_of = item_fn(sched, n, spp, dev)
-    lanes = torch.arange(sched.pool, dtype=torch.int64, device=dev)
+    scatter_fn = SCATTERERS[bsdf]
 
     def primary(pixel, sample):
         with span("lpt.camera.primary"):
@@ -394,84 +436,289 @@ def _persistent_core(world_data, cam: CameraParams, resolution, n: int,
 
     def hit(wd, rays):
         with span("lpt.persistent.hit"):
-            return hit_fn(wd, rays, hit_backend)
-
-    scatter_fn = SCATTERERS[bsdf]
+            return hit_fn(wd, rays, hit_backend, err)
 
     def scatter(rays, hits, base):
         with span("lpt.bsdf.scatter"):
             return scatter_fn(rays, hits, base)
 
-    fns = dict(hit=hit, background=background_fn, scatter=scatter,
-               primary=primary, seed=seed, limit=limit, pixel_base=pixel_base,
-               sample_base=sample_base)
+    return dict(hit=hit, background=background_fn, scatter=scatter, primary=primary,
+                seed=seed, limit=limit, pixel_base=pixel_base, sample_base=sample_base)
 
-    acc = torch.zeros((n, 3), dtype=torch.int64, device=dev)
 
-    def read(*counts):
-        """The device counts to the host, one transfer."""
-        return host_read(torch.Tensor.tolist, torch.stack(counts))
+def _accumulate(acc, pixel, contrib):
+    """A pass's escaped radiance into the fixed-point accumulator."""
+    with span("lpt.persistent.accumulate"):
+        acc.index_add_(0, pixel, torch.round(contrib * _FIXED_ONE).to(torch.int64))
 
-    def run(rays, k, bounce, items, live, stop_at, unroll=1):
-        """Bounce passes while more than ``stop_at`` lanes are live, read
-        after every ``unroll`` passes; the live lanes of a pass after the
-        first of a group are summed on the device."""
+
+def _live_first(alive, width: int):
+    """The drain's compaction: the indices of the first ``width`` lanes in a
+    stable order that puts the live lanes first."""
+    return torch.argsort((~alive).to(torch.int32), stable=True)[:width]
+
+
+def _read(*counts):
+    """The device counts to the host, one transfer."""
+    return host_read(torch.Tensor.tolist, torch.stack(counts))
+
+
+def _cascade(lanes, levels: tuple, unroll: int):
+    """The modular engine's pass schedule over ``lanes`` (``_EagerLanes`` or
+    ``ModularGraphs``): passes over the full pool while more lanes live than
+    the first drain width, then, at each drain level, the live lanes
+    compacted into its width and passes while more live than the next
+    width (0 after the last), ``unroll`` passes a read there. Returns
+    ``(segments, passes_full, drain_passes)``: the live lanes of every pass
+    summed, and the passes of the full pool and of each level."""
+    def run(live, stop_at, unroll):
         segments = passes = 0
         while live > stop_at:
-            later = torch.zeros((), dtype=torch.int64, device=dev)
-            for j in range(unroll):
-                with span("lpt.persistent.pass"):
-                    if j:
-                        later += rays.alive.sum()
-                    rays, k, bounce, pixel, contrib, _ = step(world_data, rays, k, bounce,
-                                                              items, **fns)
-                    with span("lpt.persistent.accumulate"):
-                        acc.index_add_(0, pixel,
-                                       torch.round(contrib * _FIXED_ONE).to(torch.int64))
-                passes += 1
-            segments += live
-            if unroll > 1:
-                extra, live = read(later, rays.alive.sum())
-                segments += extra
-            else:
-                (live,) = read(rays.alive.sum())
-        return rays, k, bounce, live, segments, passes
+            extra, next_live = lanes.passes(unroll)
+            segments += live + extra
+            passes += unroll
+            live = next_live
+        return live, segments, passes
 
-    k = torch.zeros((sched.pool,), dtype=torch.int64, device=dev)
-    bounce = torch.zeros((sched.pool,), dtype=torch.int64, device=dev)
-    valid0, pix0, samp0 = item_of(k)
-    rays = primary(pix0, samp0).with_alive(valid0)
-    (live,) = read(valid0.sum())
-
-    levels = sched.drain_widths
-    rays, k, bounce, live, segments, passes_full = run(
-        rays, k, bounce, item_of, live, levels[0] if levels else 0)
-
-    group, sample = lanes // spp, lanes % spp
+    live, segments, passes_full = run(lanes.start(), levels[0] if levels else 0, 1)
     drain_passes = []
     for li, lw in enumerate(levels):
         with span("lpt.persistent.drain"):
-            order = torch.argsort((~rays.alive).to(torch.int32), stable=True)
-            sel = order[:lw]
-            group, sample = group[sel], sample[sel]
-            rays, k, bounce = rays.take(sel), k[sel], bounce[sel]
-
-        def item_of_d(kv, group=group, sample=sample):
-            return item_of(kv, group, sample)
-
-        next_w = levels[li + 1] if li + 1 < len(levels) else 0
-        rays, k, bounce, live, segs, lvl_passes = run(
-            rays, k, bounce, item_of_d, live, next_w, unroll)
+            lanes.drain(lw)
+        live, segs, passes = run(live, levels[li + 1] if li + 1 < len(levels) else 0, unroll)
         segments += segs
-        drain_passes.append(lvl_passes)
+        drain_passes.append(passes)
+    return segments, passes_full, tuple(drain_passes)
 
-    return acc, segments, {
-        "pool": sched.pool,
-        "pool_rule": rule,
-        "passes_full": passes_full,
-        "drain_widths": levels,
-        "drain_passes": tuple(drain_passes),
-    }
+
+class _EagerLanes:
+    """The modular engine's lanes as tensors that every pass replaces, each
+    op launched from the host: the CPU and the legacy world
+    (``graphs.takes_graphs``). ``_cascade`` drives it."""
+
+    def __init__(self, world_data, sched: Schedule, spp: int, item_of, fns: dict, acc):
+        self.world, self.sched, self.spp, self.fns, self.acc = world_data, sched, spp, fns, acc
+        self.item_of = self.items = item_of     # a drain level's closes over its lanes
+        self.group = self.sample = None         # a drain level's lane constants
+
+    def start(self) -> int:
+        """Each lane's first work item's primary ray; returns the live lanes."""
+        dev = self.acc.device
+        self.k = torch.zeros((self.sched.pool,), dtype=torch.int64, device=dev)
+        self.bounce = torch.zeros((self.sched.pool,), dtype=torch.int64, device=dev)
+        valid, pixel, sample = self.item_of(self.k)
+        self.rays = self.fns["primary"](pixel, sample).with_alive(valid)
+        (live,) = _read(valid.sum())
+        return live
+
+    def passes(self, unroll: int) -> tuple:
+        """``unroll`` bounce passes and one read: ``(extra, live)``, the live
+        lanes entering each pass after the first, summed on the device, and
+        those after the last."""
+        later = torch.zeros((), dtype=torch.int64, device=self.acc.device)
+        for j in range(unroll):
+            with span(PASS_SPAN):
+                if j:
+                    later += self.rays.alive.sum()
+                self.rays, self.k, self.bounce, pixel, contrib, _ = step(
+                    self.world, self.rays, self.k, self.bounce, self.items, **self.fns)
+                _accumulate(self.acc, pixel, contrib)
+        if unroll > 1:
+            return tuple(_read(later, self.rays.alive.sum()))
+        (live,) = _read(self.rays.alive.sum())
+        return 0, live
+
+    def drain(self, width: int):
+        """The live lanes compacted into the next level's ``width``."""
+        if self.group is None:                # the full pool's lane constants
+            lanes = torch.arange(self.sched.pool, dtype=torch.int64, device=self.acc.device)
+            self.group, self.sample = lanes // self.spp, lanes % self.spp
+        sel = _live_first(self.rays.alive, width)
+        self.rays, self.k, self.bounce = self.rays.take(sel), self.k[sel], self.bounce[sel]
+        self.group, self.sample = self.group[sel], self.sample[sel]
+        self.items = functools.partial(self.item_of, group=self.group, sample=self.sample)
+
+    def finish(self):
+        return self.acc
+
+
+# ``(key, ModularGraphs)`` of the last modular render that took the graphs
+# (``modular_graphs``): a render of another key replaces it, and its graphs'
+# memory goes with it
+_GRAPHS = (None, None)
+
+
+def modular_graphs(world_data, cam: CameraParams, resolution, n: int, spp: int, limit: int,
+                   sched: Schedule, bsdf: str, camera_model: str, scene: str,
+                   hit_backend: str):
+    """The ``ModularGraphs`` of a modular render of ``n`` pixels at ``spp``
+    on ``sched``, captured at the first call of its key and kept until a
+    call of another key, or None where the render runs eagerly
+    (``graphs.takes_graphs``: off the card, on the legacy world, under a
+    dispatch mode). A sphere world takes the graphs under every hit backend.
+
+    The key is what the graphs were captured from: the world's tables where
+    they lie (``graphs.signature``), the camera's layout (its values are
+    copied in), the resolution, the pixels, spp, the depth, the schedule,
+    the BSDF, hit and camera functions, and the hit backend. The seed and
+    the range's bases are data (``ModularGraphs.load``)."""
+    if not graphs.takes_graphs(scene, cam.device, n):
+        return None
+    global _GRAPHS
+    scatter, hit = SCATTERERS[bsdf], world_mod.hit
+    key = (graphs.signature(world_data), graphs.signature(cam, address=False),
+           tuple(resolution), n, spp, limit, sched, scatter, hit, camera_model, hit_backend)
+    if _GRAPHS[0] != key:
+        _GRAPHS = (None, None)      # the old graphs' memory goes before the capture
+        _GRAPHS = (key, ModularGraphs(world_data, cam, resolution, n, spp, limit, sched, bsdf,
+                                      camera_model, hit_backend))
+    return _GRAPHS[1]
+
+
+@dataclass
+class _LaneBuffers:
+    """One pool width's lanes in device buffers: the rays, each lane's work
+    item counter ``k`` and bounce, and its ``(group, sample)`` constants
+    (``item_fn``)."""
+
+    rays: Rays
+    k: torch.Tensor
+    bounce: torch.Tensor
+    group: torch.Tensor
+    sample: torch.Tensor
+
+    @classmethod
+    def zeros(cls, width: int, device) -> "_LaneBuffers":
+        def z(*shape, dtype=torch.int64):
+            return torch.zeros((width, *shape), dtype=dtype, device=device)
+
+        return cls(Rays(z(3, dtype=torch.float32), z(3, dtype=torch.float32),
+                        z(3, dtype=torch.float32), z(dtype=torch.bool)), z(), z(), z(), z())
+
+    def tensors(self) -> list:
+        return [*(t for _, t in graphs.tensor_fields(self.rays)), self.k, self.bounce,
+                self.group, self.sample]
+
+    def store_rays(self, rays: Rays):
+        for (_, t), (_, new) in zip(graphs.tensor_fields(self.rays), graphs.tensor_fields(rays)):
+            t.copy_(new)
+
+
+class ModularGraphs:
+    """A modular sphere-world render on the card as CUDA graphs: its start
+    (each lane's first primary ray) and one bounce pass at each pool width
+    (the full pool and each drain level: six for the 1280x720, 8-spp card
+    frame), each captured once (``graphs.capture``) and replayed for every
+    pass of the calls that share its key (``modular_graphs``).
+    ``_cascade`` drives it as it drives the eager loop, with the same bits.
+
+    The graphs run the eager loop's own functions (``step``,
+    ``_accumulate``, ``_pass_fns``' closures) over static device buffers:
+    the camera (``load`` copies its values in); the seed's 32 bits, the
+    pixel base and the sample base (0-d int64s that ``load`` fills, which
+    the camera and ``rng.stream`` hash as they hash the eager loop's ints);
+    each width's lanes (``_LaneBuffers``: each pass copies its next state
+    back into them, and the drain's compaction, eager once a level, gathers
+    the live lanes into the next width's); the accumulator; ``counts``, the
+    live lanes after the last pass and their running sum over the call's
+    passes, the one read a pass; and, under the 'bvh' hit backend, K3's
+    error word, read once a call. Each replay runs in the span of what it
+    replays (``lpt.camera.primary``, ``lpt.persistent.pass``); the spans
+    inside them open only at the capture."""
+
+    def __init__(self, world_data, cam: CameraParams, resolution, n: int, spp: int,
+                 limit: int, sched: Schedule, bsdf: str, camera_model: str, hit_backend: str):
+        dev = cam.device
+        self.world = world_data
+        self.cam = dataclasses.replace(
+            cam, **{k: t.clone() for k, t in graphs.tensor_fields(cam)})
+        self.ints = torch.zeros((3,), dtype=torch.int64, device=dev)
+        self.acc = torch.zeros((n, 3), dtype=torch.int64, device=dev)
+        self.counts = torch.zeros((2,), dtype=torch.int64, device=dev)
+        self.err = (torch.zeros((1,), dtype=torch.int32, device=dev)
+                    if hit_backend == "bvh" else None)
+        self.item_of = item_fn(sched, n, spp, dev)
+        self.fns = _pass_fns(self.cam, resolution, *self.ints.unbind(), limit, bsdf,
+                             camera_model, "spheres", hit_backend, self.err)
+        self.levels = [_LaneBuffers.zeros(w, dev) for w in (sched.pool, *sched.drain_widths)]
+        lanes = torch.arange(sched.pool, dtype=torch.int64, device=dev)
+        self.levels[0].group.copy_(lanes // spp)
+        self.levels[0].sample.copy_(lanes % spp)
+        self.level, self.total = 0, 0
+        self.start_graph, *self.pass_graphs = graphs.capture(
+            dev, [self._start, *(functools.partial(self._pass, lv) for lv in self.levels)])
+
+    def _start(self):
+        lv = self.levels[0]
+        lv.k.zero_()
+        lv.bounce.zero_()
+        valid, pixel, sample = self.item_of(lv.k, lv.group, lv.sample)
+        lv.store_rays(self.fns["primary"](pixel, sample).with_alive(valid))
+        self.acc.zero_()
+        self.counts[0].copy_(valid.sum())
+        self.counts[1].zero_()
+        if self.err is not None:
+            self.err.zero_()
+
+    def _pass(self, lv: _LaneBuffers):
+        rays, k, bounce, pixel, contrib, _ = step(
+            self.world, lv.rays, lv.k, lv.bounce,
+            functools.partial(self.item_of, group=lv.group, sample=lv.sample), **self.fns)
+        _accumulate(self.acc, pixel, contrib)
+        lv.store_rays(rays)
+        lv.k.copy_(k)
+        lv.bounce.copy_(bounce)
+        live = rays.alive.sum()
+        self.counts[0].copy_(live)
+        self.counts[1].add_(live)
+
+    def load(self, cam: CameraParams, seed, pixel_base: int, sample_base: int):
+        """Start a render call: the camera's values, the seed's 32 bits (all
+        that ``rng.stream`` reads of it) and the range's bases into the
+        buffers."""
+        for name, t in graphs.tensor_fields(self.cam):
+            t.copy_(getattr(cam, name))
+        for t, v in zip(self.ints.unbind(), (int(seed) & 0xFFFFFFFF, pixel_base, sample_base)):
+            t.fill_(v)
+
+    def start(self) -> int:
+        """The start's replay (the accumulator, the counts and the error
+        word to 0); returns the live lanes."""
+        with span("lpt.camera.primary"):
+            self.start_graph.replay()
+        self.level, self.total = 0, 0
+        live, _ = host_read(torch.Tensor.tolist, self.counts)
+        return live
+
+    def passes(self, unroll: int) -> tuple:
+        """``unroll`` replays of the level's pass and one read of ``counts``:
+        ``(extra, live)`` as ``_EagerLanes.passes`` returns them (the sum's
+        growth less the last pass's live lanes is the live lanes entering
+        each pass after the first)."""
+        graph = self.pass_graphs[self.level]
+        for _ in range(unroll):
+            with span(PASS_SPAN):
+                graph.replay()
+        live, total = host_read(torch.Tensor.tolist, self.counts)
+        extra, self.total = total - self.total - live, total
+        return extra, live
+
+    def drain(self, width: int):
+        """The live lanes gathered into the next level's buffers."""
+        src, dst = self.levels[self.level], self.levels[self.level + 1]
+        sel = _live_first(src.rays.alive, width)
+        for a, b in zip(src.tensors(), dst.tensors()):
+            torch.index_select(a, 0, sel, out=b)
+        self.level += 1
+
+    def finish(self):
+        """The accumulator, copied out of the buffer the next call
+        overwrites; under the 'bvh' hit backend K3's error word is read
+        first and raises the error its launches would have
+        (``check_flags``)."""
+        if self.err is not None:
+            check_flags(host_read(int, self.err))
+        return self.acc.clone()
 
 
 MODULAR_KNOBS = dict(pool_mult=0, pool_div=0, drain_ratio=DRAIN_RATIO, drain_floor=0,

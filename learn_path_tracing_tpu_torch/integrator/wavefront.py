@@ -42,16 +42,14 @@ from ..camera.camera import CameraParams, generate_rays_for_pixels, pixel_grid
 from ..core import rng
 from ..core.pytree import tree_where
 from ..core.types import Rays
-from ..ops import count_replay, kernel_counters, uncounted
+from ..ops import kernel_counters
 from ..ops.packet_traverse import check_flags
 from ..scene import world as world_mod
-from ..utils.profiling import count_delta, host_read, recording, span, unrecorded
+from ..utils.profiling import host_read, recording, span
+from . import graphs
 
 ROOT_SPAN = "lpt.render.wavefront"
 PASS_SPAN = "lpt.wavefront.pass"
-# CUDA graphs captured and replayed in this process (``PassGraphs``), whose
-# deltas a render's stats report as ``graph``
-GRAPH_COUNTS = {"captures": 0, "replays": 0}
 # ``(key, PassGraphs)`` of the last render that took the graphs
 # (``pass_graphs``): a render of another key replaces it, and its graphs'
 # memory goes with it
@@ -155,14 +153,14 @@ def trace_sample_pixels(world_data, cam: CameraParams, resolution, pixel_ids,
     ``PassGraphs``; the same bits.
     """
     pix = pixel_ids.to(torch.int64)
-    graphs = pass_graphs(world_data, cam, resolution, pix.shape[0], bsdf, camera_model,
-                         scene, hit_backend)
-    if graphs is None:
+    pg = pass_graphs(world_data, cam, resolution, pix.shape[0], bsdf, camera_model, scene,
+                     hit_backend)
+    if pg is None:
         return _trace_eager(world_data, cam, resolution, pix, seed, sample, limit, bsdf,
                             camera_model, scene, hit_backend, early_exit)
-    graphs.load(cam, pix)
-    radiance = graphs.sample(seed, sample, limit, early_exit).clone()
-    return radiance, graphs.finish()
+    pg.load(cam, pix)
+    radiance = pg.sample(seed, sample, limit, early_exit).clone()
+    return radiance, pg.finish()
 
 
 def trace_sample(world_data, cam: CameraParams, resolution, seed, sample,
@@ -195,10 +193,10 @@ def render(world_data, cam: CameraParams, resolution, spp: int, limit: int = 32,
 
 def _stats(table, graphs_before) -> dict:
     """A render's stats from its table: the passes are its pass spans;
-    ``graph``, the CUDA graphs it captured and replayed (``GRAPH_COUNTS``
-    less ``graphs_before``)."""
+    ``graph``, the CUDA graphs it captured and replayed since the snapshot
+    ``graphs_before`` (``graphs.graph_stats``)."""
     return {"passes": table.spans.get(PASS_SPAN, [0])[0], **table.stats(),
-            "graph": {k: n - graphs_before[k] for k, n in GRAPH_COUNTS.items()}}
+            "graph": graphs.graph_stats(graphs_before)}
 
 
 def _accumulate(world_data, cam, acc, sample_start, resolution, spp_per_call, limit, seed,
@@ -207,13 +205,13 @@ def _accumulate(world_data, cam, acc, sample_start, resolution, spp_per_call, li
     spp_per_call``, added one sample at a time; returns ``(acc, segments)``.
     ``PassGraphs`` read their segments and K3's error word once, at the end."""
     pix = pixel_grid(resolution, cam.device)
-    graphs = pass_graphs(world_data, cam, resolution, pix.shape[0], bsdf, camera_model,
-                         scene, hit_backend)
-    if graphs is not None:
-        graphs.load(cam, pix)
+    pg = pass_graphs(world_data, cam, resolution, pix.shape[0], bsdf, camera_model, scene,
+                     hit_backend)
+    if pg is not None:
+        pg.load(cam, pix)
         for k in range(spp_per_call):
-            acc = acc + graphs.sample(seed, sample_start + k, limit, early_exit)
-        return acc, graphs.finish()
+            acc = acc + pg.sample(seed, sample_start + k, limit, early_exit)
+        return acc, pg.finish()
     segs = 0
     for k in range(spp_per_call):
         radiance, segments = _trace_eager(
@@ -233,7 +231,7 @@ def render_accumulate(world_data, cam: CameraParams, acc, sample_start: int,
     spp_per_call`` into ``acc f32[N,3]`` (radiance sums, one row per
     pixel). Returns ``(acc, segments int)``, and the stats dict with
     ``stats``: a new tensor, ``acc`` itself is not written."""
-    graphs_before = dict(GRAPH_COUNTS)
+    graphs_before = dict(graphs.GRAPH_COUNTS)
     with recording(stats, ROOT_SPAN, kernel_counters) as table:
         acc, segs = _accumulate(world_data, cam, acc, sample_start, resolution, spp_per_call,
                                 limit, seed, bsdf, camera_model, scene, hit_backend,
@@ -250,7 +248,7 @@ def render_chunked(world_data, cam: CameraParams, resolution, spp: int,
     RNG counters and order of adds, so the same image). Returns (image
     f32[W,H,3], segments int), and the stats dict with ``stats``."""
     w, h = resolution
-    graphs_before = dict(GRAPH_COUNTS)
+    graphs_before = dict(graphs.GRAPH_COUNTS)
     with recording(stats, ROOT_SPAN, kernel_counters) as table:
         acc = torch.zeros((w * h, 3), dtype=torch.float32, device=cam.device)
         segs = 0
@@ -265,44 +263,25 @@ def render_chunked(world_data, cam: CameraParams, resolution, spp: int,
 
 # ------------------------------------------------------------ CUDA graphs --
 
-def _tensor_fields(x):
-    """``(name, tensor)`` of each tensor field of the dataclass ``x``."""
-    return [(f.name, getattr(x, f.name)) for f in dataclasses.fields(x)
-            if isinstance(getattr(x, f.name), torch.Tensor)]
-
-
-def _signature(x, address: bool = True):
-    """What a captured graph depends on in ``x`` (a tensor, a dataclass or
-    tuple of them, or a plain value): each tensor's device, dtype, shape,
-    strides and, with ``address``, its address; every other value."""
-    if isinstance(x, torch.Tensor):
-        return (str(x.device), x.dtype, tuple(x.shape), x.stride(),
-                x.data_ptr() if address else None)
-    if dataclasses.is_dataclass(x):
-        return tuple(_signature(getattr(x, f.name), address) for f in dataclasses.fields(x))
-    if isinstance(x, (tuple, list)):
-        return tuple(_signature(v, address) for v in x)
-    return x
-
-
 def pass_graphs(world_data, cam: CameraParams, resolution, n: int, bsdf: str,
                 camera_model: str, scene: str, hit_backend: str):
     """The ``PassGraphs`` of a render of ``n`` lanes, captured at the first
     call of its key and kept until a call of another key, or None where
-    the render runs eagerly: off the card, and on the legacy world, whose
-    traversal reads its error word on every call. A sphere world takes the graphs under
-    every hit backend: none reads the device (K3 defers its error word).
+    the render runs eagerly (``graphs.takes_graphs``: off the card, on the
+    legacy world, whose traversal reads its error word on every call, and
+    under a dispatch mode). A sphere world takes the graphs under every hit
+    backend: none reads the device (K3 defers its error word).
 
     The key is what the graphs were captured from: the world's tables
-    where they lie (``_signature``), the camera's layout (its values are
+    where they lie (``graphs.signature``), the camera's layout (its values are
     copied in), the resolution, the lane count, the BSDF, hit and camera
     functions, and the hit backend."""
-    if scene != "spheres" or cam.device.type != "cuda" or n == 0:
+    if not graphs.takes_graphs(scene, cam.device, n):
         return None
     global _GRAPHS
     scatter, hit = SCATTERERS[bsdf], world_mod.hit
-    key = (_signature(world_data), _signature(cam, address=False), tuple(resolution), n,
-           scatter, hit, camera_model, hit_backend)
+    key = (graphs.signature(world_data), graphs.signature(cam, address=False),
+           tuple(resolution), n, scatter, hit, camera_model, hit_backend)
     if _GRAPHS[0] != key:
         _GRAPHS = (None, None)      # the old graphs' memory goes before the capture
         _GRAPHS = (key, PassGraphs(world_data, cam, resolution, n, scatter, camera_model,
@@ -323,17 +302,17 @@ class PassGraphs:
     ``rng.stream(...)`` before each replay), the rays (each pass copies its
     next rays back into them), the radiance, the segment count and K3's
     error word. They read the world's tables where they lie, and hold the
-    world. Each replay runs in the span of what it replays and counts the
-    launches its capture made (``ops.count_replay``); the warm-up and the
-    captures count nothing (``ops.uncounted``)."""
+    world. Each replay runs in the span of what it replays; the capture and
+    its counts are ``graphs.capture``'s."""
 
     def __init__(self, world_data, cam: CameraParams, resolution, n: int, scatter,
                  camera_model: str, hit_backend: str):
         dev = cam.device
-        self.device, self.world, self.resolution = dev, world_data, tuple(resolution)
+        self.world, self.resolution = world_data, tuple(resolution)
         self.scatter, self.camera_model, self.hit_backend = scatter, camera_model, hit_backend
         self.hit_fn, self.background_fn = _scene_fns("spheres")
-        self.cam = dataclasses.replace(cam, **{k: t.clone() for k, t in _tensor_fields(cam)})
+        self.cam = dataclasses.replace(
+            cam, **{k: t.clone() for k, t in graphs.tensor_fields(cam)})
         self.pix = torch.zeros((n,), dtype=torch.int64, device=dev)
         self.stream_h = torch.zeros((), dtype=torch.int64, device=dev)
         self.rays = Rays(*(torch.zeros((n, 3), dtype=torch.float32, device=dev)
@@ -342,10 +321,10 @@ class PassGraphs:
         self.radiance = torch.zeros((n, 3), dtype=torch.float32, device=dev)
         self.segments = torch.zeros((), dtype=torch.int64, device=dev)
         self.err = torch.zeros((1,), dtype=torch.int32, device=dev)
-        self._capture()
+        self.primaries, self.bounce = graphs.capture(dev, [self._primaries, self._pass])
 
     def _store(self, rays: Rays):
-        for name, t in _tensor_fields(self.rays):
+        for name, t in graphs.tensor_fields(self.rays):
             t.copy_(getattr(rays, name))
 
     def _primaries(self):
@@ -362,39 +341,10 @@ class PassGraphs:
         self.radiance.copy_(radiance)
         self.segments.copy_(segments)
 
-    @staticmethod
-    def _graph(body) -> torch.cuda.CUDAGraph:
-        graph = torch.cuda.CUDAGraph()
-        # thread_local: another thread's CUDA calls (the viewer's HTTP
-        # threads) do not break this thread's capture
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            body()
-        return graph
-
-    def _capture(self):
-        """Run both bodies once (the kernels load before the capture), then
-        capture each, keeping the launches each capture made, which its
-        replays count."""
-        with torch.cuda.device(self.device), unrecorded(), uncounted():
-            self._primaries()
-            self._pass()
-            warm = kernel_counters()
-            self.primaries = self._graph(self._primaries)
-            primed = kernel_counters()
-            self.bounce = self._graph(self._pass)
-            self.primary_counts = count_delta(warm, primed)
-            self.pass_counts = count_delta(primed, kernel_counters())
-        GRAPH_COUNTS["captures"] += 2
-
-    def _replay(self, graph, counts):
-        graph.replay()
-        count_replay(counts)
-        GRAPH_COUNTS["replays"] += 1
-
     def load(self, cam: CameraParams, pix):
         """Start a render call: the camera's values and the int64 pixel ids
         into the buffers, the segment count and the error word to 0."""
-        for name, t in _tensor_fields(self.cam):
+        for name, t in graphs.tensor_fields(self.cam):
             t.copy_(getattr(cam, name))
         self.pix.copy_(pix)
         self.segments.zero_()
@@ -404,16 +354,15 @@ class PassGraphs:
         """Sample ``sample``'s primaries and up to ``limit`` bounce passes,
         with the eager loop's live check before each under ``early_exit``.
         Returns the radiance buffer, which the next sample overwrites."""
-        with torch.cuda.device(self.device):
-            self.stream_h.fill_(rng.stream(seed, sample, 0, rng.STREAM_CAMERA))
-            with span("lpt.camera.primary"):
-                self._replay(self.primaries, self.primary_counts)
-            for b in range(limit):
-                if early_exit and not host_read(bool, self.rays.alive.any()):
-                    break
-                with span(PASS_SPAN):
-                    self.stream_h.fill_(rng.stream(seed, sample, b, rng.STREAM_BSDF))
-                    self._replay(self.bounce, self.pass_counts)
+        self.stream_h.fill_(rng.stream(seed, sample, 0, rng.STREAM_CAMERA))
+        with span("lpt.camera.primary"):
+            self.primaries.replay()
+        for b in range(limit):
+            if early_exit and not host_read(bool, self.rays.alive.any()):
+                break
+            with span(PASS_SPAN):
+                self.stream_h.fill_(rng.stream(seed, sample, b, rng.STREAM_BSDF))
+                self.bounce.replay()
         return self.radiance
 
     def finish(self) -> int:

@@ -52,7 +52,7 @@ def _graphed(counts: dict, sign: int):
 def count_replay(counts: dict):
     """Count one replay of a CUDA graph whose capture launched ``counts`` (a
     ``count_delta`` of two ``kernel_counters`` snapshots around it):
-    ``integrator.wavefront.PassGraphs``."""
+    ``integrator.graphs.Graph.replay``."""
     _graphed(counts, 1)
 
 
